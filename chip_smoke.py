@@ -13,7 +13,10 @@ script exits non-zero without its last line:
               decode at Sk 1057 with ragged lengths, fp32 / fp2fx8 / bf16
               K/V, HYFT16, HYFT32 and HYFT16 with step 2; chunk attention
               at Sq 1024 over Lk 1057 with the causal per-lane mask; chunk
-              attention at Sq 1 bitwise equal to decode;
+              attention at Sq 1 bitwise equal to decode.  Kernel and plain
+              version are called by name on the same folded inputs; their
+              level-1 stats and the output of the shared combine must stay
+              within the bounds that ``tile_errors`` states;
   4. serve    greedy ``generate`` of qwen2-1.5b at full width (28 layers,
               random weights from a seed), hyft16, attn_mode="kernel", bf16
               compute, batch 4, prompt 1024, 32 new tokens, once per KV
@@ -72,13 +75,6 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def tol(cfg, v):
-    """Kernel vs plain: the fp32 dot products sum in another order, which
-    can move one FP2FX raw and flip the last bit of the log-subtract
-    divide: 2 * 2**-mant_bits of the largest |v|."""
-    return 2.0 * 2.0 ** -cfg.mant_bits * float(v.float().abs().max())
-
-
 def device_phase(torch):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -114,12 +110,17 @@ def _cache_kv(torch, gen, cache_dtype, shape):
 
 
 def check_phase(torch):
-    """Each kernel against its plain version on the same inputs."""
+    """Each kernel against its plain version, both called by name on the
+    same folded inputs: the level-1 stats and the output of the shared
+    combine, each within the bound ``fa.tile_errors`` states; then, through
+    the wrappers, chunk attention at Sq = 1 bitwise equal to decode."""
     from repro_torch.core.hyft import HYFT16, HYFT32
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errors = {}
+    BH, g = B * HKV, HQ // HKV
+    bk = fa._block_k(MAX_LEN, 256)
     valid = torch.tensor([1057, 900, 300, 5], device="cuda")
     mask = (torch.arange(MAX_LEN, device="cuda")[None] < valid[:, None]).float()
     lane = (torch.arange(MAX_LEN, device="cuda")[None, None]
@@ -127,36 +128,32 @@ def check_phase(torch):
     lane = lane.float().expand(B, PROMPT, MAX_LEN).contiguous()
     for cache_dtype in ("float32", "fp2fx8", "bfloat16"):
         k, v, sc, vf = _cache_kv(torch, gen, cache_dtype, (B, HKV, MAX_LEN, D))
+        flat = [t.reshape(BH, MAX_LEN, *t.shape[3:]) if t is not None else None
+                for t in (k, v, sc.get("k_scale"), sc.get("v_scale"))]
         q1 = torch.randn(B, HQ, 1, D, generator=gen, device="cuda")
-        qc = torch.randn(B, HQ, PROMPT, D, generator=gen, device="cuda")
+        qc = torch.randn(BH, g * PROMPT, D, generator=gen, device="cuda")
+        cases = [("decode", q1.reshape(BH, g, D), mask, None)]
+        if cache_dtype != "bfloat16":     # not on the main path: decode only
+            cases.append(("verify", qc, lane, PROMPT))
         # step=2: the strided max counts from each split's start
         for cfg in (HYFT16, HYFT32, dataclasses.replace(HYFT16, step=2)):
-            t = tol(cfg, vf)
+            kw = dict(cfg=cfg, sm_scale=D ** -0.5, bk=bk, hkv=HKV)
+            for kind, q3, m, sq in cases:
+                got = fa._splitk_tiles_cuda(q3, *flat, m, **kw, sq=sq)
+                ref = fa.splitk_tiles_plain(q3, *flat, m, **kw, sq=sq)
+                err = fa.tile_errors(got, ref, cfg, float(vf.abs().max()), bk)
+                emit({"phase": "check", "kernel": kind, "kv": cache_dtype,
+                      "cfg": cfg.io_dtype, "step": cfg.step, **err})
+                assert torch.isfinite(got[0]).all(), f"{kind}: non-finite acc"
+                assert err["m_loc"] <= 1 and err["l_loc"] <= 1 and err["out"] <= 1, \
+                    f"{kind} disagrees with its plain version"
+                if cfg is HYFT16:     # the main path's config
+                    errors[(kind, cache_dtype)] = err["max_abs_err"]
+                del got, ref
             out = fa.flash_hyft_decode(q1, k, v, cfg, kv_len_mask=mask, **sc)
-            ref = fa.flash_hyft_decode(q1, k, v, cfg, kv_len_mask=mask, **sc,
-                                       tiles=fa.splitk_tiles_plain)
-            err = float((out - ref).abs().max())
-            emit({"phase": "check", "kernel": "decode", "kv": cache_dtype,
-                  "cfg": cfg.io_dtype, "step": cfg.step, "max_abs_err": err,
-                  "tol": t})
-            assert torch.isfinite(out).all() and err <= t, "decode disagrees"
             one = fa.flash_hyft_verify(q1, k, v, mask[:, None], cfg, **sc)
             assert torch.equal(one, out), "chunk at Sq=1 is not bitwise decode"
-            if cache_dtype == "bfloat16":
-                continue          # not on the main path: decode only
-            out = fa.flash_hyft_verify(qc, k, v, lane, cfg, **sc)
-            ref = fa.flash_hyft_verify(qc, k, v, lane, cfg, **sc,
-                                       tiles=fa.splitk_tiles_plain)
-            verr = float((out - ref).abs().max())
-            emit({"phase": "check", "kernel": "verify", "kv": cache_dtype,
-                  "cfg": cfg.io_dtype, "step": cfg.step, "max_abs_err": verr,
-                  "tol": t,
-                  "sq1_bitwise_decode": True})
-            assert torch.isfinite(out).all() and verr <= t, "verify disagrees"
-            if cfg is HYFT16:     # the main path's config
-                errors[("decode", cache_dtype)] = err
-                errors[("verify", cache_dtype)] = verr
-            del out, ref
+        emit({"phase": "check", "kv": cache_dtype, "sq1_bitwise_decode": True})
         torch.cuda.synchronize()
     return errors
 
@@ -356,7 +353,7 @@ def kernels_phase(torch, errors, launches):
             nbytes = (BH * rows * D * 4 + 2 * BH * MAX_LEN * D * kv_bytes
                       + (2 * BH * MAX_LEN * 4 if cache_dtype == "fp2fx8" else 0)
                       + mask.numel() * 4 + BH * ns * rows * (D + 2) * 4)
-            flops = 4 * BH * rows * ns * bk * D   # QK^T + PV over the splits
+            flops = 4 * BH * rows * MAX_LEN * D   # QK^T + PV over the real keys
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / FP32_FLOPS_PER_S * 1e3
             entry = "hyft_splitk_decode" if kind == "decode" else "hyft_splitk_verify"

@@ -19,7 +19,8 @@ Level 1 runs in the hand-written CUDA kernel ``csrc/hyft_splitk.cu`` for a
 CUDA tensor and in its plain PyTorch version (``splitk_tiles_plain``) for a
 CPU tensor; the wrapper picks by ``q.device.type`` and nothing else.  Level
 2 is plain torch on the device for both, as the JAX package computes it
-outside the ``pallas_call``.
+outside the ``pallas_call``.  To hold the kernel to its plain version, call
+both by name on the same folded inputs and measure with ``tile_errors``.
 
 Layouts are the JAX package's: q ``(B, Hq, Sq, D)``, K/V ``(B, Hkv, Sk, D)``
 float or int8 FP2FX raws with fp32 ``(B, Hkv, Sk)`` scales.  The GQA group
@@ -232,6 +233,38 @@ def _tiles_for(device: torch.device):
     raise ValueError(f"no split-K attention for device {device}")
 
 
+def tile_errors(got, ref, cfg: HyftConfig, v_absmax: float, bk: int) -> dict:
+    """Level-1 stats ``got`` against ``ref``, both ``(acc, m_loc, l_loc)``
+    for the same inputs (the kernel's and the plain version's), as the
+    worst |diff| over its bound: each of ``m_loc``, ``l_loc`` and ``out``
+    must be <= 1.  A kernel that sums its fp32 dot products in another
+    order may differ from the plain version only so:
+
+    * a score can round to the neighbouring FP2FX raw, so ``m_loc`` may
+      move by one raw;
+    * that moves one key's Hyft exponent by about 2**-mant of itself, or
+      every key's through ``m_loc``, and the addends round to
+      2**-acc_bits: ``|dl| <= 2 * 2**-mant * l + bk * 2**-acc_bits``;
+    * after the shared combine, the output moves by 2**-mant * max|v| *
+      p / l for the key that moved, with l the row's merged fixed-point
+      sum and p <= 1 (exactly 1 at the max; a strided max may leave a key
+      above it, covered up to p = 2), plus 2**-mant of |out| from the
+      log-subtract divide; twice each.
+    """
+    eps = 2.0 ** -cfg.mant_bits
+    (_, m_g, l_g), (_, m_r, l_r) = got, ref
+    out_g, out_r = _splitk_combine(*got, cfg), _splitk_combine(*ref, cfg)
+    alpha = hyft_alpha(m_r - m_r.amax(1, keepdim=True), cfg)
+    l_glob = (l_r * alpha).sum(1)[..., None]               # (BH, rows, 1)
+    diff = (out_g - out_r).abs()
+    return {"m_loc": float((m_g - m_r).abs().max()),
+            "m_loc_mismatches": int((m_g != m_r).sum()),
+            "l_loc": float(((l_g - l_r).abs()
+                            / (2 * eps * l_r + bk * 2.0 ** -cfg.acc_bits)).max()),
+            "out": float((diff / (2 * eps * (out_r.abs() + v_absmax / l_glob))).max()),
+            "max_abs_err": float(diff.max())}
+
+
 # --------------------------------------------------------------------------
 # wrappers: the JAX entry points' folding, then level 1, then level 2
 # --------------------------------------------------------------------------
@@ -243,7 +276,7 @@ def _block_k(Sk: int, block_k: int) -> int:
 
 def flash_hyft_decode(q, k, v, cfg: HyftConfig, sm_scale: float | None = None,
                       block_k: int = 256, kv_len_mask=None, k_scale=None,
-                      v_scale=None, *, tiles=None):
+                      v_scale=None):
     """Split-K fused decode attention with Hyft softmax (Sq = 1).
 
     Args:
@@ -251,8 +284,6 @@ def flash_hyft_decode(q, k, v, cfg: HyftConfig, sm_scale: float | None = None,
         with ``k_scale``/``v_scale`` (B, Hkv, Sk) fp32 scales, dequantized
         in the K/V loads.
       kv_len_mask: optional (B, Sk) validity mask (nonzero = valid).
-      tiles: level-1 implementation; None picks by ``q.device`` (the
-        main path), ``splitk_tiles_plain`` forces the plain version.
     Returns (B, Hq, 1, D) fp32.
     """
     B, Hq, Sq, D = q.shape
@@ -263,7 +294,7 @@ def flash_hyft_decode(q, k, v, cfg: HyftConfig, sm_scale: float | None = None,
     maskf = (kv_len_mask.to(F32).contiguous() if kv_len_mask is not None
              else torch.ones((B, Sk), dtype=F32, device=q.device))
     q3 = q.reshape(B * Hkv, g, D).to(F32).contiguous()
-    tiles = tiles or _tiles_for(q.device)
+    tiles = _tiles_for(q.device)
     acc, m_loc, l_loc = tiles(
         q3, k.reshape(B * Hkv, Sk, D), v.reshape(B * Hkv, Sk, D),
         None if k_scale is None else k_scale.reshape(B * Hkv, Sk),
@@ -275,8 +306,7 @@ def flash_hyft_decode(q, k, v, cfg: HyftConfig, sm_scale: float | None = None,
 
 def flash_hyft_verify(q, k, v, kv_pos_mask, cfg: HyftConfig,
                       sm_scale: float | None = None, block_k: int = 256,
-                      block_tables=None, k_scale=None, v_scale=None, *,
-                      tiles=None):
+                      block_tables=None, k_scale=None, v_scale=None):
     """Split-K fused chunk attention with Hyft softmax (Sq = token chunk).
 
     The prompt-chunk path behind ``verify_attention``'s kernel mode.
@@ -297,7 +327,7 @@ def flash_hyft_verify(q, k, v, kv_pos_mask, cfg: HyftConfig,
     g = Hq // Hkv
     scale = sm_scale if sm_scale is not None else D ** -0.5
     q3 = q.reshape(B * Hkv, g * Sq, D).to(F32).contiguous()
-    tiles = tiles or _tiles_for(q.device)
+    tiles = _tiles_for(q.device)
     acc, m_loc, l_loc = tiles(
         q3, k.reshape(B * Hkv, Sk, D), v.reshape(B * Hkv, Sk, D),
         None if k_scale is None else k_scale.reshape(B * Hkv, Sk),

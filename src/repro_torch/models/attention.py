@@ -194,23 +194,27 @@ def cache_update_block_ragged(cache, k_new, v_new, pos_b, n_valid,
     ``pos_b[b] + j`` when ``j < n_valid[b]``, the row's ``write_mask`` is
     set and the position is inside the cache; other lanes write nothing.
 
-    One masked write per buffer.  The JAX package writes token by token;
-    the result is the same because fp2fx8 quantization is per (head,
-    position).  Picking the written lanes reads the mask back to the host
-    once per call.
+    One masked write per buffer, with no read back to the host.  The JAX
+    package writes token by token; the result is the same because fp2fx8
+    quantization is per (head, position).  Every lane writes: lane ``j``
+    goes to ``(pos_b[b] + j) % L``, and a gated lane writes back the old
+    value there.  A row's S <= L lanes land on distinct positions, so no
+    two lanes of one write meet.
     """
-    B, _, S, _ = k_new.shape
     L = cache["k"].shape[2]
+    k_new, v_new = k_new[:, :, :L], v_new[:, :, :L]   # lanes past L never write
+    B, _, S, _ = k_new.shape
     j = torch.arange(S, device=k_new.device)
     pos = pos_b.to(torch.long)[:, None] + j[None, :]       # (B, S)
     gate = (j[None, :] < n_valid.to(torch.long)[:, None]) & (pos < L)
     if write_mask is not None:
         gate = gate & write_mask[:, None]
-    bs, js = torch.nonzero(gate, as_tuple=True)
-    ps = pos[bs, js]
+    rows, tgt = torch.arange(B, device=k_new.device)[:, None], pos % L
     for name, new in _quantized_entries(cache, k_new, v_new).items():
         buf = cache[name]
-        buf[bs, :, ps] = new[bs, :, js].to(buf.dtype)
+        new = new.transpose(1, 2).to(buf.dtype)            # (B, S, Hkv[, D])
+        g = gate.reshape(gate.shape + (1,) * (new.ndim - 2))
+        buf[rows, :, tgt] = torch.where(g, new, buf[rows, :, tgt])
     return cache
 
 

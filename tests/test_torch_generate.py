@@ -114,13 +114,15 @@ def test_prefill_and_decode_match_jax(setup, cache_dtype, attn_mode):
             _close(jb[name], tb[name])
 
 
+@pytest.mark.parametrize("L", [9, 4], ids=["wraps", "chunk-past-cache"])
 @pytest.mark.parametrize("cache_dtype", CACHES)
-def test_cache_write_bitexact(cache_dtype):
+def test_cache_write_bitexact(cache_dtype, L):
     """The ragged multi-token cache write on the same K/V: bit-exact raws
     and scales for fp2fx8, and the same gating (padded lanes, gated rows
-    and positions past the cache write nothing)."""
+    and positions past the cache write nothing), also for a chunk longer
+    than the cache."""
     rng = np.random.default_rng(0)
-    B, Hkv, S, D, L = 3, 2, 5, 8, 9
+    B, Hkv, S, D = 3, 2, 5, 8
     k = rng.standard_normal((B, Hkv, S, D)).astype(np.float32)
     v = rng.standard_normal((B, Hkv, S, D)).astype(np.float32)
     pos = np.array([0, 2, 6], np.int32)

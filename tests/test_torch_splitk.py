@@ -148,3 +148,27 @@ def test_paged_verify_is_not_ported():
                               torch.from_numpy(v), torch.ones(B, 1, 16),
                               thyft.HYFT16, block_tables=torch.zeros(B, 1))
 
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_tile_errors_flags_a_percent_error(name):
+    """The bounds that hold the CUDA kernel to its plain version: scores
+    summed in another order stay inside them, a 2% error in ``acc`` or a
+    1% error in ``l_loc`` does not."""
+    cfg = CONFIGS[name][1]
+    q, k, v = (torch.from_numpy(a) for a in _inputs(600, 3))
+    q3 = q.reshape(B * HKV, 3, D)
+    k3, v3 = k.reshape(B * HKV, 600, D), v.reshape(B * HKV, 600, D)
+    kw = dict(cfg=cfg, sm_scale=D ** -0.5, bk=256, hkv=HKV, sq=None)
+    mask = torch.from_numpy(_ragged_mask(600))
+    ref = tfa.splitk_tiles_plain(q3, k3, v3, None, None, mask, **kw)
+    vmax = float(v.abs().max())
+    assert tfa.tile_errors(ref, ref, cfg, vmax, 256)["out"] == 0
+    # one ulp on every query element: the scores round another way
+    got = tfa.splitk_tiles_plain(q3 * (1 + 2 ** -23), k3, v3, None, None, mask, **kw)
+    err = tfa.tile_errors(got, ref, cfg, vmax, 256)
+    assert err["m_loc"] <= 1 and err["l_loc"] <= 1 and err["out"] <= 1, err
+    acc, m_loc, l_loc = ref
+    assert tfa.tile_errors((acc * 1.02, m_loc, l_loc), ref, cfg, vmax, 256)["out"] > 1
+    err = tfa.tile_errors((acc, m_loc, l_loc * 1.01), ref, cfg, vmax, 256)
+    assert err["l_loc"] > 1 and err["out"] > 1
