@@ -1,4 +1,5 @@
-"""Config dataclasses: model and serve (own copies of ``repro.configs.base``).
+"""Config dataclasses: model, train and serve (own copies of
+``repro.configs.base``).
 
 The fields and defaults are those of the JAX package, so a configuration
 means the same thing on both sides; ``pdtype``/``cdtype`` give torch dtypes.
@@ -81,6 +82,30 @@ class ModelConfig:
     @property
     def cdtype(self) -> torch.dtype:
         return torch_dtype(self.compute_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 256
+    seq_len: int = 4096
+    microbatch: int = 0              # 0 = no gradient accumulation
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"         # adamw | sgd | adafactor
+    remat: str = "full"              # none | full | dots
+    z_loss: float = 1e-4
+    moe_aux_weight: float = 0.01
+    grad_compression: str = "none"   # none | int8
+    master_dtype: str = "float32"
+    seed: int = 0
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+    # attention-mode override (None = use the model config's attn_mode);
+    # "kernel" trains through the fused CUDA forward and backward kernels
+    attn_mode: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)

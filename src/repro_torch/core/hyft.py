@@ -1,14 +1,16 @@
-"""Hyft softmax forward — the PyTorch counterpart of ``repro.core.hyft``.
+"""Hyft softmax, forward and backward — the PyTorch counterpart of
+``repro.core.hyft``.
 
 The emulation follows the hardware blocks exactly (DESIGN.md §1-2):
 
   pre-processor  : strided max (STEP) + FP2FX @ ``frac_bits`` (Precision)
   exponent unit  : shift-add z*log2e -> split u,v -> 2**(u-1)(1+(1+v)) fields
   adder tree     : FP2FX @ ``acc_bits`` -> exact accumulate -> LOD refloat
-  div unit       : log-subtract divide
+  div/mul unit   : log-subtract divide; log-domain multiply for backward
 
-The backward pass and its ``torch.autograd.Function`` come with the training
-slice of the port.
+The forward goes through integer raws, so autograd cannot differentiate it;
+``hyft_softmax`` is a ``torch.autograd.Function`` whose backward is the
+accelerator's own (``cfg.grad="hyft"``) or the exact softmax VJP.
 """
 from __future__ import annotations
 
@@ -93,3 +95,51 @@ def hyft_softmax_fwd(z: torch.Tensor, cfg: HyftConfig) -> torch.Tensor:
     denom = torch.sum(addend, dim=-1, keepdim=True)
     e_b, m_b = nm.lod_refloat(denom, cfg.mant_bits)
     return nm.log_div(e, m, e_b, m_b, cfg.mant_bits).to(cfg.dtype)
+
+
+def hyft_softmax_bwd(s: torch.Tensor, dy: torch.Tensor, cfg: HyftConfig) -> torch.Tensor:
+    """dz = s * (dy - <dy, s>) with Hyft's approximate arithmetic.
+
+    Each product runs through the log-domain multiplier with the half-range
+    mantissa (Eq. 10); the dot product reuses the (signed) fixed-point adder
+    tree; the final elementwise product reuses the multiplier again.
+    """
+    s32, dy32 = s.to(F32), dy.to(F32)
+    prods = nm.log_mul(dy32, s32, cfg.mant_bits, half_range=True)
+    prods_q = nm.fx_quantize(prods, cfg.bwd_acc_bits)
+    dot = torch.sum(prods_q, dim=-1, keepdim=True)
+    diff = nm.fx_quantize(dy32, cfg.bwd_acc_bits) - dot  # exact fx subtract
+    dz = nm.log_mul(diff, s32, cfg.mant_bits, half_range=True)
+    return dz.to(cfg.dtype)
+
+
+class _HyftSoftmax(torch.autograd.Function):
+    """Forward ``hyft_softmax_fwd``; backward per ``cfg.grad``, returned in
+    the input's dtype (``repro.core.hyft``'s ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, z, cfg):
+        s = hyft_softmax_fwd(z, cfg)
+        ctx.save_for_backward(s)
+        ctx.cfg, ctx.z_dtype = cfg, z.dtype
+        return s
+
+    @staticmethod
+    def backward(ctx, dy):
+        (s,) = ctx.saved_tensors
+        cfg = ctx.cfg
+        if cfg.grad == "exact":
+            s32, dy32 = s.to(F32), dy.to(F32)
+            dz = s32 * (dy32 - torch.sum(dy32 * s32, dim=-1, keepdim=True))
+        else:
+            dz = hyft_softmax_bwd(s, dy, cfg)
+        return dz.to(ctx.z_dtype), None
+
+
+def hyft_softmax(z: torch.Tensor, cfg: HyftConfig = HYFT32) -> torch.Tensor:
+    """Hyft softmax over the last axis, differentiable.
+
+    The VJP is the accelerator's own backward path when ``cfg.grad="hyft"``
+    (the paper's training mode), or the exact softmax VJP for ablations.
+    """
+    return _HyftSoftmax.apply(z, cfg)

@@ -11,14 +11,14 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.hyft import HYFT16, HYFT16B, HYFT32, HyftConfig, hyft_softmax_fwd
+from repro_torch.core.hyft import HYFT16, HYFT16B, HYFT32, HyftConfig, hyft_softmax
 
 F32 = torch.float32
 
 
 def _hyft(cfg: HyftConfig) -> Callable[[torch.Tensor], torch.Tensor]:
     def fn(z: torch.Tensor) -> torch.Tensor:
-        return hyft_softmax_fwd(z, cfg).to(z.dtype)
+        return hyft_softmax(z, cfg).to(z.dtype)
     return fn
 
 

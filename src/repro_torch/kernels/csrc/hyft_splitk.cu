@@ -28,81 +28,28 @@
 //    at Sq = 1 is bitwise decode);
 //  * masking happens on the float score before FP2FX; NEG_BIG * 2^frac
 //    overflows to -inf and the clip saturates it to the fixed-point minimum;
-//  * rintf is round-half-even like jnp.rint; >> on int is arithmetic; shift
-//    amounts are capped at 31 as expfloat_to_fx caps them; bitcasts go
-//    through __float_as_int / __int_as_float;
-//  * no fast math: build without --use_fast_math and -ftz=true.
+//  * the Hyft arithmetic is hyft_numerics.cuh's, shared with hyft_flash.cu.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <climits>
 #include <type_traits>
 
+#include "hyft_numerics.cuh"
+
 namespace {
+
+using hyft::expfloat_to_fx;
+using hyft::exp_unit;
+using hyft::fp2fx;
+using hyft::kNegBig;
+using hyft::pow2_float;
+using HyftParams = hyft::Params;
 
 constexpr int kThreads = 256;
 constexpr int kRows = 16;   // query rows of one block
 constexpr int kKeys = 64;   // keys of one K/V sub-tile in shared memory
-constexpr float kNegBig = -3.0e38f;
-
-struct HyftParams {
-  int frac, total, mant, acc, step;
-};
-
-__device__ __forceinline__ float load_kv(const float* p, long i) { return p[i]; }
-__device__ __forceinline__ float load_kv(const __nv_bfloat16* p, long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ float load_kv(const int8_t* p, long i) {
-  return static_cast<float>(p[i]);
-}
-
-// 2^k assembled in the exponent field; biased exponent clipped to [0, 255]
-// (255 = +inf, 0 and below flush to zero) -- numerics.pow2_float
-__device__ __forceinline__ float pow2_float(int k) {
-  const int biased = min(max(k + 127, 0), 255);
-  return biased <= 0 ? 0.0f : __int_as_float(biased << 23);
-}
-
-// float -> fixed-point raw, round half to even, saturating -- numerics.fp2fx
-__device__ __forceinline__ int fp2fx(float x, int frac, int total) {
-  const float lo = -static_cast<float>(1 << (total - 1));
-  const float hi = static_cast<float>((1 << (total - 1)) - 1);
-  const float r = rintf(x * pow2_float(frac));
-  return static_cast<int>(fminf(fmaxf(r, lo), hi));
-}
-
-// hybrid exponent unit -- numerics.exp_unit (mant <= frac by HyftConfig)
-__device__ __forceinline__ void exp_unit(int d, int frac, int mant, int& e, int& m) {
-  int t = d + (d >> 1) - (d >> 4);
-  t = min(t, 0);
-  const int u = -((-t) >> frac);
-  const int v = t - static_cast<int>(static_cast<unsigned>(u) << frac);
-  e = u - 1;
-  m = (1 << frac) + v;
-  if (m == (1 << frac)) {
-    e += 1;
-    m = 0;
-  }
-  m >>= frac - mant;  // truncate to mant bits and rescale to the mant grid
-}
-
-// adder-tree input: the multiple of 2^-acc below the value -- expfloat_to_fx
-__device__ __forceinline__ float expfloat_to_fx(int e, int m, int mant, int acc) {
-  const int shift = e + acc - mant;
-  const int base = (1 << mant) + m;
-  int q;
-  if (shift >= 0) {
-    q = base << shift;
-  } else if (shift <= -32) {
-    q = 0;
-  } else {
-    q = base >> min(-shift, 31);
-  }
-  return static_cast<float>(q) * pow2_float(-acc);
-}
 
 // One block: kRows query rows of one (b, kv head) against one split of bk
 // keys.  Grid (row tiles, splits, B*Hkv).  Shared memory (dynamic):
@@ -151,7 +98,7 @@ __global__ void __launch_bounds__(kThreads) splitk_tile_kernel(
       const int j = s0 + kt + jl;
       float val = 0.0f;
       if (j < sk) {
-        val = load_kv(src, (kv_row0 + j) * D + d);
+        val = hyft::load_f32(src, (kv_row0 + j) * D + d);
         if constexpr (kQuant) val *= scale[kv_row0 + j];
       }
       s_kv[jl * (D + 1) + d] = val;

@@ -1,13 +1,18 @@
-"""Attention: GQA projections, the unfused reference mode, the KV cache, and
-the decode / chunk attention entries of the serving path.
+"""Attention: GQA projections, the three modes, the KV cache, and the decode
+/ chunk attention entries of the serving path.
 
-The PyTorch counterpart of ``repro.models.attention`` for the dense serving
-slice.  Modes (``cfg.attn_mode``):
+The PyTorch counterpart of ``repro.models.attention`` for the dense family
+(the sequence-parallel decode and the paged layout come later).  Modes
+(``cfg.attn_mode``):
 
-  unfused  — QK^T -> registry softmax (hyft/exact) -> PV; the reference.
-  kernel   — the split-K CUDA kernels (plain PyTorch versions on the CPU)
-             for decode and prompt chunks.
-  chunked  — not ported yet (ROADMAP queue 1 item 5).
+  unfused  — QK^T -> registry softmax (hyft/exact) -> PV; the reference,
+             differentiable through the Hyft softmax's own backward.
+  chunked  — a loop over KV chunks with the online Hyft (max, sum, acc)
+             carry: the plain twin of the fused kernel, differentiable by a
+             recompute-from-stats backward (``chunked_hyft_attention``).
+  kernel   — the CUDA kernels (plain PyTorch versions on the CPU): the fused
+             flash forward and backward for whole sequences, split-K for
+             decode and prompt chunks.
 
 The cache is ``{"k", "v"[, "k_scale", "v_scale"]}`` per layer, the JAX
 layout (B, Hkv, L, D).  Unlike the functional JAX cache, the port updates
@@ -23,7 +28,9 @@ import torch
 from repro_torch.core import numerics as nm
 from repro_torch.core.registry import get_softmax, hyft_config_for
 from repro_torch.configs.base import torch_dtype
+from repro_torch.core.hyft import HyftConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import hyft_alpha, hyft_finalize
 from repro_torch.models.layers import apply_rope
 
 F32 = torch.float32
@@ -78,19 +85,164 @@ def unfused_attention(q, k, v, softmax_impl: str, *, causal: bool,
     return o.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+# --------------------------------------------------------------------------
+# chunked online-Hyft mode (a loop over KV chunks) + its backward
+# --------------------------------------------------------------------------
+
+
+def _hyft_chunk_stats(z, cfg: HyftConfig, m_run):
+    """One KV chunk: Hyft stages 1-2 against the running max.  Returns
+    (m_new raw, alpha fp32, addend-sum fp32 on the acc grid, p fp32)."""
+    z_raw = nm.fp2fx(z, cfg.frac_bits, cfg.total_bits)
+    zsub = z_raw[..., :: cfg.step] if cfg.step > 1 else z_raw
+    m_new = torch.maximum(m_run, torch.amax(zsub, dim=-1, keepdim=True))
+    e, m = nm.exp_unit(z_raw - m_new, cfg.frac_bits, cfg.mant_bits)
+    addend = nm.expfloat_to_fx(e, m, cfg.mant_bits, cfg.acc_bits)
+    l_blk = torch.sum(addend, dim=-1, keepdim=True)
+    alpha = hyft_alpha(m_run - m_new, cfg)
+    p = ((1 << cfg.mant_bits) + m).to(F32) * nm.pow2_float(e - cfg.mant_bits)
+    return m_new, alpha, l_blk, p
+
+
+def _mask_chunk(kv_len_mask, j: int, chunk: int):
+    """Chunk ``j`` of a (B, Sk) or per-query-row (B, Sq, Sk) float mask,
+    broadcast against scores (B, Hkv, g, Sq, chunk); None passes."""
+    if kv_len_mask is None:
+        return None
+    mt = kv_len_mask[..., j * chunk:(j + 1) * chunk]
+    if mt.ndim == 3:
+        return mt[:, None, None, :, :]
+    return mt[:, None, None, None, :]
+
+
+def _chunk_scores(qg, kt, j, chunk, causal, q_offset, kv_len_mask):
+    """Scores of chunk ``j`` with the causal and validity masks applied
+    before FP2FX.  qg (B, Hkv, g, Sq, D) already scaled; kt (B, Hkv, chunk,
+    D)."""
+    Sq = qg.shape[3]
+    z = torch.matmul(qg, kt[:, :, None].transpose(-1, -2))
+    if causal:
+        qi = q_offset + torch.arange(Sq, device=qg.device)[:, None]
+        ki = torch.arange(chunk, device=qg.device)[None, :] + j * chunk
+        z = torch.where(qi >= ki, z, NEG_BIG)
+    mt = _mask_chunk(kv_len_mask, j, chunk)
+    if mt is not None:
+        z = torch.where(mt > 0, z, NEG_BIG)
+    return z
+
+
+def _chunked_fwd(q, k, v, cfg: HyftConfig, causal: bool, chunk: int,
+                 q_offset, kv_len_mask=None):
+    """Returns (o, m_final raw, l_final).  q (B, Hq, Sq, D), k/v GQA."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    qg = q.reshape(B, Hkv, g, Sq, D).to(F32) * (D ** -0.5)
+    m_run = torch.full((B, Hkv, g, Sq, 1), -(2 ** (cfg.total_bits - 1)),
+                       dtype=I32, device=q.device)
+    l_run = torch.zeros((B, Hkv, g, Sq, 1), dtype=F32, device=q.device)
+    acc = torch.zeros((B, Hkv, g, Sq, D), dtype=F32, device=q.device)
+    for j in range(Sk // chunk):
+        kt = k[:, :, j * chunk:(j + 1) * chunk].to(F32)
+        vt = v[:, :, j * chunk:(j + 1) * chunk].to(F32)
+        z = _chunk_scores(qg, kt, j, chunk, causal, q_offset, kv_len_mask)
+        m_run, alpha, l_blk, p = _hyft_chunk_stats(z, cfg, m_run)
+        l_run = nm.fx_quantize(l_run * alpha, cfg.acc_bits) + l_blk
+        acc = acc * alpha + torch.matmul(p, vt[:, :, None])
+    o = hyft_finalize(acc, l_run, cfg).reshape(B, Hq, Sq, D)
+    return o, m_run, l_run
+
+
+def _cha_bwd(cfg: HyftConfig, causal: bool, chunk: int, q_offset, res, do):
+    """Flash-style backward: recompute the Hyft probabilities per chunk from
+    the saved row stats (single pass, no online rescale), then the softmax
+    attention gradients on the *Hyft* probabilities."""
+    q, k, v, kv_len_mask, o, m_f, l_f = res
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = D ** -0.5
+    qg = q.reshape(B, Hkv, g, Sq, D).to(F32)
+    dog = do.reshape(B, Hkv, g, Sq, D).to(F32)
+    og = o.reshape(B, Hkv, g, Sq, D).to(F32)
+    delta = torch.sum(dog * og, dim=-1, keepdim=True)       # (B, Hkv, g, Sq, 1)
+    e_b, m_b = nm.lod_refloat(l_f, cfg.mant_bits)
+    dq = torch.zeros((B, Hkv, g, Sq, D), dtype=F32, device=q.device)
+    dk = torch.empty((B, Hkv, Sk, D), dtype=F32, device=q.device)
+    dv = torch.empty((B, Hkv, Sk, D), dtype=F32, device=q.device)
+    for j in range(Sk // chunk):
+        sl = slice(j * chunk, (j + 1) * chunk)
+        kt, vt = k[:, :, sl].to(F32), v[:, :, sl].to(F32)
+        z = _chunk_scores(qg * scale, kt, j, chunk, causal, q_offset, kv_len_mask)
+        z_raw = nm.fp2fx(z, cfg.frac_bits, cfg.total_bits)
+        e, m = nm.exp_unit(z_raw - m_f, cfg.frac_bits, cfg.mant_bits)
+        p = nm.log_div(e, m, e_b, m_b, cfg.mant_bits)        # (B, Hkv, g, Sq, chunk)
+        dv[:, :, sl] = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+        dp = torch.matmul(dog, vt[:, :, None].transpose(-1, -2))
+        ds = p * (dp - delta)
+        dq = dq + torch.matmul(ds, kt[:, :, None]) * scale
+        dk[:, :, sl] = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * scale
+    return (dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+class _ChunkedHyftAttention(torch.autograd.Function):
+    """``chunked_hyft_attention``'s ``custom_vjp``: the forward saves
+    ``(q, k, v, mask, o, m, l)`` with the fp32 output, the backward is
+    ``_cha_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfg, causal, chunk, q_offset, kv_len_mask):
+        o, m_f, l_f = _chunked_fwd(q, k, v, cfg, causal, chunk, q_offset,
+                                   kv_len_mask)
+        ctx.save_for_backward(q, k, v, kv_len_mask, o, m_f, l_f)
+        ctx.opts = (cfg, causal, chunk, q_offset)
+        return o.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = _cha_bwd(*ctx.opts, ctx.saved_tensors, do)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def chunked_hyft_attention(q, k, v, cfg: HyftConfig, causal: bool = True,
+                           chunk: int = 512, q_offset: int = 0,
+                           kv_len_mask=None):
+    """Online-Hyft attention, O(chunk) memory in the KV dimension.
+
+    ``kv_len_mask``: optional (B, Sk) or per-query-row (B, Sq, Sk) float
+    validity mask (nonzero = valid), per the mask contract in ``ops``.
+    Differentiable; Sk must be a multiple of ``chunk``.
+    """
+    return _ChunkedHyftAttention.apply(q, k, v, cfg, causal, chunk, q_offset,
+                                       kv_len_mask)
+
+
+# --------------------------------------------------------------------------
+# mode selection
+# --------------------------------------------------------------------------
+
+
 def attention_fwd(q, k, v, cfg, *, causal=True, q_offset=0, kv_len_mask=None):
-    """Dispatch on ``cfg.attn_mode``: the unfused mode, or a clear error for
-    the modes this slice does not carry (non-Hyft softmaxes always take the
-    unfused mode, as in the JAX package)."""
+    """Dispatch on ``cfg.attn_mode``, as in the JAX package.
+
+    All three modes honor the mask contract (``kernels/ops.py``).  The
+    unfused mode takes over for non-Hyft softmaxes, a ``q_offset`` that is
+    not an int, and (chunked mode only) a KV length the chunk size does not
+    divide.
+    """
     hcfg = hyft_config_for(cfg.softmax_impl)
     mode = getattr(cfg, "attn_mode", "unfused")
-    if hcfg is not None and mode == "chunked":
-        raise NotImplementedError(
-            "attn_mode='chunked' is not ported yet: ROADMAP queue 1 item 5")
-    if hcfg is not None and mode == "kernel":
-        raise NotImplementedError(
-            "the fused flash kernel (_flash_fwd_kernel) is not ported yet: "
-            "ROADMAP queue 2, kernel 3")
+    if hcfg is not None and isinstance(q_offset, int):
+        maskf = ops.as_mask_f(kv_len_mask)
+        if mode == "chunked":
+            chunk = min(getattr(cfg, "attn_chunk", 512), k.shape[2])
+            if k.shape[2] % chunk == 0:
+                return chunked_hyft_attention(q, k, v, hcfg, causal, chunk,
+                                              q_offset, maskf)
+        if mode == "kernel":
+            return ops.hyft_attention(q, k, v, hcfg, causal=causal,
+                                      q_offset=q_offset,
+                                      kv_len_mask=maskf).to(q.dtype)
     return unfused_attention(q, k, v, cfg.softmax_impl, causal=causal,
                              q_offset=q_offset, kv_len_mask=kv_len_mask)
 
@@ -259,20 +411,24 @@ def verify_attention(q, cache, cfg, *, kv_pos_mask, block_tables=None):
     """Attend a token chunk at per-row offsets against the cache: ``q``
     holds Sq already-written tokens per row and ``kv_pos_mask`` (B, Sq, Lk)
     each token's causal frontier.  With a Hyft softmax and
-    ``attn_mode="kernel"`` this is the split-K chunk kernel; otherwise the
+    ``attn_mode="kernel"`` this is the split-K chunk kernel; chunked mode
+    runs the online-Hyft loop under the same per-row mask; otherwise the
     unfused reference."""
     hcfg = hyft_config_for(cfg.softmax_impl)
     mode = getattr(cfg, "attn_mode", "unfused")
     if block_tables is not None:
         raise NotImplementedError(
-            "the paged KV layout is not ported yet: ROADMAP queue 1 item 6")
+            "the paged KV layout is not ported yet: ROADMAP queue 1 item 7")
     if hcfg is not None and mode == "kernel":
         return ops.hyft_verify_attention(
             q, cache["k"], cache["v"], kv_pos_mask, hcfg,
             k_scale=cache.get("k_scale"),
             v_scale=cache.get("v_scale")).to(q.dtype)
-    if hcfg is not None and mode == "chunked":
-        raise NotImplementedError(
-            "attn_mode='chunked' is not ported yet: ROADMAP queue 1 item 5")
     k, v = cache_kv(cache)
+    if hcfg is not None and mode == "chunked":
+        chunk = min(getattr(cfg, "attn_chunk", 512), k.shape[2])
+        if k.shape[2] % chunk == 0:
+            return chunked_hyft_attention(
+                q, k, v, hcfg, False, chunk, 0,
+                ops.as_mask_f(kv_pos_mask)).to(q.dtype)
     return _verify_unfused(q, k, v, cfg.softmax_impl, kv_pos_mask)

@@ -2,11 +2,12 @@
 
 ``build_model(cfg)`` returns a ``Model`` with:
   init(seed=0, device=None)             -> param tree (the JAX layout)
+  loss(params, batch, **opts)           -> (scalar, metrics)  [train step body]
   prefill_chunk(params, cache, tokens, start, lengths=, write_mask=)
                                         -> (logits (B, S, V), cache)
   decode_step(params, cache, tok, pos)  -> (logits (B, 1, V), cache)
   init_cache(params, batch, max_len, dtype, device=None)
-The dense family only, so far (ROADMAP queue 1 item 7).
+The dense family only, so far (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from repro_torch.models import transformer
 class Model:
     cfg: ModelConfig
     init: Callable
+    loss: Callable
     prefill_chunk: Callable
     decode_step: Callable
     init_cache: Callable
@@ -40,7 +42,7 @@ def resolve_attn_mode(model: Model, attn_mode) -> Model:
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 item 7")
+            f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 item 9")
 
     def init(seed: int = 0, device=None):
         dev = resolve_device(device)
@@ -50,6 +52,7 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=init,
+        loss=lambda p, b, **kw: transformer.lm_loss(p, b, cfg, **kw),
         prefill_chunk=lambda p, c, t, start, **kw: transformer.prefill_chunk(
             p, c, t, start, cfg, **kw),
         decode_step=lambda p, c, t, pos, **kw: transformer.decode_step(

@@ -1,17 +1,22 @@
-"""Decoder-only LM stack, dense family: init, cache, decode step, chunk prefill.
+"""Decoder-only LM stack, dense family: init, the training forward and loss,
+cache, decode step, chunk prefill.
 
 The PyTorch counterpart of the dense branch of ``repro.models.transformer``.
 Parameters keep the JAX tree — per-layer leaves stacked on a leading layer
 axis under ``"blocks"`` — and a Python loop over layers takes the place of
-``lax.scan``.  The cache is ``{"blocks": {"k", "v"[, "k_scale",
-"v_scale"]}}``, stacked the same way, and updated in place.  The MoE, SSM,
-hybrid and VLM families come with later slices (ROADMAP queue 1 item 7).
+``lax.scan``.  Remat: ``"full"`` wraps each block in
+``torch.utils.checkpoint`` (only the residual stream is kept; the block's
+forward runs again in the backward).  The cache is ``{"blocks": {"k",
+"v"[, "k_scale", "v_scale"]}}``, stacked the same way, and updated in
+place.  The MoE, SSM, hybrid and VLM families come with later slices
+(ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
@@ -24,13 +29,23 @@ I32 = torch.int32
 def _check_dense(cfg):
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 item 7")
+            f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 item 9")
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a layer-stacked tree (views, so writes land in it)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _layers(tree, n: int) -> list:
+    """Every layer of a layer-stacked tree, by one ``unbind`` per leaf.
+    The layers are views, so cache writes land in the stacked tensors, and
+    the backward stacks the per-layer gradients once, where indexing layer
+    by layer would write a full-size zero gradient per layer."""
+    def split(t):
+        if isinstance(t, dict):
+            return {k: split(v) for k, v in t.items()}
+        return torch.unbind(t)
+
+    def pick(t, i):
+        return {k: pick(v, i) for k, v in t.items()} if isinstance(t, dict) else t[i]
+    parts = split(tree)
+    return [pick(parts, i) for i in range(n)]
 
 
 def _normal(generator, shape, scale, dtype, device):
@@ -82,27 +97,91 @@ def init_cache(params, cfg, batch, max_len, dtype, device=None):
                        for k, v in c.items()}}
 
 
-def _block_apply(p, x, cfg, positions, *, decode_cache, pos_offset=0,
-                 kv_len_mask=None, write_mask=None):
-    """One block's decode step: returns (x, cache).
+def _block_apply(p, x, cfg, positions, *, causal=True, decode_cache=None,
+                 pos_offset=0, kv_len_mask=None, write_mask=None):
+    """One block: returns (x, cache).
 
-    ``pos_offset`` may be a (B,) tensor (ragged decode: each row writes its
-    KV at its own position) and ``write_mask`` (B,) gates the cache write
-    per row.
+    Without ``decode_cache`` the block attends over its own sequence
+    (training, ``causal``) and the cache is None.  With one, it is a decode
+    step: ``pos_offset`` may be a (B,) tensor (ragged decode: each row
+    writes its KV at its own position) and ``write_mask`` (B,) gates the
+    cache write per row.
     """
     norm_fn = NORMS[cfg.norm]
     h = norm_fn(p["norms"]["pre_attn"], x)
     q, k, v = attn.qkv_proj(p["attn"], h, h, cfg, positions, positions)
-    if torch.is_tensor(pos_offset) or write_mask is not None:
-        pos_b = torch.as_tensor(pos_offset, dtype=I32, device=x.device)
-        cache = attn.cache_update_ragged(decode_cache, k, v,
-                                         pos_b.expand(x.shape[0]), write_mask)
+    if decode_cache is None:
+        cache = None
+        o = attn.attention_fwd(q, k, v, cfg, causal=causal)
     else:
-        cache = attn.cache_update(decode_cache, k, v, pos_offset)
-    o = attn.decode_attention(q, cache, cfg, kv_len_mask=kv_len_mask)
+        if torch.is_tensor(pos_offset) or write_mask is not None:
+            pos_b = torch.as_tensor(pos_offset, dtype=I32, device=x.device)
+            cache = attn.cache_update_ragged(decode_cache, k, v,
+                                             pos_b.expand(x.shape[0]), write_mask)
+        else:
+            cache = attn.cache_update(decode_cache, k, v, pos_offset)
+        o = attn.decode_attention(q, cache, cfg, kv_len_mask=kv_len_mask)
     x = x + attn.out_proj(p["attn"], o.to(x.dtype))
     h = norm_fn(p["norms"]["pre_mlp"], x)
     return x + mlp_mod.mlp_apply(p["mlp"], h, cfg).to(x.dtype), cache
+
+
+# --------------------------------------------------------------------------
+# training forward and loss
+# --------------------------------------------------------------------------
+
+
+def _remat(fn, policy: str):
+    """``"none"`` runs ``fn`` as is; ``"full"`` keeps only its inputs and
+    runs it again in the backward."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if policy == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs) is not ported yet: ROADMAP "
+            "queue 1 item 8")
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
+def forward(params, tokens, cfg, *, remat="full", causal=True):
+    """tokens: (B, S) -> hidden states (B, S, dm) and the scalar MoE aux
+    (zero for the dense family)."""
+    _check_dense(cfg)
+    x = embed_lookup(params["embed"], tokens).to(cfg.cdtype)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=I32, device=x.device).expand(B, S)
+    block = _remat(lambda y, lp: _block_apply(lp, y, cfg, positions,
+                                              causal=causal)[0], remat)
+    for lp in _layers(params["blocks"], cfg.n_layers):
+        x = block(x, lp)
+    x = NORMS[cfg.norm](params["final_norm"], x)
+    return x, torch.zeros((), dtype=F32, device=x.device)
+
+
+def lm_loss(params, batch, cfg, *, remat="full", z_loss=1e-4,
+            moe_aux_weight=0.01):
+    """Teacher-forced LM loss.  batch: tokens, targets, (mask).  Returns
+    (loss, {"nll", "aux"}), 0-d fp32 tensors."""
+    hidden, aux = forward(params, batch["tokens"], cfg, remat=remat)
+    logits = logits_fn(params, hidden, cfg)
+    targets = batch["targets"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=F32, device=logits.device)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = (lse - gold) * mask
+    zl = z_loss * torch.sum((lse * mask) ** 2)
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    loss = torch.sum(nll) / denom + zl / denom + moe_aux_weight * aux
+    return loss, {"nll": torch.sum(nll) / denom, "aux": aux}
+
+
+# --------------------------------------------------------------------------
+# serving: decode step and chunk prefill
+# --------------------------------------------------------------------------
 
 
 def decode_step(params, cache, tokens1, pos, cfg, write_mask=None):
@@ -119,9 +198,9 @@ def decode_step(params, cache, tokens1, pos, cfg, write_mask=None):
         positions = torch.full((B, 1), pos, dtype=I32, device=dev)
     max_len = cache["blocks"]["k"].shape[3]
     kv_mask = torch.arange(max_len, device=dev)[None, :] <= positions
-    for i in range(cfg.n_layers):
-        x, _ = _block_apply(_layer(params["blocks"], i), x, cfg, positions,
-                            decode_cache=_layer(cache["blocks"], i),
+    for lp, lc in zip(_layers(params["blocks"], cfg.n_layers),
+                      _layers(cache["blocks"], cfg.n_layers)):
+        x, _ = _block_apply(lp, x, cfg, positions, decode_cache=lc,
                             pos_offset=pos, kv_len_mask=kv_mask,
                             write_mask=write_mask)
     norm_fn = NORMS[cfg.norm]
@@ -153,8 +232,8 @@ def prefill_chunk(params, cache, tokens, start, cfg, lengths=None,
     kv_mask = (torch.arange(max_len, device=dev)[None, None, :]
                <= positions[:, :, None])
     norm_fn = NORMS[cfg.norm]
-    for i in range(cfg.n_layers):
-        lp, lc = _layer(params["blocks"], i), _layer(cache["blocks"], i)
+    for lp, lc in zip(_layers(params["blocks"], cfg.n_layers),
+                      _layers(cache["blocks"], cfg.n_layers)):
         h = norm_fn(lp["norms"]["pre_attn"], x)
         q, k, v = attn.qkv_proj(lp["attn"], h, h, cfg, positions, positions)
         attn.cache_update_block_ragged(lc, k, v, pos_b, nv, write_mask)

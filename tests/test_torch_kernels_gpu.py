@@ -93,3 +93,97 @@ def test_kernel_rejects_bad_input():
     with pytest.raises(ValueError, match="head dim"):
         fa._splitk_tiles_cuda(q3, k3, k3, None, None, mask, cfg=HYFT16,
                               sm_scale=0.125, bk=128, hkv=2, sq=None)
+
+
+# --------------------------------------------------------------------------
+# the flash kernels (training)
+# --------------------------------------------------------------------------
+
+# (id, causal, Sq, Sk, ragged mask, q_offset): 200 keys pad to 256
+FLASH_CASES = [("causal", True, 256, 256, False, 0),
+               ("masked-padded", False, 72, 200, True, 0),
+               ("causal-offset-masked", True, 144, 200, True, 56)]
+
+
+def _flash_inputs(gen, Sq, Sk, dtype, ragged):
+    q = torch.randn(B, HQ, Sq, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, HKV, Sk, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, HKV, Sk, D, generator=gen, device="cuda").to(dtype)
+    mask = None
+    if ragged:
+        mask = (torch.arange(Sk, device="cuda")[None]
+                < torch.tensor([Sk, Sk // 3 + 1], device="cuda")[:, None]).float()
+    return fa.flash_operands(q, k, v, mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [HYFT16, HYFT32, dataclasses.replace(HYFT16, step=2)],
+                         ids=["hyft16", "hyft32", "hyft16-step2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
+def test_flash_kernels_match_plain(case, dtype, cfg):
+    """Forward, dq and dk/dv kernels against their plain versions, called by
+    name on the same padded inputs, within the bounds of ``flash_errors``
+    and ``grad_errors``."""
+    gen = _card()
+    _, causal, Sq, Sk, ragged, q_offset = case
+    q, k, v, maskf, bk = _flash_inputs(gen, Sq, Sk, dtype, ragged)
+    q3, k3, v3 = fa._h3(q), fa._h3(k), fa._h3(v)
+    kw = dict(cfg=cfg, sm_scale=D ** -0.5, causal=causal, bk=bk, group=HQ // HKV,
+              q_offset=q_offset)
+    got = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw)
+    ref = fa._flash_fwd_plain(q3, k3, v3, maskf, **kw)
+    err = fa.flash_errors(got, ref, cfg, float(v.float().abs().max()), bk, k3.shape[1] // bk)
+    assert err["m"] <= 1 and err["l"] <= 1 and err["o"] <= 1, err
+    do3 = torch.randn(q3.shape, generator=gen, device="cuda")
+    args = (q3, k3, v3, maskf, do3, fa._flash_delta(do3, ref[0]).contiguous(), *ref[1:])
+    gerr = fa.grad_errors(
+        (fa._flash_bwd_dq_cuda(*args, **kw), *fa._flash_bwd_dkv_cuda(*args, **kw)),
+        (fa._flash_bwd_dq_plain(*args, **kw), *fa._flash_bwd_dkv_plain(*args, **kw)),
+        cfg)
+    assert max(gerr["dq"], gerr["dk"], gerr["dv"]) <= 1, gerr
+
+
+@pytest.mark.gpu
+def test_flash_rejects_bad_input():
+    _card()
+    q3 = torch.zeros(4, 8, 64, device="cuda")          # head width not built
+    with pytest.raises(ValueError, match="head dim"):
+        fa._flash_fwd_cuda(q3, q3[:2], q3[:2], None, cfg=HYFT16, sm_scale=0.125,
+                           causal=True, bk=8, group=2, q_offset=0)
+    q3 = torch.zeros(4, 8, D, device="cuda")
+    with pytest.raises(ValueError, match="dtypes"):
+        fa._flash_fwd_cuda(q3, q3[:2].half(), q3[:2].half(), None, cfg=HYFT16,
+                           sm_scale=0.125, causal=True, bk=8, group=2, q_offset=0)
+
+
+@pytest.mark.gpu
+def test_training_step_runs_on_the_flash_kernels():
+    """One training step of a 2-layer model with 128-wide heads, remat
+    "full": each layer's forward kernel runs twice (once more in the
+    backward), dq and dk/dv once; the split-K kernels not at all."""
+    _card()
+    from repro_torch import optim
+    from repro_torch.configs import TrainConfig, get_config, smoke_config
+    from repro_torch.data.synthetic import DataConfig, lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_step_fn
+
+    cfg = smoke_config(get_config("qwen2-1.5b")).with_(
+        d_model=256, n_heads=4, n_kv_heads=2, d_head=D, softmax_impl="hyft16")
+    model = build_model(cfg)
+    ocfg = optim.OptConfig(lr=1e-3)
+    state = init_state(model, ocfg, 0, device="cuda")
+    step = make_step_fn(model, TrainConfig(warmup_steps=0, total_steps=4,
+                                           attn_mode="kernel"), ocfg)
+    batch = lm_batch(DataConfig(vocab=cfg.vocab, seq_len=160, global_batch=2), 0,
+                     device="cuda")
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"hyft_splitk_decode": 0, "hyft_splitk_verify": 0,
+                           "hyft_flash_fwd": 4, "hyft_flash_bwd_dq": 2,
+                           "hyft_flash_bwd_dkv": 2}
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
