@@ -51,7 +51,37 @@ script exits non-zero without its last line:
               1024: loss and gradients of kernel mode against the unfused
               mode on the same weights and batch, within
               ``TRAIN_PARITY_BOUND``;
-  9. kernels  per kernel variant: ``ms``, its device time per launch
+  9. paged check  the paged decode and paged chunk-attention kernels
+              against their plain versions (``tile_errors``) at the
+              continuous-serving shapes (8 slots, 2048 virtual keys, ragged
+              lengths, a shuffled block table with null-page entries; chunks
+              of 256), fp32 / fp2fx8 / bf16 pages of 16 and 64, HYFT16 and
+              HYFT32; then, bitwise on the card: paged verify at Sq 1 equals
+              paged decode, moving the pages in the pool changes nothing,
+              and a sequential table at page 64 equals the contiguous decode
+              kernel at bk 64;
+ 10. continuous serve  ``SlotPoolEngine`` serving qwen2-1.5b at full width
+              (hyft16, kernel mode, bf16 compute) over a paged pool (pages
+              of 16, prefix cache, 8 slots, max_len 2048, prefill chunks of
+              256, bursts of 8), once per cache (fp2fx8, float32): 24 chat
+              requests (one of 3 shared 512-token system prompts plus a
+              unique tail of 16-512 tokens, 16-64 new tokens, Poisson
+              arrivals at 8/s, from ``numpy.random.default_rng(0)``).  TTFT
+              and time-between-tokens p50/p99, tokens/s, prefix hit rate,
+              peak pages, preemptions, peak memory.  Gates: exactly 28 paged
+              decode launches per burst step and 28 paged verify launches
+              per prefill call, no other kernel; every request completes;
+              the pool audit is clean; prefix hits.  Then a page-starved run
+              (200 pages; the first 8 prompts at once, 128 new tokens each)
+              that must preempt and still complete, and a short profiled
+              run (device idle share);
+ 11. paged parity  fp32 compute and HYFT32 over the paged cache: prefill
+              and the first decode step in kernel mode against the unfused
+              mode (which reads ``paged_gather_kv``), within
+              ``PARITY_BOUND``; and, not gated, the token agreement of the
+              paged engine with the dense continuous engine on the same
+              requests;
+ 12. kernels  per kernel variant: ``ms``, its device time per launch
               (torch.profiler); ``kernel_ms``, CUDA events over many
               launches from Python after a warm-up (the wrapper's host time
               included: it bounds decode, whose kernel is short);
@@ -106,6 +136,11 @@ PARITY_BOUND = 0.25
 # The bounds leave 5x and 4x room for that growth; a kernel fault that
 # breaks a gradient moves it by a whole norm.
 TRAIN_PARITY_BOUND = {"loss": 0.01, "grad": 0.25}
+# continuous serving over the paged pool: page size, slots, max_len, prefill
+# chunk, burst; the chat traffic: requests, shared system prompt, rate (1/s)
+PAGE, SLOTS, SERVE_LEN, CHUNK, BURST = 16, 8, 2048, 256, 8
+N_REQ, SYS_PROMPT, RATE = 24, 512, 8.0
+STARVED_PAGES = 200
 
 
 def emit(obj):
@@ -349,6 +384,280 @@ def parity_phase(torch, params, cfg):
     assert res["decode_maxdiff_over_std"] <= PARITY_BOUND, "decode parity"
 
 
+def _paged_case(torch, gen, ps, cache_dtype, lengths):
+    """A pool holding each sequence's live pages and the null page 0, a
+    shuffled block table (the null page past each length) over SERVE_LEN
+    virtual keys, and the (B, SERVE_LEN) validity mask."""
+    nb = SERVE_LEN // ps
+    used = [-(-n // ps) for n in lengths]
+    k, v, sc, vf = _cache_kv(torch, gen, cache_dtype, (sum(used) + 1, HKV, ps, D))
+    perm = (torch.randperm(sum(used), generator=gen, device="cuda") + 1).int()
+    bt = torch.zeros(len(lengths), nb, dtype=torch.int32, device="cuda")
+    o = 0
+    for b, u in enumerate(used):
+        bt[b, :u] = perm[o:o + u]
+        o += u
+    lens = torch.tensor(lengths, device="cuda")
+    mask = (torch.arange(SERVE_LEN, device="cuda")[None] < lens[:, None]).float()
+    return k, v, sc, vf, bt, mask, lens
+
+
+def _chunk_mask(torch, lens, width):
+    """(B, width, SERVE_LEN) causal frontier of a chunk of ``width`` lanes
+    ending at each sequence's length."""
+    start = torch.clamp(lens - width, min=0)
+    return (torch.arange(SERVE_LEN, device="cuda")[None, None]
+            <= (start[:, None, None] + torch.arange(width, device="cuda")[None, :, None])
+            ).float().contiguous()
+
+
+def paged_check_phase(torch):
+    """Kernels 7 and 9 against their plain versions, called by name on the
+    same inputs (``tile_errors`` bounds), then the layout invariances,
+    bitwise on the card."""
+    from repro_torch.core.hyft import HYFT16, HYFT32
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    errors = {}
+    g = HQ // HKV
+    lengths = [2048, 1500, 900, 513, 300, 64, 17, 1]
+    for ps in (PAGE, 64):
+        for cache_dtype in ("float32", "fp2fx8", "bfloat16"):
+            k, v, sc, vf, bt, mask, lens = _paged_case(torch, gen, ps, cache_dtype, lengths)
+            q1 = torch.randn(SLOTS, HQ, 1, D, generator=gen, device="cuda")
+            qc = torch.randn(SLOTS * HKV, g * CHUNK, D, generator=gen, device="cuda")
+            cases = [("paged_decode", q1.reshape(SLOTS * HKV, g, D), mask, None),
+                     ("paged_verify", qc, _chunk_mask(torch, lens, CHUNK), CHUNK)]
+            for cfg in (HYFT16, HYFT32):
+                kw = dict(cfg=cfg, sm_scale=D ** -0.5, hkv=HKV)
+                for kind, q3, m, sq in cases:
+                    args = (q3, k, v, sc.get("k_scale"), sc.get("v_scale"), bt, m)
+                    got = fa._paged_tiles_cuda(*args, **kw, sq=sq)
+                    ref = fa.paged_tiles_plain(*args, **kw, sq=sq)
+                    err = fa.tile_errors(got, ref, cfg, float(vf.abs().max()), ps)
+                    emit({"phase": "paged_check", "kernel": kind, "kv": cache_dtype,
+                          "page_size": ps, "cfg": cfg.io_dtype, **err})
+                    assert torch.isfinite(got[0]).all(), f"{kind}: non-finite acc"
+                    assert err["m_loc"] <= 1 and err["l_loc"] <= 1 and err["out"] <= 1, \
+                        f"{kind} disagrees with its plain version"
+                    if cfg is HYFT16 and ps == PAGE:
+                        errors[(kind, cache_dtype)] = err["max_abs_err"]
+                    del got, ref
+            out = fa.flash_hyft_decode_paged(q1, k, v, bt, HYFT16, kv_len_mask=mask, **sc)
+            one = fa.flash_hyft_verify(q1, k, v, mask[:, None], HYFT16, block_tables=bt, **sc)
+            assert torch.equal(one, out), "paged verify at Sq=1 is not bitwise paged decode"
+            perm = torch.randperm(k.shape[0], generator=gen, device="cuda")
+            inv = torch.argsort(perm).int()
+            moved = fa.flash_hyft_decode_paged(
+                q1, k[perm].contiguous(), v[perm].contiguous(),
+                inv[bt.long()].contiguous(), HYFT16, kv_len_mask=mask,
+                **{n: t[perm].contiguous() for n, t in sc.items()})
+            assert torch.equal(moved, out), "page placement changed the result"
+            emit({"phase": "paged_check", "kv": cache_dtype, "page_size": ps,
+                  "sq1_bitwise_paged_decode": True, "placement_invariant": True})
+            torch.cuda.synchronize()
+    nb = SERVE_LEN // 64
+    for cache_dtype in ("float32", "fp2fx8"):
+        kc, vc, scc, _ = _cache_kv(torch, gen, cache_dtype, (SLOTS, HKV, SERVE_LEN, D))
+        q1 = torch.randn(SLOTS, HQ, 1, D, generator=gen, device="cuda")
+        mask = (torch.arange(SERVE_LEN, device="cuda")[None]
+                < torch.tensor(lengths, device="cuda")[:, None]).float()
+
+        def pages(x):   # (B, Hkv, L[, D]) -> (B * nb, Hkv, 64[, D]), in order
+            x = x.reshape(SLOTS, HKV, nb, 64, *x.shape[3:]).transpose(1, 2)
+            return x.reshape(SLOTS * nb, HKV, 64, *x.shape[4:]).contiguous()
+        seq = torch.arange(SLOTS * nb, dtype=torch.int32, device="cuda").reshape(SLOTS, nb)
+        dense = fa.flash_hyft_decode(q1, kc, vc, HYFT16, block_k=64, kv_len_mask=mask, **scc)
+        paged = fa.flash_hyft_decode_paged(q1, pages(kc), pages(vc), seq, HYFT16,
+                                           kv_len_mask=mask,
+                                           **{n: pages(t) for n, t in scc.items()})
+        assert torch.equal(dense, paged), "sequential pages != contiguous decode at bk 64"
+        emit({"phase": "paged_check", "kv": cache_dtype,
+              "sequential_pages_bitwise_contiguous_bk64": True})
+    return errors
+
+
+def _chat_requests(np, vocab):
+    """24 chat requests: one of 3 shared system prompts plus a unique tail,
+    Poisson arrivals at RATE per second (seconds after the run starts)."""
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.default_rng(0)
+    systems = [rng.integers(0, vocab, SYS_PROMPT) for _ in range(3)]
+    reqs, t = [], 0.0
+    for rid in range(N_REQ):
+        t += float(rng.exponential(1.0 / RATE))
+        tail = rng.integers(0, vocab, int(rng.integers(16, 513)))
+        reqs.append(Request(
+            rid=rid, tokens=np.concatenate([systems[int(rng.integers(3))], tail])
+            .astype(np.int32), max_new=int(rng.integers(16, 65)), arrival=t))
+    return reqs
+
+
+def _serve_config(**kw):
+    from repro_torch.configs import ServeConfig
+    base = dict(scheduler="continuous", kv_layout="paged", page_size=PAGE,
+                prefix_cache=True, n_slots=SLOTS, max_len=SERVE_LEN,
+                prefill_chunk=CHUNK, decode_burst=BURST, attn_mode="kernel")
+    return ServeConfig(**dict(base, **kw))
+
+
+def _tbt(c):
+    """Time between tokens of one request: a burst's tokens share one stamp,
+    so each gap between consecutive stamps is spread over the tokens the
+    later stamp carries."""
+    out, times = [], c.token_times
+    i = 0
+    while i < len(times):
+        j = i
+        while j < len(times) and times[j] == times[i]:
+            j += 1
+        if i:
+            out += [(times[i] - times[i - 1]) / (j - i)] * (j - i)
+        i = j
+    return out
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+
+def _serve_run(torch, model, params, scfg, reqs, cfg):
+    """One engine run with its launch counts, gates and metrics."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve.scheduler import SlotPoolEngine
+
+    eng = SlotPoolEngine(model, params, scfg)
+    torch.cuda.reset_peak_memory_stats()
+    for name in fa.LAUNCHES:                       # the main path's run
+        fa.LAUNCHES[name] = 0
+    done, wall = _timed(torch, lambda: eng.run(reqs))
+    got = dict(fa.LAUNCHES)
+    st = eng.stats
+    want = dict.fromkeys(fa.LAUNCHES, 0)
+    if scfg.kv_layout == "paged":
+        want.update(hyft_paged_decode=cfg.n_layers * st["burst_steps"],
+                    hyft_paged_verify=cfg.n_layers * st["prefills"])
+    else:
+        want.update(hyft_splitk_decode=cfg.n_layers * st["burst_steps"],
+                    hyft_splitk_verify=cfg.n_layers * st["prefills"])
+    assert got == want, f"launch counts {got} != {want}"
+    assert sorted(done) == [r.rid for r in reqs], "a request has no outcome"
+    for r in reqs:
+        c = done[r.rid]
+        assert c.ok, f"request {r.rid}: {c.failure}"
+        assert len(c.tokens) == r.max_new and all(0 <= t < cfg.vocab for t in c.tokens)
+    if scfg.kv_layout == "paged":
+        eng.pool.audit(eng.slot_pages, eng.trie)   # raises on any drift
+        assert not any(eng.slot_pages), "a finished slot still holds pages"
+    ttft = [c.ttft for c in done.values()]
+    tbt = [t for c in done.values() for t in _tbt(c)]
+    n_tok = sum(len(c.tokens) for c in done.values())
+    rec = {"cache": scfg.cache_dtype, "layout": scfg.kv_layout, "n_pages": scfg.n_pages,
+           "wall_s": wall, "tokens_per_s": n_tok / wall, "tokens": n_tok,
+           "ttft_p50_s": _pct(ttft, 0.5), "ttft_p99_s": _pct(ttft, 0.99),
+           "tbt_p50_s": _pct(tbt, 0.5), "tbt_p99_s": _pct(tbt, 0.99),
+           "launches": got, "expected": want,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "prefix_hit_rate": st["cached_tokens"] / max(1, st["prompt_tokens"]),
+           "stats": st}
+    return rec, done
+
+
+def continuous_serve_phase(torch, params, cfg):
+    """Continuous batching over the paged pool through the paged kernels,
+    per cache dtype; then a page-starved run and a short profiled run."""
+    import numpy as np
+    from repro_torch.models import build_model
+
+    model = build_model(cfg.with_(softmax_impl="hyft16"))
+    reqs = _chat_requests(np, cfg.vocab)
+    warm = [dataclasses.replace(r, arrival=0.0, max_new=8) for r in reqs[:2]]
+    launches, outs = {}, {}
+    for cache_dtype in ("fp2fx8", "float32"):
+        scfg = _serve_config(cache_dtype=cache_dtype)
+        _serve_run(torch, model, params, scfg, warm, cfg)            # warm-up
+        rec, done = _serve_run(torch, model, params, scfg, reqs, cfg)
+        emit({"phase": "continuous_serve", **rec})
+        assert rec["stats"]["prefix_hits"] > 0, "no prefix hit"
+        launches[cache_dtype] = rec["launches"]
+        outs[cache_dtype] = {rid: c.tokens for rid, c in done.items()}
+    # the chat traffic itself does not preempt at STARVED_PAGES: admission
+    # reserves a whole prompt's pages, and 16-64 new tokens after a 528-1024
+    # token prompt grow a slot by at most 4 pages, which the leftover and
+    # the trie's evictable pages cover.  Decode-heavy traffic does: the
+    # first 8 chat prompts at once, 128 new tokens each (a CPU replay of the
+    # scheduler preempts once, whatever the timing: every arrival is at 0)
+    starved = [dataclasses.replace(r, arrival=0.0, max_new=128) for r in reqs[:SLOTS]]
+    rec, _ = _serve_run(torch, model, params,
+                        _serve_config(cache_dtype="fp2fx8", n_pages=STARVED_PAGES),
+                        starved, cfg)
+    emit({"phase": "continuous_serve", "part": "page_starved", **rec})
+    assert rec["stats"]["preemptions"] >= 1, "the starved pool never preempted"
+    # the profiled run: 4 requests at once, 16 new tokens each (two bursts)
+    short = [dataclasses.replace(r, arrival=0.0, max_new=16) for r in reqs[:4]]
+    scfg = _serve_config(cache_dtype="fp2fx8")
+    events, wall = _profiled(torch, lambda: _serve_run(torch, model, params, scfg,
+                                                        short, cfg))
+    kern = sorted(_device_events(torch, events), key=_self_device_us, reverse=True)
+    busy = sum(map(_self_device_us, kern)) / 1e3
+    emit({"phase": "profile", "part": "continuous_serve_4_requests_16_tokens", "cache": "fp2fx8",
+          "wall_ms": wall * 1e3, "device_busy_ms": busy,
+          "device_idle_share": 1.0 - busy / (wall * 1e3),
+          "launches": sum(e.count for e in kern),
+          "top_kernels": [{"name": e.key[:90], "count": e.count,
+                           "device_ms": _self_device_us(e) / 1e3} for e in kern[:12]]})
+    return launches, outs, reqs
+
+
+def paged_parity_phase(torch, params, cfg, paged_outs, reqs):
+    """Kernel mode against the unfused mode over the paged cache (fp32
+    compute, HYFT32): prefill and the first decode step, within
+    PARITY_BOUND; then the token agreement of the paged engine with the
+    dense continuous engine on the same requests (not gated)."""
+    from repro_torch.models import build_model
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    tokens = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    nb = -(-MAX_LEN // PAGE)
+    bt = (torch.randperm(B * nb, generator=gen, device="cuda") + 1).int().reshape(B, nb)
+    base = cfg.with_(softmax_impl="hyft32", compute_dtype="float32")
+    logits = {}
+    for mode in ("kernel", "unfused"):
+        model = build_model(base.with_(attn_mode=mode))
+        cache = dict(model.init_paged_cache(params, B * nb, PAGE, "float32"),
+                     block_tables=bt)
+        lp, cache = model.prefill_chunk(params, cache, tokens,
+                                        torch.zeros(B, dtype=torch.int32, device="cuda"))
+        ld, _ = model.decode_step(params, cache, tokens[:, :1], PROMPT)
+        logits[mode] = (lp[:, -1], ld[:, -1])
+        del cache, lp
+    res = {"phase": "paged_parity", "page_size": PAGE, "pages_per_sequence": nb}
+    for i, name in enumerate(("prefill", "decode")):
+        a, b = logits["kernel"][i], logits["unfused"][i]
+        assert torch.isfinite(a).all() and torch.isfinite(b).all()
+        res[f"{name}_maxdiff_over_std"] = float((a - b).abs().max() / b.std())
+        res[f"{name}_argmax_agreement"] = float(
+            (a.argmax(-1) == b.argmax(-1)).float().mean())
+    res["bound"] = PARITY_BOUND
+    emit(res)
+    assert res["prefill_maxdiff_over_std"] <= PARITY_BOUND, "paged prefill parity"
+    assert res["decode_maxdiff_over_std"] <= PARITY_BOUND, "paged decode parity"
+    model = build_model(cfg.with_(softmax_impl="hyft16"))
+    rec, done = _serve_run(torch, model, params,
+                           _serve_config(cache_dtype="fp2fx8", kv_layout="dense",
+                                         prefix_cache=False), reqs, cfg)
+    same = sum(a == b for r in reqs
+               for a, b in zip(done[r.rid].tokens, paged_outs["fp2fx8"][r.rid]))
+    total = sum(r.max_new for r in reqs)
+    emit({"phase": "paged_parity", "dense_continuous": rec,
+          "token_agreement_paged_vs_dense": same / total,
+          "requests_identical": sum(done[r.rid].tokens == paged_outs["fp2fx8"][r.rid]
+                                    for r in reqs)})
+
+
 def _profiled(torch, fn):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -585,6 +894,84 @@ def kernels_phase(torch, errors, launches):
     return kernels
 
 
+def paged_kernels_phase(torch, errors, launches):
+    """Kernels 7 and 9 at the continuous-serving shapes: 8 slots, 2048
+    virtual keys in pages of 16 (128 splits), fp32 and fp2fx8 pools.  Decode
+    with every block live, rotating over 28 pools (one per layer) so that
+    the pages come from device memory; a prompt chunk of 256 lanes per slot
+    starting at 768.  The bound counts every input once (q, the live pages
+    and their scales, the block table, the mask) and every output once:
+    the per-page split stats, which at 128 splits are as large as the
+    fp2fx8 pages for decode and dominate a chunk's bytes."""
+    from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    BH, g, nb = SLOTS * HKV, HQ // HKV, SERVE_LEN // PAGE
+    start = 768
+    kernels = []
+    for kind, sq in (("decode", None), ("verify", CHUNK)):
+        for cache_dtype in ("float32", "fp2fx8"):
+            rows = g if sq is None else g * sq
+            live = SERVE_LEN if sq is None else start + CHUNK
+            nbuf = 28 if sq is None else 1
+            bufs = [_paged_case(torch, gen, PAGE, cache_dtype, [live] * SLOTS)
+                    for _ in range(nbuf)]
+            q3 = torch.randn(BH, rows, D, generator=gen, device="cuda")
+            if sq is None:
+                mask = bufs[0][5]
+            else:
+                mask = _chunk_mask(torch, bufs[0][6], sq)
+
+            def call(tiles):
+                def fn(i):
+                    k, v, sc, _, bt, _, _ = bufs[i % nbuf]
+                    return tiles(q3, k, v, sc.get("k_scale"), sc.get("v_scale"), bt,
+                                 mask, cfg=HYFT16, sm_scale=D ** -0.5, hkv=HKV, sq=sq)
+                return fn
+            reps = 200 if sq is None else 10
+            event_ms = _event_ms(torch, call(fa._paged_tiles_cuda), reps)
+            fn = call(fa._paged_tiles_cuda)
+            events, _ = _profiled(torch, lambda: [fn(i) for i in range(reps)])
+            ours = [e for e in _device_events(torch, events)
+                    if "splitk_tile_kernel" in e.key]
+            n = sum(e.count for e in ours)
+            device_ms = sum(map(_self_device_us, ours)) / n / 1e3 if n else None
+            plain_ms = _event_ms(torch, call(fa.paged_tiles_plain),
+                                 20 if sq is None else 3)
+            kv_bytes = 1 if cache_dtype == "fp2fx8" else 4
+            keys = SLOTS * HKV * live                  # live (head, key) rows
+            nbytes = (BH * rows * D * 4 + 2 * keys * D * kv_bytes
+                      + (2 * keys * 4 if cache_dtype == "fp2fx8" else 0)
+                      + SLOTS * nb * 4 + mask.numel() * 4
+                      + BH * nb * rows * (D + 2) * 4)
+            attended = (SERVE_LEN if sq is None
+                        else sq * (start + 1) + sq * (sq - 1) // 2)   # per (b, h, g)
+            flops = 4 * BH * g * attended * D   # QK^T + PV over the real keys
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / FP32_FLOPS_PER_S * 1e3
+            entry = f"hyft_paged_{kind}"
+            kernels.append({
+                "name": f"{entry}[{cache_dtype}]", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/hyft_paged.cu",
+                "replaces": ("src/repro/kernels/flash_attention.py:660" if sq is None
+                             else "src/repro/kernels/flash_attention.py:823"),
+                "tpu_kernel": "_paged_decode_kernel" if sq is None else "_verify_paged_kernel",
+                "launches": launches[cache_dtype][entry],
+                "launches_are": "per continuous_serve run",
+                "max_abs_err": errors[(f"paged_{kind}", cache_dtype)],
+                "ms": device_ms if device_ms is not None else event_ms,
+                "ms_source": ("torch.profiler device time" if device_ms is not None
+                              else "cuda events"),
+                "kernel_ms": event_ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "flops": flops, "library_ms": None,
+            })
+            del bufs
+    return kernels
+
+
 def flash_kernels_phase(torch, errors, launches):
     """The three flash kernels at the training path's shapes and types
     (HYFT16, causal, B 4, Hq 12, Hkv 2, S 1024, D 128, fp32 q/k/v: qwen2's
@@ -659,6 +1046,7 @@ def main():
     build_phase()
     errors = check_phase(torch)
     flash_errs = flash_check_phase(torch)
+    paged_errs = paged_check_phase(torch)
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -669,6 +1057,8 @@ def main():
     launches = serve_phase(torch, params, cfg)
     parity_phase(torch, params, cfg)
     profile_phase(torch, params, cfg)
+    paged_launches, paged_outs, reqs = continuous_serve_phase(torch, params, cfg)
+    paged_parity_phase(torch, params, cfg, paged_outs, reqs)
     del params                                        # free the serving weights
     torch.cuda.empty_cache()
     train_launches = train_phase(torch)
@@ -676,6 +1066,7 @@ def main():
     train_parity_phase(torch)
     torch.cuda.empty_cache()
     emit({"kernels": kernels_phase(torch, errors, launches)
+          + paged_kernels_phase(torch, paged_errs, paged_launches)
           + flash_kernels_phase(torch, flash_errs, train_launches)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})

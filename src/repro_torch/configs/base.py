@@ -110,9 +110,11 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """The serving knobs the lockstep ``generate`` path reads.  The
-    scheduler, paged, speculative and observability fields of the JAX
-    ``ServeConfig`` come with the slices that port those layers."""
+    """The serving knobs of the lockstep ``generate`` path and of the
+    slot-pool scheduler (``repro_torch.serve.scheduler``), with the JAX
+    defaults.  The speculative (``spec_mode``, ``draft_k``, ...),
+    sequence-parallel and telemetry fields come with the slices that port
+    those layers (ROADMAP queue 1 item 7)."""
 
     max_len: int = 256
     # KV-cache storage: a dtype name, or "fp2fx8" = int8 FP2FX raws +
@@ -126,3 +128,46 @@ class ServeConfig:
     # "scan" and "host" both run a loop that reads nothing back from the
     # device until the end
     decode_loop: str = "scan"
+    # --- continuous batching (repro_torch/serve/scheduler.py) ---
+    # per-sequence stop token: a slot that emits it is freed on the device
+    # (None = run every request to its own max_new)
+    eos_id: Optional[int] = None
+    # slot-pool size: the fixed batch dimension of the serving KV cache
+    n_slots: int = 8
+    # "continuous" = admit queued requests into freed slots mid-decode;
+    # "lockstep" = drain the whole pool before admitting the next group;
+    # "spec" (speculative bursts) is not ported yet and raises
+    scheduler: str = "lockstep"
+    # masked decode steps per burst between host admission checks
+    decode_burst: int = 8
+    # --- paged KV cache + prefix caching (repro_torch/serve/kvpool.py) ---
+    # "dense" = one (max_len,) KV stripe per slot; "paged" = fixed-size
+    # pages from a global pool with per-slot block tables (decode appends
+    # pages on demand, exhaustion preempts the latest arrival)
+    kv_layout: str = "dense"
+    # tokens per KV page (paged layout)
+    page_size: int = 16
+    # usable pages in the pool (0 = auto: n_slots * ceil(max_len/page_size))
+    n_pages: int = 0
+    # radix-trie prefix cache: admissions sharing a cached prompt prefix
+    # reuse its pages and skip prefill for the cached tokens (paged only)
+    prefix_cache: bool = False
+    # --- chunked + packed prefill ---
+    # max prompt tokens written per prefill_chunk call (0 = whole prompt):
+    # long prompts split into chunks scheduled between decode bursts
+    prefill_chunk: int = 0
+    # pack every prefilling slot into one chunk call; False = one prompt at
+    # a time in arrival order
+    pack_prefill: bool = True
+    # --- serving robustness ---
+    # recompute page-pool/radix-trie refcounts from live slots + trie edges
+    # after every admission / finish / preemption checkpoint
+    # (kvpool.AuditError on drift)
+    audit: bool = False
+    # bounded admission queue: an arrival that would push the waiting queue
+    # past this many requests fails with "queue_full" (0 = unbounded;
+    # requeues from preemption are exempt)
+    max_queue: int = 0
+    # per-request requeue budget (preemptions): one more requeue fails with
+    # "retries_exhausted" and the partial tokens
+    max_retries: int = 32

@@ -30,10 +30,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the entry points' argument types, in the order of their C signatures
 _SPLITK_ARGS = [_P] * 9 + [_I] * 8 + [_F] + [_I] * 5 + [_P]
+_PAGED_ARGS = [_P] * 10 + [_I] * 8 + [_F] + [_I] * 5 + [_P]
 _HYFT_ARGS = [_I] * 5 + [_P]                  # frac, total, mant, acc, step; stream
 ENTRY_ARGS = {
     "hyft_splitk_decode": _SPLITK_ARGS,
     "hyft_splitk_verify": _SPLITK_ARGS,
+    "hyft_paged_decode": _PAGED_ARGS,
+    "hyft_paged_verify": _PAGED_ARGS,
     "hyft_flash_fwd": [_P] * 7 + [_I] * 10 + [_F] + _HYFT_ARGS,
     "hyft_flash_bwd_dq": [_P] * 9 + [_I] * 9 + [_F] + _HYFT_ARGS,
     "hyft_flash_bwd_dkv": [_P] * 10 + [_I] * 9 + [_F] + _HYFT_ARGS,

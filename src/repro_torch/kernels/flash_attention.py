@@ -10,8 +10,11 @@ The PyTorch counterpart of ``repro.kernels.flash_attention``:
   (``:260``);
 * ``flash_hyft_decode`` replaces ``_decode_fwd_kernel`` (``:541``, launched
   from ``:619``);
-* ``flash_hyft_verify`` replaces the contiguous branch of
-  ``flash_hyft_verify`` and its ``_verify_fwd_kernel`` (``:804``, ``:963``).
+* ``flash_hyft_verify`` replaces ``flash_hyft_verify``: its contiguous
+  branch and ``_verify_fwd_kernel`` (``:804``, ``:963``), and its paged
+  branch and ``_verify_paged_kernel`` (``:823``, ``:925``);
+* ``flash_hyft_decode_paged`` replaces ``_paged_decode_kernel`` (``:660``,
+  launched from ``:747``).
 
 The flash half is described at its section below.  The split-K half's two
 entries are one machine.  The KV axis is cut into splits of
@@ -28,6 +31,12 @@ CPU tensor; the wrapper picks by ``q.device.type`` and nothing else.  Level
 2 is plain torch on the device for both, as the JAX package computes it
 outside the ``pallas_call``.  To hold the kernel to its plain version, call
 both by name on the same folded inputs and measure with ``tile_errors``.
+
+The paged entries are the same machine with one page as one split: the
+pool ``(n_pages + 1, Hkv, page_size, D)`` (page 0 the null page) is read
+through a ``(B, nb)`` int32 block table, in ``csrc/hyft_paged.cu`` on the
+card and by ``paged_tiles_plain`` (a gather, then ``splitk_tiles_plain`` at
+``bk = page_size``) on the CPU.
 
 Layouts are the JAX package's: q ``(B, Hq, Sq, D)``, K/V ``(B, Hkv, Sk, D)``
 float or int8 FP2FX raws with fp32 ``(B, Hkv, Sk)`` scales.  The GQA group
@@ -52,12 +61,15 @@ NEG_BIG = -3.0e38  # pre-quantization mask value; FP2FX saturates it to fx lo
 # launches of each CUDA entry point; a plain count that callers reset and
 # read to show which kernels a run went through
 LAUNCHES = {"hyft_splitk_decode": 0, "hyft_splitk_verify": 0,
+            "hyft_paged_decode": 0, "hyft_paged_verify": 0,
             "hyft_flash_fwd": 0, "hyft_flash_bwd_dq": 0, "hyft_flash_bwd_dkv": 0}
 
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _IN_TYPES = {torch.float32: 0, torch.bfloat16: 1}   # the flash kernels' q/k/v
 _KEYS_PER_STAGE = 64   # the CUDA kernel stages K/V in sub-tiles of 64 keys
 _HEAD_DIMS = (128,)  # head widths the CUDA kernel is instantiated for
+# page sizes the paged kernels take: the K/V sub-tile is min(64, page size)
+_PAGE_SIZES = (8, 16, 32, 64, 128, 256)
 
 
 def _pad0(x: torch.Tensor, widths) -> torch.Tensor:
@@ -182,28 +194,9 @@ def _splitk_tiles_cuda(q3, k3, v3, k_scale, v_scale, mask, *, cfg: HyftConfig,
     BH, rows, D = q3.shape
     Sk = k3.shape[1]
     B = BH // hkv
-    quantized = k3.dtype == torch.int8
-    _check(q3.dtype == F32 and q3.is_contiguous(), "q3 must be contiguous fp32")
-    _check(k3.dtype in _KV_TYPES and v3.dtype == k3.dtype,
-           f"K/V dtype {k3.dtype}/{v3.dtype} not one of {list(_KV_TYPES)}")
-    _check(k3.shape == (BH, Sk, D) and v3.shape == (BH, Sk, D),
-           f"K/V shape {tuple(k3.shape)} != {(BH, Sk, D)}")
-    _check(k3.is_contiguous() and v3.is_contiguous(), "K/V must be contiguous")
-    _check(quantized == (k_scale is not None) == (v_scale is not None),
-           "int8 K/V need k_scale and v_scale, float K/V take none")
-    if quantized:
-        _check(k_scale.dtype == F32 and v_scale.dtype == F32
-               and k_scale.shape == (BH, Sk) and v_scale.shape == (BH, Sk)
-               and k_scale.is_contiguous() and v_scale.is_contiguous(),
-               "scales must be contiguous fp32 (BH, Sk)")
-    want = (B, Sk) if sq is None else (B, sq, Sk)
-    _check(mask.dtype == F32 and tuple(mask.shape) == want
-           and mask.is_contiguous(), f"mask must be contiguous fp32 {want}")
-    _check(D in _HEAD_DIMS, f"head dim {D} not in {_HEAD_DIMS}")
+    _check_operands(q3, k3, v3, k_scale, v_scale, mask, (BH, Sk, D),
+                    (B, Sk) if sq is None else (B, sq, Sk))
     _check(bk % _KEYS_PER_STAGE == 0, f"bk={bk} not a multiple of {_KEYS_PER_STAGE}")
-    tensors = (q3, k3, v3, mask) + ((k_scale, v_scale) if quantized else ())
-    _check(all(t.device == q3.device and t.device.type == "cuda" for t in tensors),
-           "all inputs must be on the same CUDA device")
 
     ns = -(-Sk // bk)
     acc = torch.empty((BH, ns, rows, D), dtype=F32, device=q3.device)
@@ -220,6 +213,34 @@ def _splitk_tiles_cuda(q3, k3, v3, k_scale, v_scale, mask, *, cfg: HyftConfig,
 def _check(ok: bool, msg: str):
     if not ok:
         raise ValueError(msg)
+
+
+def _check_operands(q3, k, v, k_scale, v_scale, mask, kv_shape, mask_shape,
+                    *extra):
+    """The split-K kernels' common input contract: fp32 q3, K/V of one
+    kernel type and shape ``kv_shape`` (int8 with fp32 scales of its
+    leading shape), the fp32 mask, a built head width, everything
+    contiguous on one CUDA device (``extra`` too)."""
+    quantized = k.dtype == torch.int8
+    _check(q3.dtype == F32 and q3.is_contiguous(), "q3 must be contiguous fp32")
+    _check(k.dtype in _KV_TYPES and v.dtype == k.dtype,
+           f"K/V dtype {k.dtype}/{v.dtype} not one of {list(_KV_TYPES)}")
+    _check(k.shape == kv_shape and v.shape == kv_shape,
+           f"K/V shape {tuple(k.shape)}/{tuple(v.shape)} != {kv_shape}")
+    _check(k.is_contiguous() and v.is_contiguous(), "K/V must be contiguous")
+    _check(quantized == (k_scale is not None) == (v_scale is not None),
+           "int8 K/V need k_scale and v_scale, float K/V take none")
+    if quantized:
+        _check(k_scale.dtype == F32 and v_scale.dtype == F32
+               and k_scale.shape == kv_shape[:-1] and v_scale.shape == kv_shape[:-1]
+               and k_scale.is_contiguous() and v_scale.is_contiguous(),
+               f"scales must be contiguous fp32 {kv_shape[:-1]}")
+    _check(mask.dtype == F32 and tuple(mask.shape) == mask_shape
+           and mask.is_contiguous(), f"mask must be contiguous fp32 {mask_shape}")
+    _check(kv_shape[-1] in _HEAD_DIMS, f"head dim {kv_shape[-1]} not in {_HEAD_DIMS}")
+    tensors = (q3, k, v, mask, *extra) + ((k_scale, v_scale) if quantized else ())
+    _check(all(t.device == q3.device and t.device.type == "cuda" for t in tensors),
+           "all inputs must be on the same CUDA device")
 
 
 def _ptr(t) -> ctypes.c_void_p:
@@ -244,14 +265,78 @@ def _launch(name: str, device, *args):
     LAUNCHES[name] += 1
 
 
-def _tiles_for(device: torch.device):
+def _tiles_for(device: torch.device, paged: bool = False):
     """The wrapper's one choice: the plain version for a CPU tensor, the
     kernel for a CUDA tensor."""
     if device.type == "cpu":
-        return splitk_tiles_plain
+        return paged_tiles_plain if paged else splitk_tiles_plain
     if device.type == "cuda":
-        return _splitk_tiles_cuda
+        return _paged_tiles_cuda if paged else _splitk_tiles_cuda
     raise ValueError(f"no split-K attention for device {device}")
+
+
+# --------------------------------------------------------------------------
+# level 1 over a paged pool: one split per page
+# --------------------------------------------------------------------------
+
+
+def gather_pages(pool, block_tables, hkv: int):
+    """(P, Hkv, ps[, D]) pool leaf -> each sequence's virtual stripe
+    ``(B * Hkv, nb * ps[, D])``: block j of sequence b is page
+    ``block_tables[b, j]``."""
+    B, nb = block_tables.shape
+    x = pool[block_tables.long()].transpose(1, 2)   # (B, Hkv, nb, ps[, D])
+    return x.reshape(B * hkv, nb * pool.shape[2], *pool.shape[3:])
+
+
+def paged_tiles_plain(q3, k_pages, v_pages, k_scale, v_scale, block_tables,
+                      mask, *, cfg: HyftConfig, sm_scale: float, hkv: int,
+                      sq: int | None):
+    """Per-page Hyft stats, in plain PyTorch, on any device: every page is
+    gathered through the block table, then ``splitk_tiles_plain`` runs
+    ``_decode_tile`` with one page per split (``bk = page size``).
+
+    q3 (BH, rows, D) fp32; k_pages/v_pages (P, Hkv, ps, D) float, or int8
+    raws with ``k_scale``/``v_scale`` (P, Hkv, ps) fp32; block_tables
+    (B, nb) int; ``mask`` (B, nb * ps) when ``sq`` is None (decode), else
+    (B, sq, nb * ps).  Returns acc (BH, nb, rows, D) f32, m_loc
+    (BH, nb, rows) i32 and l_loc (BH, nb, rows) f32.
+    """
+    ks, vs = ((None, None) if k_scale is None else
+              (gather_pages(k_scale, block_tables, hkv),
+               gather_pages(v_scale, block_tables, hkv)))
+    return splitk_tiles_plain(
+        q3, gather_pages(k_pages, block_tables, hkv),
+        gather_pages(v_pages, block_tables, hkv), ks, vs, mask, cfg=cfg,
+        sm_scale=sm_scale, bk=k_pages.shape[2], hkv=hkv, sq=sq)
+
+
+def _paged_tiles_cuda(q3, k_pages, v_pages, k_scale, v_scale, block_tables,
+                      mask, *, cfg: HyftConfig, sm_scale: float, hkv: int,
+                      sq: int | None):
+    """Per-page Hyft stats from the CUDA kernel; same contract as
+    ``paged_tiles_plain``.  The kernel reads each page through the block
+    table on the device."""
+    name = "hyft_paged_decode" if sq is None else "hyft_paged_verify"
+    BH, rows, D = q3.shape
+    P, ps = k_pages.shape[0], k_pages.shape[2]
+    B, nb = block_tables.shape
+    _check(B * hkv == BH, f"block table rows {B} x {hkv} heads != q3 rows {BH}")
+    _check(block_tables.dtype == I32 and block_tables.is_contiguous(),
+           "block_tables must be contiguous int32")
+    _check(ps in _PAGE_SIZES, f"page size {ps} not in {_PAGE_SIZES}")
+    _check_operands(q3, k_pages, v_pages, k_scale, v_scale, mask, (P, hkv, ps, D),
+                    (B, nb * ps) if sq is None else (B, sq, nb * ps), block_tables)
+
+    acc = torch.empty((BH, nb, rows, D), dtype=F32, device=q3.device)
+    m_loc = torch.empty((BH, nb, rows), dtype=I32, device=q3.device)
+    l_loc = torch.empty((BH, nb, rows), dtype=F32, device=q3.device)
+    _launch(name, q3.device, _ptr(q3), _ptr(k_pages), _ptr(v_pages),
+            _ptr(k_scale), _ptr(v_scale), _ptr(block_tables), _ptr(mask),
+            _ptr(acc), _ptr(m_loc), _ptr(l_loc), _KV_TYPES[k_pages.dtype], BH,
+            hkv, rows, nb, ps, D, sq if sq is not None else 1,
+            ctypes.c_float(sm_scale), *_hyft_args(cfg))
+    return acc, m_loc, l_loc
 
 
 def tile_errors(got, ref, cfg: HyftConfig, v_absmax: float, bk: int) -> dict:
@@ -325,29 +410,67 @@ def flash_hyft_decode(q, k, v, cfg: HyftConfig, sm_scale: float | None = None,
     return _splitk_combine(acc, m_loc, l_loc, cfg).reshape(B, Hq, 1, D)
 
 
+def flash_hyft_decode_paged(q, k_pages, v_pages, block_tables, cfg: HyftConfig,
+                            sm_scale: float | None = None, kv_len_mask=None,
+                            k_scale=None, v_scale=None):
+    """Split-K fused decode attention over a paged KV pool (Sq = 1).
+
+    Args:
+      q: (B, Hq, 1, D);  k_pages, v_pages: (n_pages + 1, Hkv, page_size, D)
+        float, or int8 FP2FX raws with ``k_scale``/``v_scale``
+        (n_pages + 1, Hkv, page_size) fp32 scales.
+      block_tables: (B, nb) int: virtual block j of sequence b lives in
+        physical page ``block_tables[b, j]``.
+      kv_len_mask: optional (B, nb * page_size) validity mask over the
+        virtual KV axis (nonzero = valid).
+    Returns (B, Hq, 1, D) fp32.  With ``block_tables[b, j] == j`` over a
+    contiguous pool this is bitwise ``flash_hyft_decode`` at ``block_k ==
+    page_size``.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, ps = k_pages.shape[1], k_pages.shape[2]
+    nb = block_tables.shape[1]
+    assert Sq == 1 and Hq % Hkv == 0
+    g = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else D ** -0.5
+    maskf = (kv_len_mask.to(F32).contiguous() if kv_len_mask is not None
+             else torch.ones((B, nb * ps), dtype=F32, device=q.device))
+    q3 = q.reshape(B * Hkv, g, D).to(F32).contiguous()
+    acc, m_loc, l_loc = _tiles_for(q.device, paged=True)(
+        q3, k_pages, v_pages, k_scale, v_scale,
+        block_tables.to(I32).contiguous(), maskf, cfg=cfg, sm_scale=scale,
+        hkv=Hkv, sq=None)
+    return _splitk_combine(acc, m_loc, l_loc, cfg).reshape(B, Hq, 1, D)
+
+
 def flash_hyft_verify(q, k, v, kv_pos_mask, cfg: HyftConfig,
                       sm_scale: float | None = None, block_k: int = 256,
                       block_tables=None, k_scale=None, v_scale=None):
     """Split-K fused chunk attention with Hyft softmax (Sq = token chunk).
 
     The prompt-chunk path behind ``verify_attention``'s kernel mode.
-    q: (B, Hq, Sq, D); k, v: contiguous (B, Hkv, Sk, D) stripes, float or
-    int8 raws with scales; kv_pos_mask: (B, Sq, Sk) per-lane validity
-    (the causal frontier ``kv_index <= pos + t``).  Returns (B, Hq, Sq, D)
-    fp32.  At Sq == 1 this is bitwise ``flash_hyft_decode`` on the same
-    splits: the tile and the combine are shared, only the mask gained a
-    lane axis.
+    q: (B, Hq, Sq, D); k, v: contiguous (B, Hkv, Sk, D) stripes or, with
+    ``block_tables`` (B, nb), a paged pool (n_pages + 1, Hkv, page_size,
+    D); either float or int8 raws with scales; kv_pos_mask: (B, Sq, Lk)
+    per-lane validity over the (virtual) KV axis (the causal frontier
+    ``kv_index <= pos + t``).  Returns (B, Hq, Sq, D) fp32.  At Sq == 1
+    this is bitwise ``flash_hyft_decode`` (same splits) or
+    ``flash_hyft_decode_paged`` (pages as splits): the tile and the
+    combine are shared, only the mask gained a lane axis.
     """
-    if block_tables is not None:
-        raise NotImplementedError(
-            "paged verify (_verify_paged_kernel) is not ported yet: "
-            "ROADMAP queue 2, kernel 9")
     B, Hq, Sq, D = q.shape
-    _, Hkv, Sk, _ = k.shape
+    Hkv = k.shape[1]
     assert Hq % Hkv == 0
     g = Hq // Hkv
     scale = sm_scale if sm_scale is not None else D ** -0.5
     q3 = q.reshape(B * Hkv, g * Sq, D).to(F32).contiguous()
+    if block_tables is not None:          # paged pool: pages as splits
+        acc, m_loc, l_loc = _tiles_for(q.device, paged=True)(
+            q3, k, v, k_scale, v_scale, block_tables.to(I32).contiguous(),
+            kv_pos_mask.to(F32).contiguous(), cfg=cfg, sm_scale=scale,
+            hkv=Hkv, sq=Sq)
+        return _splitk_combine(acc, m_loc, l_loc, cfg).reshape(B, Hq, Sq, D)
+    Sk = k.shape[2]
     tiles = _tiles_for(q.device)
     acc, m_loc, l_loc = tiles(
         q3, k.reshape(B * Hkv, Sk, D), v.reshape(B * Hkv, Sk, D),

@@ -10,8 +10,7 @@ see a float side input.  Every online mode carries per-row ``(m, l)`` stats
 — the int32 fixed-point running max and the fp32 fixed-point sum — and the
 fused kernel saves exactly these for its backward.
 
-The paged decode and the standalone softmax kernels come with later slices
-(ROADMAP queue 2).
+The standalone softmax kernels come with a later slice (ROADMAP queue 2).
 """
 from __future__ import annotations
 
@@ -19,7 +18,8 @@ import torch
 
 from repro_torch.core.hyft import HyftConfig
 from repro_torch.kernels.flash_attention import (
-    flash_hyft_attention, flash_hyft_decode, flash_hyft_verify)
+    flash_hyft_attention, flash_hyft_decode, flash_hyft_decode_paged,
+    flash_hyft_verify)
 
 F32 = torch.float32
 
@@ -55,11 +55,27 @@ def hyft_decode_attention(q, k, v, cfg: HyftConfig, sm_scale=None,
                              k_scale=k_scale, v_scale=v_scale)
 
 
+def hyft_paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                cfg: HyftConfig, sm_scale=None,
+                                kv_len_mask=None, k_scale=None, v_scale=None):
+    """Split-K fused decode attention over a paged KV pool (Sq = 1): each
+    page is one split, read through the block table on the device; bitwise
+    the contiguous decode at ``block_k == page_size`` when the pages are
+    laid out in order.  int8 pages with ``k_scale``/``v_scale`` pools (the
+    fp2fx8 page layout) are dequantized in the page loads."""
+    return flash_hyft_decode_paged(q, k_pages, v_pages, block_tables, cfg,
+                                   sm_scale=sm_scale,
+                                   kv_len_mask=as_mask_f(kv_len_mask),
+                                   k_scale=k_scale, v_scale=v_scale)
+
+
 def hyft_verify_attention(q, k, v, kv_pos_mask, cfg: HyftConfig,
                           sm_scale=None, block_k=256, block_tables=None,
                           k_scale=None, v_scale=None):
     """Split-K fused chunk attention (Sq = token chunk) with Hyft softmax:
-    the prompt path.  At Sq == 1 this is bitwise the decode kernel."""
+    the prompt path.  ``block_tables`` (B, nb) switches K/V to the paged
+    pool (pages as splits).  At Sq == 1 this is bitwise the decode kernel
+    of the same layout."""
     return flash_hyft_verify(q, k, v, as_mask_f(kv_pos_mask), cfg,
                              sm_scale=sm_scale, block_k=block_k,
                              block_tables=block_tables,

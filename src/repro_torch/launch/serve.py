@@ -1,16 +1,27 @@
-"""Serving launcher CLI: lockstep batch generate on the card.
+"""Serving launcher CLI: lockstep batch generate, or continuous batching
+over a slot pool (dense or paged KV cache), on the card.
 
   # greedy decode of random prompts through the split-K CUDA kernels
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --softmax hyft16 --attn-mode kernel --cache-dtype fp2fx8
 
-  # the same at smoke size on the CPU (plain PyTorch versions of the kernels)
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \
-      --device cpu --attn-mode kernel --cache-dtype fp2fx8
+  # continuous batching over a paged pool with prefix caching: ragged
+  # prompts and horizons, chunked prefill, the paged CUDA kernels
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+      --scheduler continuous --kv-layout paged --prefix-cache \
+      --n-slots 8 --batch 24 --prefill 512 --max-new 64 --prefill-chunk 256 \
+      --attn-mode kernel --cache-dtype fp2fx8
 
-Weights are random, made from ``--seed``.  The scheduler, paged, speculative
-and observability flags of the JAX launcher come with the slices that port
-those layers.
+  # either at smoke size on the CPU (plain PyTorch versions of the kernels)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \
+      --device cpu --scheduler continuous --kv-layout paged --prefix-cache \
+      --attn-mode kernel --cache-dtype fp2fx8
+
+Weights are random, made from ``--seed``.  The paged layout, the prefix
+cache and chunked prefill live in the slot-pool scheduler, so those flags
+route through it under ``--scheduler lockstep`` too.  The speculative,
+chaos and observability flags of the JAX launcher come with the slices
+that port those layers.
 """
 import argparse
 
@@ -26,9 +37,44 @@ def main(argv=None):
                     help="KV cache storage: a dtype name or 'fp2fx8' "
                          "(int8 FP2FX raws + per-head scales)")
     ap.add_argument("--decode-loop", default="scan", choices=["scan", "host"])
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prefill", type=int, default=16, help="prompt length")
-    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--scheduler", default="lockstep",
+                    choices=["lockstep", "continuous"],
+                    help="'continuous' = slot-pool continuous batching with "
+                         "ragged prompts and EOS early-exit; 'lockstep' = "
+                         "one rectangular batch (or, with the slot-pool "
+                         "flags, a pool drained before each admission)")
+    ap.add_argument("--n-slots", type=int, default=4,
+                    help="slot-pool size of the continuous scheduler")
+    ap.add_argument("--eos-id", type=int, default=None,
+                    help="stop token: a continuous slot that emits it is "
+                         "freed at once")
+    ap.add_argument("--decode-burst", type=int, default=8,
+                    help="masked decode steps between admission checks")
+    ap.add_argument("--kv-layout", default="dense", choices=["dense", "paged"],
+                    help="'paged' = fixed-size KV pages from a global pool "
+                         "with per-slot block tables")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page for --kv-layout paged")
+    ap.add_argument("--n-pages", type=int, default=0,
+                    help="usable pages in the pool (0 = n_slots * "
+                         "ceil(max_len / page_size))")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix-trie prompt prefix cache (paged only)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="max prompt tokens per prefill call (0 = whole "
+                         "prompt)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded admission queue: arrivals past this many "
+                         "waiting requests fail with 'queue_full' (0 = "
+                         "unbounded)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="lockstep batch size / continuous request count")
+    ap.add_argument("--prefill", type=int, default=16,
+                    help="prompt length (continuous: the maximum; prompts "
+                         "are ragged in [prefill//2, prefill])")
+    ap.add_argument("--max-new", type=int, default=16,
+                    help="decode horizon (continuous: the maximum; horizons "
+                         "are ragged in [max_new//2, max_new])")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
@@ -38,12 +84,14 @@ def main(argv=None):
                          "versions of the kernels)")
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
 
     from repro_torch.configs import ServeConfig, get_config, smoke_config
     from repro_torch.device import resolve_device
     from repro_torch.models import build_model
     from repro_torch.serve.engine import generate
+    from repro_torch.serve.scheduler import Request, SlotPoolEngine
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -53,13 +101,49 @@ def main(argv=None):
     model = build_model(cfg)
     params = model.init(args.seed, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    tokens = torch.randint(0, cfg.vocab, (args.batch, args.prefill),
-                           generator=gen, device=dev, dtype=torch.int32)
     scfg = ServeConfig(max_len=args.prefill + args.max_new + 1,
                        cache_dtype=args.cache_dtype,
                        temperature=args.temperature, top_k=args.top_k,
                        top_p=args.top_p, attn_mode=args.attn_mode,
-                       decode_loop=args.decode_loop)
+                       decode_loop=args.decode_loop, scheduler=args.scheduler,
+                       n_slots=args.n_slots, eos_id=args.eos_id,
+                       decode_burst=args.decode_burst,
+                       kv_layout=args.kv_layout, page_size=args.page_size,
+                       n_pages=args.n_pages, prefix_cache=args.prefix_cache,
+                       prefill_chunk=args.prefill_chunk,
+                       max_queue=args.max_queue)
+
+    if (args.scheduler == "continuous" or args.kv_layout != "dense"
+            or args.prefix_cache or args.prefill_chunk > 0):
+        rng = np.random.default_rng(args.seed)
+        reqs = []
+        for rid in range(args.batch):
+            plen = int(rng.integers(max(1, args.prefill // 2), args.prefill + 1))
+            reqs.append(Request(
+                rid=rid, tokens=rng.integers(0, cfg.vocab, plen).astype(np.int32),
+                max_new=int(rng.integers(max(1, args.max_new // 2),
+                                         args.max_new + 1))))
+        eng = SlotPoolEngine(model, params, scfg, generator=gen, device=dev)
+        try:
+            done = eng.run(reqs)
+        except KeyboardInterrupt:
+            # graceful drain: every unfinished request ends cancelled with
+            # its partial tokens
+            done = eng.shutdown()
+            print("\ninterrupted: drained "
+                  f"{sum(1 for c in done.values() if c.cancelled)} "
+                  "in-flight/queued requests as cancelled")
+        for rid in sorted(done):
+            c = done[rid]
+            tag = ("" if c.ok else " CANCELLED" if c.cancelled
+                   else f" FAILED({c.failure.reason})")
+            print(f"[{rid}] prompt={c.prompt_len} new={len(c.tokens)}"
+                  f"{tag} {c.tokens}")
+        print(f"stats: {eng.stats}")
+        return
+
+    tokens = torch.randint(0, cfg.vocab, (args.batch, args.prefill),
+                           generator=gen, device=dev, dtype=torch.int32)
     out = generate(model, params, {"tokens": tokens}, scfg,
                    max_new=args.max_new, generator=gen, device=dev)
     for i, row in enumerate(out.tolist()):

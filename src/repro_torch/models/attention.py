@@ -2,8 +2,7 @@
 / chunk attention entries of the serving path.
 
 The PyTorch counterpart of ``repro.models.attention`` for the dense family
-(the sequence-parallel decode and the paged layout come later).  Modes
-(``cfg.attn_mode``):
+(the sequence-parallel decode comes later).  Modes (``cfg.attn_mode``):
 
   unfused  — QK^T -> registry softmax (hyft/exact) -> PV; the reference,
              differentiable through the Hyft softmax's own backward.
@@ -15,9 +14,11 @@ The PyTorch counterpart of ``repro.models.attention`` for the dense family
              decode and prompt chunks.
 
 The cache is ``{"k", "v"[, "k_scale", "v_scale"]}`` per layer, the JAX
-layout (B, Hkv, L, D).  Unlike the functional JAX cache, the port updates
-it in place: the returned dict holds the same tensors, so a full cache is
-never copied to append one token.
+layout: (B, Hkv, L, D) dense, or a page pool (n_pages + 1, Hkv, page_size,
+D) read through per-sequence block tables (the paged layout).  Unlike the
+functional JAX cache, the port updates it in place: the returned dict
+holds the same tensors, so a full cache is never copied to append one
+token.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from repro_torch.core.registry import get_softmax, hyft_config_for
 from repro_torch.configs.base import torch_dtype
 from repro_torch.core.hyft import HyftConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import hyft_alpha, hyft_finalize
+from repro_torch.kernels.flash_attention import gather_pages, hyft_alpha, hyft_finalize
 from repro_torch.models.layers import apply_rope
 
 F32 = torch.float32
@@ -371,8 +372,121 @@ def cache_update_block_ragged(cache, k_new, v_new, pos_b, n_valid,
 
 
 # --------------------------------------------------------------------------
+# paged KV cache (block-table indirection over a global page pool)
+# --------------------------------------------------------------------------
+#
+# ``kv_layout="paged"`` replaces the per-slot dense stripe with one global
+# pool of fixed-size pages per layer, (n_pages + 1, Hkv, page_size, D) dense
+# or fp2fx8, plus a per-sequence block table mapping virtual KV block j to a
+# physical page.  Page 0 is the null page (``serve.kvpool.NULL_PAGE``):
+# masked writes are redirected at it instead of gated, so a write never
+# reads the pool first, and two rows never write one live page (slots own
+# distinct tail pages; shared prefix pages are never written).
+
+
+def paged_cache_init(cfg, n_pages, page_size, dtype, device=None) -> dict[str, Any]:
+    """One layer's page pool: ``n_pages`` usable pages + the null page 0."""
+    shape = (n_pages + 1, cfg.n_kv_heads, page_size, cfg.d_head)
+    if is_fp2fx8(dtype):
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=F32, device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=F32, device=device)}
+    dt = torch_dtype(str(dtype))
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _paged_write(cache, k_new, v_new, page, off):
+    """Write token lanes through (page, offset) index tensors of one shape
+    (B[, S]): k_new/v_new (B, Hkv, S, D) lane ``s`` of row ``b`` lands at
+    ``pool[page[b, s], :, off[b, s]]``."""
+    for name, new in _quantized_entries(cache, k_new, v_new).items():
+        buf = cache[name]
+        new = new.transpose(1, 2)                          # (B, S, Hkv[, D])
+        if page.ndim == 1:
+            new = new[:, 0]
+        buf[page, :, off] = new.to(buf.dtype)
+    return cache
+
+
+def cache_update_paged(cache, k_new, v_new, pos_b, block_tables,
+                       write_mask=None):
+    """Per-row paged write: row ``b``'s (Hkv, 1, D) K/V lands in physical
+    page ``block_tables[b, pos_b[b] // ps]`` at offset ``pos_b[b] % ps``.
+    ``write_mask`` (B,) bool redirects masked rows to the null page."""
+    ps, nb = cache["k"].shape[2], block_tables.shape[1]
+    pos = pos_b.to(torch.long)
+    blk = torch.clamp(pos // ps, max=nb - 1)   # a gather clamps, as in JAX
+    page = torch.gather(block_tables.to(torch.long), 1, blk[:, None])[:, 0]
+    if write_mask is not None:
+        page = torch.where(write_mask, page, 0)
+    return _paged_write(cache, k_new, v_new, page, pos % ps)
+
+
+def cache_update_block_paged(cache, k_new, v_new, pos_b, block_tables,
+                             n_valid, write_mask=None):
+    """Paged twin of ``cache_update_block_ragged``: token ``j`` of row ``b``
+    lands through the block table at virtual position ``pos_b[b] + j``.
+    Lanes past ``n_valid[b]``, rows with ``write_mask`` False and lanes past
+    the table's virtual extent are redirected to the null page.
+
+    One write per buffer for the whole chunk, where the JAX package writes
+    token by token: the pools come out the same, the fp2fx8 scales
+    included (quantization is per (head, position)), except on the null
+    page, which no unmasked read ever sees.
+    """
+    ps, nb = cache["k"].shape[2], block_tables.shape[1]
+    Lv = nb * ps
+    S = k_new.shape[2]
+    j = torch.arange(S, device=k_new.device)
+    pos = pos_b.to(torch.long)[:, None] + j[None, :]            # (B, S)
+    gate = (j[None, :] < n_valid.to(torch.long)[:, None]) & (pos < Lv)
+    if write_mask is not None:
+        gate = gate & write_mask[:, None]
+    pj = torch.clamp(pos, 0, Lv - 1)
+    page = torch.gather(block_tables.to(torch.long), 1, pj // ps)
+    page = torch.where(gate, page, 0)
+    return _paged_write(cache, k_new, v_new, page, pj % ps)
+
+
+def paged_gather_kv(cache, block_tables):
+    """The virtual dense (B, Hkv, nb * ps, D) float K/V of each sequence,
+    gathered through its block table: the unfused and chunked modes' view
+    of the pool (the kernels read the pages in place)."""
+    B, hkv = block_tables.shape[0], cache["k"].shape[1]
+
+    def flat(pool):  # -> (B, Hkv, nb * ps[, D])
+        x = gather_pages(pool, block_tables, hkv)
+        return x.reshape(B, hkv, *x.shape[1:])
+
+    if cache_is_quantized(cache):
+        return (fp2fx8_dequantize(flat(cache["k"]), flat(cache["k_scale"])),
+                fp2fx8_dequantize(flat(cache["v"]), flat(cache["v_scale"])))
+    return flat(cache["k"]), flat(cache["v"])
+
+
+# --------------------------------------------------------------------------
 # decode and chunk attention against the cache
 # --------------------------------------------------------------------------
+
+
+def decode_attention_paged(q, cache, block_tables, cfg, *, kv_len_mask=None):
+    """Sq=1 attention over a paged pool.  With a Hyft softmax and
+    ``attn_mode="kernel"`` this is the paged split-K kernel (pages read
+    through the block table, fp2fx8 dequantized in the page loads); every
+    other combination gathers the virtual dense K/V and falls through to
+    the mode dispatch."""
+    hcfg = hyft_config_for(cfg.softmax_impl)
+    mode = getattr(cfg, "attn_mode", "unfused")
+    if hcfg is not None and mode == "kernel" and q.shape[2] == 1:
+        return ops.hyft_paged_decode_attention(
+            q, cache["k"], cache["v"], block_tables, hcfg,
+            kv_len_mask=ops.as_mask_f(kv_len_mask),
+            k_scale=cache.get("k_scale"),
+            v_scale=cache.get("v_scale")).to(q.dtype)
+    k, v = paged_gather_kv(cache, block_tables)
+    return attention_fwd(q, k, v, cfg, causal=False, kv_len_mask=kv_len_mask)
 
 
 def decode_attention(q, cache, cfg, *, kv_len_mask=None):
@@ -411,20 +525,22 @@ def verify_attention(q, cache, cfg, *, kv_pos_mask, block_tables=None):
     """Attend a token chunk at per-row offsets against the cache: ``q``
     holds Sq already-written tokens per row and ``kv_pos_mask`` (B, Sq, Lk)
     each token's causal frontier.  With a Hyft softmax and
-    ``attn_mode="kernel"`` this is the split-K chunk kernel; chunked mode
-    runs the online-Hyft loop under the same per-row mask; otherwise the
-    unfused reference."""
+    ``attn_mode="kernel"`` this is the split-K chunk kernel (dense stripes,
+    or with ``block_tables`` the paged pool); chunked mode runs the
+    online-Hyft loop under the same per-row mask; otherwise the unfused
+    reference."""
     hcfg = hyft_config_for(cfg.softmax_impl)
     mode = getattr(cfg, "attn_mode", "unfused")
-    if block_tables is not None:
-        raise NotImplementedError(
-            "the paged KV layout is not ported yet: ROADMAP queue 1 item 7")
     if hcfg is not None and mode == "kernel":
         return ops.hyft_verify_attention(
             q, cache["k"], cache["v"], kv_pos_mask, hcfg,
+            block_tables=block_tables,
             k_scale=cache.get("k_scale"),
             v_scale=cache.get("v_scale")).to(q.dtype)
-    k, v = cache_kv(cache)
+    if block_tables is not None:
+        k, v = paged_gather_kv(cache, block_tables)
+    else:
+        k, v = cache_kv(cache)
     if hcfg is not None and mode == "chunked":
         chunk = min(getattr(cfg, "attn_chunk", 512), k.shape[2])
         if k.shape[2] % chunk == 0:

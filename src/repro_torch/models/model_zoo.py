@@ -7,6 +7,7 @@
                                         -> (logits (B, S, V), cache)
   decode_step(params, cache, tok, pos)  -> (logits (B, 1, V), cache)
   init_cache(params, batch, max_len, dtype, device=None)
+  init_paged_cache(params, n_pages, page_size, dtype, device=None)
 The dense family only, so far (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
@@ -29,6 +30,8 @@ class Model:
     prefill_chunk: Callable
     decode_step: Callable
     init_cache: Callable
+    # the paged serving cache (page pools; the caller adds block tables)
+    init_paged_cache: Callable
 
 
 def resolve_attn_mode(model: Model, attn_mode) -> Model:
@@ -60,4 +63,7 @@ def build_model(cfg: ModelConfig) -> Model:
         init_cache=lambda p, batch, max_len, dtype, device=None:
             transformer.init_cache(p, cfg, batch, max_len, dtype,
                                    resolve_device(device)),
+        init_paged_cache=lambda p, n_pages, page_size, dtype, device=None:
+            transformer.init_paged_cache(p, cfg, n_pages, page_size, dtype,
+                                         resolve_device(device)),
     )

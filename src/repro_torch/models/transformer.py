@@ -8,7 +8,8 @@ axis under ``"blocks"`` — and a Python loop over layers takes the place of
 ``torch.utils.checkpoint`` (only the residual stream is kept; the block's
 forward runs again in the backward).  The cache is ``{"blocks": {"k",
 "v"[, "k_scale", "v_scale"]}}``, stacked the same way, and updated in
-place.  The MoE, SSM, hybrid and VLM families come with later slices
+place; the paged cache holds page pools there and its ``"block_tables"``
+(B, nb) beside them.  The MoE, SSM, hybrid and VLM families come with later slices
 (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
@@ -97,15 +98,30 @@ def init_cache(params, cfg, batch, max_len, dtype, device=None):
                        for k, v in c.items()}}
 
 
+def init_paged_cache(params, cfg, n_pages, page_size, dtype, device=None):
+    """Paged serving cache: per-layer page pools, each leaf ``(n_layers,
+    n_pages + 1, Hkv, page_size, D)`` (page 0 the null page).  The caller
+    owns the block tables and puts them in the dict as
+    ``cache["block_tables"]`` (B, nb) int32; ``decode_step`` and
+    ``prefill_chunk`` take the paged path when they are there."""
+    _check_dense(cfg)
+    c = attn.paged_cache_init(cfg, n_pages, page_size, dtype, device)
+    return {"blocks": {k: v.expand(cfg.n_layers, *v.shape).clone()
+                       for k, v in c.items()}}
+
+
 def _block_apply(p, x, cfg, positions, *, causal=True, decode_cache=None,
-                 pos_offset=0, kv_len_mask=None, write_mask=None):
+                 pos_offset=0, kv_len_mask=None, write_mask=None,
+                 paged_bt=None):
     """One block: returns (x, cache).
 
     Without ``decode_cache`` the block attends over its own sequence
     (training, ``causal``) and the cache is None.  With one, it is a decode
     step: ``pos_offset`` may be a (B,) tensor (ragged decode: each row
     writes its KV at its own position) and ``write_mask`` (B,) gates the
-    cache write per row.
+    cache write per row.  ``paged_bt`` (B, nb) switches the cache to the
+    paged layout: the write goes through the block table (masked rows to
+    the null page) and attention reads the pages.
     """
     norm_fn = NORMS[cfg.norm]
     h = norm_fn(p["norms"]["pre_attn"], x)
@@ -113,6 +129,13 @@ def _block_apply(p, x, cfg, positions, *, causal=True, decode_cache=None,
     if decode_cache is None:
         cache = None
         o = attn.attention_fwd(q, k, v, cfg, causal=causal)
+    elif paged_bt is not None:
+        pos_b = torch.as_tensor(pos_offset, dtype=I32, device=x.device)
+        cache = attn.cache_update_paged(decode_cache, k, v,
+                                        pos_b.expand(x.shape[0]), paged_bt,
+                                        write_mask)
+        o = attn.decode_attention_paged(q, cache, paged_bt, cfg,
+                                        kv_len_mask=kv_len_mask)
     else:
         if torch.is_tensor(pos_offset) or write_mask is not None:
             pos_b = torch.as_tensor(pos_offset, dtype=I32, device=x.device)
@@ -184,10 +207,20 @@ def lm_loss(params, batch, cfg, *, remat="full", z_loss=1e-4,
 # --------------------------------------------------------------------------
 
 
+def _kv_length(cache) -> int:
+    """The KV length a mask spans: the dense cache's, or the paged
+    layout's virtual length ``nb * page_size``."""
+    bt = cache.get("block_tables")
+    if bt is not None:
+        return bt.shape[1] * cache["blocks"]["k"].shape[3]
+    return cache["blocks"]["k"].shape[3]
+
+
 def decode_step(params, cache, tokens1, pos, cfg, write_mask=None):
     """One decode step.  tokens1: (B, 1); pos: int (current length) or a
     (B,) tensor of per-row lengths.  Each layer appends its K/V at ``pos``
-    and attends over [0, pos].  Returns (logits (B, 1, V) fp32, cache)."""
+    and attends over [0, pos].  With ``cache["block_tables"]`` the cache is
+    the paged layout.  Returns (logits (B, 1, V) fp32, cache)."""
     _check_dense(cfg)
     B = tokens1.shape[0]
     dev = tokens1.device
@@ -196,13 +229,13 @@ def decode_step(params, cache, tokens1, pos, cfg, write_mask=None):
         positions = pos.to(I32).reshape(B, 1)
     else:
         positions = torch.full((B, 1), pos, dtype=I32, device=dev)
-    max_len = cache["blocks"]["k"].shape[3]
-    kv_mask = torch.arange(max_len, device=dev)[None, :] <= positions
+    bt = cache.get("block_tables")
+    kv_mask = torch.arange(_kv_length(cache), device=dev)[None, :] <= positions
     for lp, lc in zip(_layers(params["blocks"], cfg.n_layers),
                       _layers(cache["blocks"], cfg.n_layers)):
         x, _ = _block_apply(lp, x, cfg, positions, decode_cache=lc,
                             pos_offset=pos, kv_len_mask=kv_mask,
-                            write_mask=write_mask)
+                            write_mask=write_mask, paged_bt=bt)
     norm_fn = NORMS[cfg.norm]
     x = norm_fn(params["final_norm"], x)
     return logits_fn(params, x, cfg), cache
@@ -216,8 +249,9 @@ def prefill_chunk(params, cache, tokens, start, cfg, lengths=None,
     Row ``b``'s tokens write at ``start[b] .. start[b] + S - 1``
     (write-then-attend) and each token attends under its own causal
     frontier ``kv_index <= start[b] + j``.  ``lengths`` (B,) bounds each
-    row's real tokens; ``write_mask`` (B,) gates whole rows.  Returns
-    (logits (B, S, V) fp32, cache).
+    row's real tokens; ``write_mask`` (B,) gates whole rows.  With
+    ``cache["block_tables"]`` the writes and the attention go through the
+    page pool.  Returns (logits (B, S, V) fp32, cache).
     """
     _check_dense(cfg)
     B, S = tokens.shape
@@ -228,16 +262,20 @@ def prefill_chunk(params, cache, tokens, start, cfg, lengths=None,
           else torch.as_tensor(lengths, dtype=I32, device=dev))
     x = embed_lookup(params["embed"], tokens).to(cfg.cdtype)
     positions = pos_b[:, None] + torch.arange(S, dtype=I32, device=dev)[None, :]
-    max_len = cache["blocks"]["k"].shape[3]
-    kv_mask = (torch.arange(max_len, device=dev)[None, None, :]
+    bt = cache.get("block_tables")
+    kv_mask = (torch.arange(_kv_length(cache), device=dev)[None, None, :]
                <= positions[:, :, None])
     norm_fn = NORMS[cfg.norm]
     for lp, lc in zip(_layers(params["blocks"], cfg.n_layers),
                       _layers(cache["blocks"], cfg.n_layers)):
         h = norm_fn(lp["norms"]["pre_attn"], x)
         q, k, v = attn.qkv_proj(lp["attn"], h, h, cfg, positions, positions)
-        attn.cache_update_block_ragged(lc, k, v, pos_b, nv, write_mask)
-        o = attn.verify_attention(q, lc, cfg, kv_pos_mask=kv_mask)
+        if bt is not None:
+            attn.cache_update_block_paged(lc, k, v, pos_b, bt, nv, write_mask)
+        else:
+            attn.cache_update_block_ragged(lc, k, v, pos_b, nv, write_mask)
+        o = attn.verify_attention(q, lc, cfg, kv_pos_mask=kv_mask,
+                                  block_tables=bt)
         y = x + attn.out_proj(lp["attn"], o.to(x.dtype))
         h2 = norm_fn(lp["norms"]["pre_mlp"], y)
         x = y + mlp_mod.mlp_apply(lp["mlp"], h2, cfg).to(y.dtype)

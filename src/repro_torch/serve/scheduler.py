@@ -1,0 +1,793 @@
+"""Continuous-batching scheduler: a slot-pool KV cache serving ragged traffic.
+
+The PyTorch counterpart of ``repro.serve.scheduler``'s ``SlotPoolEngine``
+for the attention (dense) family.  Three pieces, as in the JAX package:
+
+  slot pool    — the KV cache is allocated once with a fixed batch (slot)
+                 dimension ``n_slots`` (dense or paged, float or fp2fx8);
+                 host mirrors track each slot's ``length`` (next write
+                 position), ``active``, ``prefilling`` and token ``budget``.
+  chunked prefill — admission is host bookkeeping only; prompt tokens go
+                 through ``engine.build_prefill_chunk`` in place over the
+                 slot's own cache rows, up to ``prefill_chunk`` tokens per
+                 row per call, every prefilling slot packed into one call
+                 (``pack_prefill``), one call between decode bursts.
+  masked burst — ``decode_burst`` masked decode steps over all slots: each
+                 writes KV at per-slot positions (paged: through the block
+                 tables), samples, and detects EOS, budget and deadline TTL
+                 on the device, so a finished slot stops writing its cache
+                 mid-burst.  Nothing is read back inside the burst; the host
+                 reads the emitted tokens and the slot state once after it.
+
+``ServeConfig.scheduler``: ``continuous`` admits into freed slots
+mid-decode and honours ``eos_id``; ``lockstep`` drains the pool before the
+next group and ignores EOS.  ``ServeConfig.kv_layout``: ``dense`` (one
+``max_len`` stripe per slot) or ``paged`` (``serve.kvpool`` pages with
+per-slot block tables; decode appends pages, exhaustion preempts the
+latest arrival and requeues it with its tokens folded into the prompt;
+``prefix_cache`` shares the pages of cached prompt prefixes).
+
+Requests end in a definite outcome: finished, cancelled, or a structured
+failure (``invalid``, ``queue_full``, ``deadline``, ``retries_exhausted``).
+Not ported yet (ROADMAP queue 1 item 7): the speculative scheduler, the
+chaos harness, the numeric quarantine ladder and the ``obs`` layer.  Until
+the ladder comes, non-finite logits in an active slot raise RuntimeError.
+
+Time is read from one injectable clock (``clock``, seconds, default
+``time.perf_counter``) through ``_now``, so arrivals and deadlines can be
+driven without sleeping.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ServeConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.model_zoo import resolve_attn_mode
+from repro_torch.serve import engine, kvpool
+from repro_torch.train.loop import StragglerMonitor
+
+I32 = torch.int32
+PAD = -1  # emitted-token filler for slots that were idle during a burst step
+TTL_NONE = 1 << 30  # "no deadline" sentinel: never decrements to zero
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request.  ``arrival`` and ``deadline`` are seconds
+    after ``run()`` starts (0 = already queued); ``deadline`` is a hard TTL.
+    ``resume`` marks a preempted request requeued mid-generation (its
+    prompt already carries the tokens generated so far)."""
+    rid: int
+    tokens: Any                       # (prompt_len,) int token ids
+    max_new: int
+    arrival: float = 0.0
+    deadline: Optional[float] = None
+    resume: bool = False
+
+
+@dataclasses.dataclass
+class FailureInfo:
+    """Why a request ended without running to EOS or its budget: one of
+    ``invalid``, ``queue_full``, ``deadline``, ``retries_exhausted``.  The
+    partial tokens stay on the ``Completion``."""
+    reason: str
+    detail: str = ""
+    retries: int = 0
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: int
+    tokens: list                      # generated ids (includes EOS if hit)
+    prompt_len: int
+    finished_at: float                # seconds after run() start
+    arrival: float = 0.0
+    # per-token emission stamps (seconds after run() start; a burst's
+    # tokens share one stamp): token_times[0] - arrival is the TTFT
+    token_times: list = dataclasses.field(default_factory=list)
+    cancelled: bool = False
+    failure: Optional[FailureInfo] = None
+
+    @property
+    def ok(self) -> bool:
+        return not self.cancelled and self.failure is None
+
+    @property
+    def latency(self) -> float:
+        return self.finished_at - self.arrival
+
+    @property
+    def ttft(self) -> Optional[float]:
+        """Time to first token, or None when none was emitted."""
+        if not self.token_times:
+            return None
+        return self.token_times[0] - self.arrival
+
+
+def _bucket(n: int, lo: int = 4) -> int:
+    """Next power of two >= n (>= lo): the prefill call widths."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def build_burst(model, scfg: ServeConfig, steps: int):
+    """(params, cache, tok (B, 1), lengths, active, budget, ttl, generator)
+    -> (emitted (steps, B), oks (steps, B), cache, tok, lengths, active,
+    budget, ttl), all device tensors.
+
+    ``steps`` masked decode steps.  Every slot computes every step, but only
+    active slots write their KV (``write_mask``), consume budget and TTL,
+    advance their length or emit a token (idle rows emit PAD).  EOS (in
+    continuous mode), budget exhaustion and TTL expiry clear ``active`` on
+    the device.  ``oks`` is False where an active slot's logits went
+    non-finite.  The loop reads nothing back from the device.
+    """
+    eos = scfg.eos_id if scfg.scheduler == "continuous" else None
+
+    def burst(params, cache, tok, lengths, active, budget, ttl, generator):
+        emits, oks = [], []
+        for _ in range(steps):
+            logits, cache = model.decode_step(params, cache, tok, lengths,
+                                              write_mask=active)
+            last = logits[:, -1, :]
+            oks.append(torch.isfinite(last).all(-1) | ~active)
+            nxt = engine._sample(last, generator, scfg.temperature,
+                                 scfg.top_k, scfg.top_p).to(I32)
+            emits.append(torch.where(active, nxt, PAD))
+            step = active.to(I32)
+            budget, lengths, ttl = budget - step, lengths + step, ttl - step
+            alive = active & (budget > 0) & (ttl > 0)
+            if eos is not None:
+                alive = alive & (nxt != eos)
+            tok = torch.where(active, nxt, tok[:, 0])[:, None]
+            active = alive
+        return (torch.stack(emits), torch.stack(oks), cache, tok, lengths,
+                active, budget, ttl)
+
+    return burst
+
+
+_STAT_KEYS = (
+    "admitted", "bursts", "prefills", "burst_steps", "slot_steps_active",
+    "peak_active", "tokens_emitted", "prompt_tokens", "prefill_tokens",
+    "cached_tokens", "prefix_hits", "preemptions", "pages_peak",
+    "model_calls", "rejected", "expired", "cancelled", "failures",
+    "stragglers", "audits")
+
+
+class SlotPoolEngine:
+    """Host-side scheduler around the slot-pool cache and the burst.
+
+    Slot state lives as numpy mirrors updated from each burst's outputs;
+    the KV cache never leaves the device and is updated in place.
+    ``device`` (None = the card) is where the cache lives; ``params`` must
+    live there too.  ``generator`` draws the samples when temperature > 0.
+    """
+
+    def __init__(self, model, params, scfg: ServeConfig,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 clock: Callable[[], float] = time.perf_counter):
+        self.device = resolve_device(device)
+        self.model = resolve_attn_mode(model, scfg.attn_mode)
+        self.params = params
+        self.scfg = scfg
+        self.generator = generator
+        self.clock = clock
+        n = scfg.n_slots
+        if scfg.max_queue < 0:
+            raise ValueError("max_queue must be >= 0 (0 = unbounded)")
+        if scfg.max_retries < 0:
+            raise ValueError("max_retries must be >= 0")
+        if scfg.scheduler == "spec":
+            raise NotImplementedError(
+                "scheduler='spec' (speculative bursts, serve/spec.py) is not "
+                "ported yet: ROADMAP queue 1 item 7")
+        if scfg.scheduler not in ("continuous", "lockstep"):
+            raise ValueError(f"unknown scheduler {scfg.scheduler!r}")
+        if scfg.kv_layout not in ("dense", "paged"):
+            raise ValueError(f"unknown kv_layout {scfg.kv_layout!r}")
+        self.paged = scfg.kv_layout == "paged"
+        self.trie = None
+        if self.paged:
+            if scfg.page_size < 1:
+                raise ValueError("page_size must be >= 1")
+            self.n_blocks = -(-scfg.max_len // scfg.page_size)
+            n_pages = scfg.n_pages or n * self.n_blocks
+            if n_pages < self.n_blocks:
+                raise ValueError(
+                    f"n_pages={n_pages} cannot hold one max_len={scfg.max_len}"
+                    f" request ({self.n_blocks} pages of {scfg.page_size})")
+            self.pool = kvpool.PagePool(n_pages)
+            if scfg.prefix_cache:
+                self.trie = kvpool.RadixTrie(self.pool, scfg.page_size)
+            self.slot_pages: list[list] = [[] for _ in range(n)]
+            self.block_tables = np.zeros((n, self.n_blocks), np.int32)
+            self.cache = self.model.init_paged_cache(
+                params, n_pages, scfg.page_size, scfg.cache_dtype,
+                device=self.device)
+        else:
+            if scfg.prefix_cache:
+                raise ValueError("prefix_cache requires kv_layout='paged'")
+            self.cache = self.model.init_cache(params, n, scfg.max_len,
+                                               scfg.cache_dtype,
+                                               device=self.device)
+        if scfg.prefill_chunk < 0:
+            raise ValueError("prefill_chunk must be >= 0 (0 = whole prompt)")
+        self.lengths = np.zeros(n, np.int32)
+        self.active = np.zeros(n, bool)
+        self.prefilling = np.zeros(n, bool)   # admitted, prompt not yet fed
+        self.budget = np.zeros(n, np.int32)
+        self.last_tok = np.zeros(n, np.int32)
+        self.slot_rid: list[Optional[int]] = [None] * n
+        # the prompt a slot was admitted with (a preempted resume carries
+        # its generated tokens folded in)
+        self.slot_prompt: list[Optional[np.ndarray]] = [None] * n
+        self.outputs: dict[int, list] = {}
+        self.out_times: dict[int, list] = {}
+        self.requests: dict[int, Request] = {}
+        self.completions: dict[int, Completion] = {}
+        self._queue: deque = deque()   # arrived, waiting (bounded)
+        self._pending: deque = deque()  # submitted, not yet arrived
+        self._burst = build_burst(self.model, scfg, max(1, scfg.decode_burst))
+        self._eos = scfg.eos_id if scfg.scheduler == "continuous" else None
+        self.retries: dict[int, int] = {}        # requeues per rid
+        self._cancels: set = set()               # rids to cancel next check
+        # burst wall-time EMA: the per-step estimate behind the device TTL
+        self.straggler = StragglerMonitor()
+        self._step_ema = 0.0
+        self._t0: Optional[float] = None         # run() epoch
+        self._stats = dict.fromkeys(_STAT_KEYS, 0)
+
+    # -- bookkeeping helpers --------------------------------------------
+
+    def _count(self, key: str, n: int = 1) -> None:
+        self._stats[key] += n
+
+    def _peak(self, key: str, v: int) -> None:
+        self._stats[key] = max(self._stats[key], int(v))
+
+    @property
+    def stats(self) -> dict:
+        """The JAX scheduler's counters, by its names, as a plain dict."""
+        return dict(self._stats)
+
+    def _now(self) -> float:
+        """Seconds since run() started (0 before/outside a run), from the
+        engine's clock."""
+        return self.clock() - self._t0 if self._t0 is not None else 0.0
+
+    def _to_device(self, arr) -> torch.Tensor:
+        """A copy of a host mirror on the cache's device."""
+        return torch.tensor(np.asarray(arr), device=self.device)
+
+    # -- admission -----------------------------------------------------
+
+    def _register(self, r: Request) -> None:
+        """First sighting of a request (a resume keeps the original)."""
+        if r.rid not in self.requests:
+            self.requests[r.rid] = r
+            self.outputs[r.rid] = []
+            self.out_times[r.rid] = []
+
+    def _start_prefill(self, s: int, r: Request, start: int) -> None:
+        """Put ``r`` into slot ``s`` in the ``prefilling`` state with
+        ``start`` tokens already cached (prefix hits)."""
+        if not r.resume:
+            self._register(r)
+            self._count("admitted")
+        self.slot_rid[s] = r.rid
+        self.slot_prompt[s] = np.asarray(r.tokens, np.int32)
+        self.lengths[s] = start
+        self.active[s] = False
+        self.prefilling[s] = True
+        self.budget[s] = r.max_new
+        self._count("prompt_tokens", len(r.tokens))
+        self._count("prefill_tokens", len(r.tokens) - start)
+
+    def admit(self, reqs: list[Request], now: float) -> None:
+        """Admit ``reqs`` into free slots: host bookkeeping only (paged:
+        page allocation and prefix matching).  The prompts are then fed by
+        ``_prefill_step`` calls interleaved with decode bursts."""
+        if not reqs:
+            return
+        free = [s for s in range(self.scfg.n_slots) if self.slot_rid[s] is None]
+        assert len(reqs) <= len(free), "admitting more requests than slots"
+        if self.paged:
+            self._admit_paged(reqs, free)
+        else:
+            self._admit_dense(reqs, free)
+
+    def _admit_dense(self, reqs, free):
+        # attention rows need no reset: the kv_index <= position mask hides
+        # a previous occupant's stale KV
+        for j, r in enumerate(reqs):
+            self._start_prefill(free[j], r, 0)
+
+    def _alloc_pages(self, n: int) -> Optional[list]:
+        """``n`` pages from the pool, evicting prefix-cache LRU leaves on
+        shortage; None when even eviction cannot meet the demand."""
+        if n <= 0:
+            return []
+        pages = self.pool.alloc(n)
+        if pages is None and self.trie is not None:
+            self.trie.evict(n - self.pool.free_pages)
+            pages = self.pool.alloc(n)
+        return pages
+
+    def _release_slot_pages(self, s: int) -> None:
+        for p in self.slot_pages[s]:
+            self.pool.decref(p)
+        self.slot_pages[s] = []
+        self.block_tables[s, :] = 0
+
+    def _admit_paged(self, reqs, free):
+        """Allocate each prompt's pages (reusing cached prefix pages on a
+        trie match) and install the block table.  Hit rows start their
+        chunked prefill at the matched length; page exhaustion requeues the
+        rest at the queue front."""
+        ps = self.scfg.page_size
+        plans, leftover = [], []
+        for i, r in enumerate(reqs):
+            toks = np.asarray(r.tokens, np.int32)
+            matched_pages: list = []
+            matched = 0
+            if self.trie is not None:
+                # match on tokens[:-1]: one suffix token always remains to
+                # produce the first generated token's logits
+                matched_pages, matched = self.trie.match(toks[:-1].tolist())
+                for p in matched_pages:
+                    # pin before _alloc_pages, whose eviction could free the
+                    # just-matched pages and hand them back as the tail
+                    self.pool.incref(p)
+            need = -(-len(toks) // ps)
+            new = self._alloc_pages(need - len(matched_pages))
+            if new is None and matched_pages:
+                # the pinned prefix may be the only memory left: drop the
+                # match and admit cold
+                for p in matched_pages:
+                    self.pool.decref(p)
+                matched_pages, matched = [], 0
+                new = self._alloc_pages(need)
+            if new is None:
+                leftover = reqs[i:]
+                break
+            plans.append((r, matched, list(matched_pages) + new))
+        if leftover:
+            self._queue.extendleft(reversed(leftover))
+        for j, (r, matched, pages) in enumerate(plans):
+            s = free[j]
+            self._start_prefill(s, r, matched)
+            self.slot_pages[s] = list(pages)
+            self.block_tables[s, :] = 0
+            self.block_tables[s, :len(pages)] = pages
+            self._count("cached_tokens", matched)
+            if matched:
+                self._count("prefix_hits")
+        self._peak("pages_peak", self.pool.pages_in_use)
+
+    # -- chunked prefill ------------------------------------------------
+
+    def _prefill_step(self, now: float) -> None:
+        """Feed every prefilling slot its next chunk through one
+        ``build_prefill_chunk`` call (``pack_prefill=False``: only the
+        earliest arrival).  Width: ``prefill_chunk`` (0 = whole remainder)
+        capped to the bucketed longest remainder.  Rows that finish take
+        their first token from the returned logits."""
+        scfg = self.scfg
+        n = scfg.n_slots
+        rows = [s for s in range(n) if self.prefilling[s]]
+        if not rows:
+            return
+        if not scfg.pack_prefill:
+            rows = [min(rows, key=lambda s: (
+                self.requests[self.slot_rid[s]].arrival, self.slot_rid[s]))]
+        rem = {s: len(self.slot_prompt[s]) - int(self.lengths[s]) for s in rows}
+        cap = min(_bucket(max(rem.values())), scfg.max_len)
+        width = min(scfg.prefill_chunk, cap) if scfg.prefill_chunk > 0 else cap
+        toks = np.zeros((n, width), np.int32)
+        n_valid = np.ones(n, np.int32)
+        gate = np.zeros(n, bool)
+        for s in rows:
+            part = self.slot_prompt[s][int(self.lengths[s]):
+                                       int(self.lengths[s]) + width]
+            toks[s, :len(part)] = part
+            n_valid[s] = len(part)
+            gate[s] = True
+        if self.paged:
+            self.cache["block_tables"] = self._to_device(self.block_tables)
+        pc = engine.build_prefill_chunk(self.model, scfg, width)
+        last, self.cache = pc(self.params, self.cache, self._to_device(toks),
+                              self._to_device(self.lengths),
+                              self._to_device(n_valid), self._to_device(gate))
+        self._count("prefills")
+        for s in rows:
+            self.lengths[s] += min(rem[s], width)
+        fin = [s for s in rows if rem[s] <= width]
+        # one read back: every gated row's finiteness, and the first token
+        # of the rows whose prompt is now cached
+        flags = torch.isfinite(last).all(-1).to(I32)[None]
+        if fin:
+            flags = torch.cat([flags, self._first_token(last).to(I32)[None]])
+        flags = flags.cpu().numpy()
+        for s in rows:
+            if not flags[0, s]:
+                self._numeric_fault(s, "prefill")
+        for s in fin:
+            self._finish_prefill(s, int(flags[1, s]), now)
+        self._peak("peak_active", int(self.active.sum()))
+        self._audit_check()
+
+    def _first_token(self, last):
+        """The first generated token from the (B, V) next-token logits of
+        a completed prefill, as ``engine.generate`` draws it."""
+        return engine._sample(last, self.generator, self.scfg.temperature,
+                              self.scfg.top_k, self.scfg.top_p)
+
+    def _numeric_fault(self, s: int, where: str) -> None:
+        raise RuntimeError(
+            f"non-finite logits in slot {s} (request {self.slot_rid[s]}) at "
+            f"{where}: the numeric quarantine ladder is not ported yet "
+            f"(ROADMAP queue 1 item 7)")
+
+    def _finish_prefill(self, s: int, tok0: int, now: float) -> None:
+        """Slot ``s``'s prompt is cached and its first token in hand:
+        publish the prompt's full pages to the prefix cache, emit the
+        token, then decode or free (EOS / budget 1)."""
+        self.prefilling[s] = False
+        rid = self.slot_rid[s]
+        if self.trie is not None:
+            # full pages only: decode writes into the partial tail page
+            ptoks = self.slot_prompt[s]
+            nfull = len(ptoks) // self.scfg.page_size
+            if nfull:
+                self.trie.insert(
+                    [int(t) for t in ptoks[:nfull * self.scfg.page_size]],
+                    self.slot_pages[s][:nfull])
+            self._peak("pages_peak", self.pool.pages_in_use)
+        self.outputs[rid].append(tok0)
+        self.out_times[rid].append(now)
+        self._count("tokens_emitted")
+        done = (self.budget[s] <= 1
+                or (self._eos is not None and tok0 == self._eos))
+        if done:
+            self._finish(rid, now)
+            self._free_slot(s)
+            return
+        self.budget[s] -= 1
+        self.last_tok[s] = tok0
+        self.active[s] = True
+
+    def _free_slot(self, s: int) -> None:
+        """Detach slot ``s`` from its request and return its resources."""
+        self.active[s] = False
+        self.prefilling[s] = False
+        self.slot_rid[s] = None
+        self.slot_prompt[s] = None
+        if self.paged:
+            self._release_slot_pages(s)
+
+    def _fail(self, rid: int, reason: str, now: float, detail: str = "") -> None:
+        """Terminate ``rid`` with a structured failure; its partial tokens
+        stay on the Completion."""
+        r = self.requests[rid]
+        self.completions[rid] = Completion(
+            rid=rid, tokens=self.outputs.get(rid, []),
+            prompt_len=len(r.tokens), finished_at=now, arrival=r.arrival,
+            token_times=list(self.out_times.get(rid, [])),
+            failure=FailureInfo(reason=reason, detail=detail,
+                                retries=self.retries.get(rid, 0)))
+        self._count("failures")
+
+    def _requeue(self, s: int, now: float) -> bool:
+        """Push slot ``s``'s request back to the queue front with its
+        generated tokens folded into the prompt (greedy continuation is
+        identical); past ``max_retries`` it fails instead.  The slot itself
+        is not freed here."""
+        rid = self.slot_rid[s]
+        nret = self.retries.get(rid, 0) + 1
+        self.retries[rid] = nret
+        if nret > self.scfg.max_retries:
+            self._fail(rid, "retries_exhausted", now,
+                       detail=f"requeued {nret} times")
+            return False
+        orig = self.requests[rid]
+        done = self.outputs[rid]
+        toks = np.concatenate([np.asarray(orig.tokens, np.int32),
+                               np.asarray(done, np.int32)])
+        self._queue.appendleft(Request(
+            rid=rid, tokens=toks, max_new=orig.max_new - len(done),
+            arrival=orig.arrival, deadline=orig.deadline, resume=True))
+        return True
+
+    def _preempt_latest(self) -> bool:
+        """Page exhaustion: free the latest-arrival occupied slot (ties by
+        rid) and requeue its request.  Returns True if a slot was freed."""
+        cands = [s for s in range(self.scfg.n_slots)
+                 if self.active[s] or self.prefilling[s]]
+        if not cands:
+            return False
+        s = max(cands, key=lambda c: (self.requests[self.slot_rid[c]].arrival,
+                                      self.slot_rid[c]))
+        self._requeue(s, self._now())
+        self._free_slot(s)
+        self._count("preemptions")
+        self._audit_check()
+        return True
+
+    def _ensure_burst_pages(self, steps: int) -> None:
+        """Grow every active slot's block table to cover its next ``steps``
+        writes; on exhaustion evict (inside ``_alloc_pages``), then preempt
+        the latest arrival and retry."""
+        while True:
+            short = False
+            for s in range(self.scfg.n_slots):
+                if not self.active[s]:
+                    continue
+                horizon = int(self.lengths[s]) + min(steps, int(self.budget[s]))
+                nb_need = min(-(-horizon // self.scfg.page_size), self.n_blocks)
+                have = len(self.slot_pages[s])
+                new = self._alloc_pages(nb_need - have)
+                if new is None:
+                    short = True
+                    break
+                if new:
+                    self.block_tables[s, have:have + len(new)] = new
+                    self.slot_pages[s].extend(new)
+            if not short:
+                self._peak("pages_peak", self.pool.pages_in_use)
+                return
+            if not self._preempt_latest():
+                return
+
+    def _finish(self, rid: int, now: float) -> None:
+        r = self.requests[rid]
+        self.completions[rid] = Completion(
+            rid=rid, tokens=self.outputs[rid], prompt_len=len(r.tokens),
+            finished_at=now, arrival=r.arrival,
+            token_times=list(self.out_times[rid]))
+
+    # -- decode --------------------------------------------------------
+
+    def _ttl_vector(self, now: float) -> np.ndarray:
+        """Per-slot decode-step allowance from the deadlines: with a warm
+        per-step time estimate, ``floor(remaining / estimate)`` steps (min
+        1); without one, ``TTL_NONE`` and the host sweep expires between
+        bursts."""
+        n = self.scfg.n_slots
+        ttl = np.full(n, TTL_NONE, np.int32)
+        if self._step_ema <= 0:
+            return ttl
+        for s in range(n):
+            rid = self.slot_rid[s]
+            if rid is None or not self.active[s]:
+                continue
+            d = self.requests[rid].deadline
+            if d is not None:
+                ttl[s] = int(np.clip((d - now) / self._step_ema, 1, TTL_NONE))
+        return ttl
+
+    def _observe_burst(self, dt: float, steps: int) -> None:
+        if self.straggler.observe(dt):
+            self._count("stragglers")
+        if self.straggler.ema > 0 and steps > 0:
+            self._step_ema = self.straggler.ema / steps
+
+    def _expire_slot(self, s: int, now: float) -> None:
+        rid = self.slot_rid[s]
+        d = self.requests[rid].deadline
+        self._fail(rid, "deadline", now, detail=f"deadline {d:.3f}s")
+        self._free_slot(s)
+        self._count("expired")
+
+    def burst(self, now: float) -> None:
+        """One burst of ``decode_burst`` masked steps, then host
+        bookkeeping: append emitted tokens, finish freed slots.  Paged mode
+        first appends the pages the burst will write (possibly preempting)
+        and refreshes the device block tables."""
+        if self.paged:
+            self._ensure_burst_pages(max(1, self.scfg.decode_burst))
+            if not self.active.any():  # everyone preempted: nothing to run
+                return
+            self.cache["block_tables"] = self._to_device(self.block_tables)
+        was_active = self.active.copy()
+        n = self.scfg.n_slots
+        t_in = self._now()
+        emits, oks, self.cache, tok, lengths, active, budget, ttl = self._burst(
+            self.params, self.cache, self._to_device(self.last_tok)[:, None],
+            self._to_device(self.lengths), self._to_device(self.active),
+            self._to_device(self.budget), self._to_device(self._ttl_vector(now)),
+            self.generator)
+        steps = emits.shape[0]
+        # one read back for the whole burst
+        host = torch.cat([emits.reshape(-1), oks.to(I32).reshape(-1), tok[:, 0],
+                          lengths, active.to(I32), budget, ttl]).cpu().numpy()
+        emits = host[:steps * n].reshape(steps, n)
+        oks = host[steps * n:2 * steps * n].reshape(steps, n).astype(bool)
+        tail = host[2 * steps * n:].reshape(5, n)
+        self.last_tok = tail[0].copy()
+        self.lengths = tail[1].copy()
+        self.active = tail[2].astype(bool)
+        self.budget = tail[3].copy()
+        ttl_out = tail[4]
+        self._observe_burst(self._now() - t_in, steps)
+        self._count("bursts")
+        self._count("burst_steps", steps)
+        self._count("model_calls", steps)
+        self._count("slot_steps_active", int((emits != PAD).sum()))
+        for s in np.nonzero(was_active)[0]:
+            if not oks[:, s].all():
+                self._numeric_fault(s, f"burst step {int(np.argmin(oks[:, s]))}")
+            col = emits[:, s]
+            toks = col[col != PAD].tolist()
+            rid = self.slot_rid[s]
+            self.outputs[rid].extend(toks)
+            self.out_times[rid].extend([now] * len(toks))
+            self._count("tokens_emitted", len(toks))
+            if not self.active[s]:                      # freed on the device
+                hit_eos = (self._eos is not None and toks
+                           and toks[-1] == self._eos)
+                if ttl_out[s] <= 0 and self.budget[s] > 0 and not hit_eos:
+                    self._expire_slot(s, now)           # deadline TTL
+                else:
+                    self._finish(rid, now)
+                    self._free_slot(s)
+        self._audit_check()
+
+    # -- cancellation, deadlines, shutdown, audits ---------------------
+
+    def cancel(self, rid: int) -> None:
+        """Cancel ``rid`` at the next scheduling checkpoint (between
+        bursts): a partial Completion with ``cancelled=True``."""
+        self._cancels.add(rid)
+
+    def _cancel_done(self, rid: int, now: float) -> None:
+        r = self.requests[rid]
+        self.completions[rid] = Completion(
+            rid=rid, tokens=self.outputs.get(rid, []),
+            prompt_len=len(r.tokens), finished_at=now, arrival=r.arrival,
+            token_times=list(self.out_times.get(rid, [])), cancelled=True)
+        self._count("cancelled")
+
+    def _apply_cancels(self, now: float) -> None:
+        if not self._cancels:
+            return
+        todo, self._cancels = self._cancels, set()
+        for rid in todo:
+            if rid in self.completions or rid not in self.requests:
+                continue  # already terminal / never submitted
+            for s in range(self.scfg.n_slots):
+                if self.slot_rid[s] == rid:
+                    self._free_slot(s)
+                    break
+            self._queue = deque(r for r in self._queue if r.rid != rid)
+            self._pending = deque(r for r in self._pending if r.rid != rid)
+            self._cancel_done(rid, now)
+        self._audit_check()
+
+    def _expire(self, now: float) -> None:
+        """Host deadline sweep over slots and the waiting queue: an
+        already-late request expires at the next checkpoint even when the
+        step-time estimate is cold."""
+        for s in range(self.scfg.n_slots):
+            rid = self.slot_rid[s]
+            if rid is None:
+                continue
+            d = self.requests[rid].deadline
+            if d is not None and now >= d:
+                self._expire_slot(s, now)
+        late = [r for r in self._queue
+                if r.deadline is not None and now >= r.deadline]
+        if late:
+            gone = {r.rid for r in late}
+            self._queue = deque(r for r in self._queue if r.rid not in gone)
+            for r in late:
+                self._register(r)
+                self._fail(r.rid, "deadline", now, detail="expired in queue")
+                self._count("expired")
+        self._audit_check()
+
+    def shutdown(self) -> dict[int, Completion]:
+        """Drain: every in-flight or queued request without a completion
+        ends cancelled with its partial tokens; all slots and pages are
+        freed.  Idempotent; returns the completions."""
+        now = self._now()
+        for s in range(self.scfg.n_slots):
+            rid = self.slot_rid[s]
+            if rid is not None:
+                self._free_slot(s)
+                if rid not in self.completions:
+                    self._cancel_done(rid, now)
+        for r in list(self._queue) + list(self._pending):
+            if r.rid not in self.completions:
+                self._register(r)
+                self._cancel_done(r.rid, now)
+        self._queue.clear()
+        self._pending.clear()
+        self._audit_check()
+        return self.completions
+
+    def _audit_check(self) -> None:
+        """With ``ServeConfig.audit`` (paged): recompute the pool and trie
+        refcounts from the live slots and trie edges and cross-check the
+        free list (``kvpool.PagePool.audit``)."""
+        if not self.scfg.audit or not self.paged:
+            return
+        self._count("audits")
+        for s in range(self.scfg.n_slots):
+            if self.slot_rid[s] is None and self.slot_pages[s]:
+                raise kvpool.AuditError(
+                    f"freed slot {s} still holds pages {self.slot_pages[s]}")
+        self.pool.audit(list(self.slot_pages), self.trie)
+
+    # -- the serving loop ----------------------------------------------
+
+    def run(self, requests: list[Request]) -> dict[int, Completion]:
+        """Serve ``requests`` until every one has a definite outcome.
+        Malformed requests fail one by one with reason ``invalid``."""
+        ok_reqs = []
+        for r in sorted(requests, key=lambda r: r.arrival):
+            self._register(r)
+            if r.max_new < 1:
+                self._fail(r.rid, "invalid", 0.0,
+                           detail=f"max_new {r.max_new} < 1")
+            elif len(r.tokens) + r.max_new > self.scfg.max_len:
+                self._fail(r.rid, "invalid", 0.0,
+                           detail=f"prompt {len(r.tokens)} + max_new "
+                                  f"{r.max_new} exceeds max_len "
+                                  f"{self.scfg.max_len}")
+            else:
+                ok_reqs.append(r)
+        self._pending = deque(ok_reqs)
+        self._queue = deque()
+        self._t0 = self.clock()
+        continuous = self.scfg.scheduler == "continuous"
+        while (self._pending or self._queue or self.active.any()
+               or self.prefilling.any()):
+            now = self._now()
+            self._apply_cancels(now)
+            self._expire(now)
+            # arrivals enter the bounded queue; requeues bypass the bound
+            while self._pending and self._pending[0].arrival <= now:
+                r = self._pending.popleft()
+                if self.scfg.max_queue and len(self._queue) >= self.scfg.max_queue:
+                    self._fail(r.rid, "queue_full", now,
+                               detail=f"{len(self._queue)} waiting")
+                    self._count("rejected")
+                else:
+                    self._queue.append(r)
+            free = sum(1 for rid in self.slot_rid if rid is None)
+            busy = self.active.any() or self.prefilling.any()
+            batch = []
+            while (continuous or not busy) and self._queue and len(batch) < free:
+                batch.append(self._queue.popleft())
+            if batch:
+                self.admit(batch, self._now())
+                self._audit_check()
+            if self.prefilling.any():
+                # one chunk per iteration: a long prompt interleaves with
+                # the decode bursts instead of stalling them
+                self._prefill_step(self._now())
+            if self.active.any():
+                self.burst(self._now())
+            elif (not self.prefilling.any() and not self._queue
+                    and self._pending):
+                # idle: wait for the next arrival
+                time.sleep(max(0.0, min(self._pending[0].arrival - self._now(),
+                                        0.01)))
+        return self.completions
+
+
+def serve(model, params, requests: list[Request], scfg: ServeConfig,
+          generator=None, device=None) -> dict[int, Completion]:
+    """One-shot entry: build a slot-pool engine, serve, return completions."""
+    eng = SlotPoolEngine(model, params, scfg, generator=generator, device=device)
+    return eng.run(requests)

@@ -96,6 +96,130 @@ def test_kernel_rejects_bad_input():
 
 
 # --------------------------------------------------------------------------
+# the paged kernels (continuous serving over a page pool)
+# --------------------------------------------------------------------------
+
+NB = 6   # virtual blocks per sequence
+
+
+def _paged(gen, ps, cache_dtype):
+    """A pool of B * NB + 3 pages (page 0 the null page, random like the
+    rest), a shuffled block table whose blocks past each sequence's length
+    are the null page, and the (B, NB * ps) validity mask."""
+    P = B * NB + 3
+    k, v, sc, vf = _kv_pool(gen, (P, HKV, ps, D), cache_dtype)
+    lengths = torch.tensor([NB * ps - 3, 2 * ps + 1], device="cuda")
+    used = (-(-lengths // ps)).tolist()
+    perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+    bt = torch.zeros(B, NB, dtype=torch.int32, device="cuda")
+    bt[0, :used[0]] = perm[:used[0]].int()
+    bt[1, :used[1]] = perm[used[0]:used[0] + used[1]].int()
+    mask = (torch.arange(NB * ps, device="cuda")[None] < lengths[:, None]).float()
+    return k, v, sc, vf, bt, mask, lengths
+
+
+def _kv_pool(gen, shape, cache_dtype):
+    k = torch.randn(shape, generator=gen, device="cuda")
+    v = torch.randn(shape, generator=gen, device="cuda")
+    if cache_dtype == "fp2fx8":
+        (kr, ks), (vr, vs) = fp2fx8_quantize(k), fp2fx8_quantize(v)
+        return kr, vr, {"k_scale": ks, "v_scale": vs}, v
+    if cache_dtype == "bfloat16":
+        return k.bfloat16(), v.bfloat16(), {}, v
+    return k, v, {}, v
+
+
+def _hold_paged(cfg, q3, k, v, sc, bt, mask, sq, vf):
+    kw = dict(cfg=cfg, sm_scale=D ** -0.5, hkv=HKV, sq=sq)
+    args = (q3, k, v, sc.get("k_scale"), sc.get("v_scale"), bt, mask)
+    got = fa._paged_tiles_cuda(*args, **kw)
+    ref = fa.paged_tiles_plain(*args, **kw)
+    err = fa.tile_errors(got, ref, cfg, float(vf.abs().max()), k.shape[2])
+    assert err["m_loc"] <= 1 and err["l_loc"] <= 1 and err["out"] <= 1, err
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [HYFT16, HYFT32, dataclasses.replace(HYFT16, step=2)],
+                         ids=["hyft16", "hyft32", "hyft16-step2"])
+@pytest.mark.parametrize("cache_dtype", ["float32", "fp2fx8", "bfloat16"])
+@pytest.mark.parametrize("ps", [8, 16, 64, 128])
+def test_paged_decode_kernel_matches_plain(ps, cache_dtype, cfg):
+    """Kernel 7 against its plain version, then through the wrapper: the
+    shared combine of its stats, and paged verify at Sq = 1 bitwise."""
+    gen = _card()
+    k, v, sc, vf, bt, mask, _ = _paged(gen, ps, cache_dtype)
+    q = torch.randn(B, HQ, 1, D, generator=gen, device="cuda")
+    got = _hold_paged(cfg, q.reshape(B * HKV, HQ // HKV, D), k, v, sc, bt, mask,
+                      None, vf)
+    out = fa.flash_hyft_decode_paged(q, k, v, bt, cfg, kv_len_mask=mask, **sc)
+    assert torch.equal(out, fa._splitk_combine(*got, cfg).reshape(out.shape))
+    one = fa.flash_hyft_verify(q, k, v, mask[:, None], cfg, block_tables=bt, **sc)
+    assert torch.equal(one, out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", ["float32", "fp2fx8"])
+@pytest.mark.parametrize("Sq", [5, 40])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+def test_paged_verify_kernel_matches_plain(ps, Sq, cache_dtype):
+    """Kernel 9: a chunk ending at each sequence's length, lane t seeing
+    keys up to length - Sq + t."""
+    gen = _card()
+    k, v, sc, vf, bt, _, lengths = _paged(gen, ps, cache_dtype)
+    q3 = torch.randn(B * HKV, HQ // HKV * Sq, D, generator=gen, device="cuda")
+    start = lengths - Sq
+    pm = (torch.arange(NB * ps, device="cuda")[None, None]
+          <= (start[:, None, None] + torch.arange(Sq, device="cuda")[None, :, None]))
+    for cfg in (HYFT16, HYFT32):
+        _hold_paged(cfg, q3, k, v, sc, bt, pm.float().contiguous(), Sq, vf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", ["float32", "fp2fx8"])
+def test_paged_kernel_layout_invariances(cache_dtype):
+    """Page placement changes no bit, and a sequential table over a
+    contiguous pool is the contiguous decode kernel at bk = 64, bitwise."""
+    gen = _card()
+    ps = 64
+    k, v, sc, _, bt, mask, _ = _paged(gen, ps, cache_dtype)
+    q = torch.randn(B, HQ, 1, D, generator=gen, device="cuda")
+    base = fa.flash_hyft_decode_paged(q, k, v, bt, HYFT16, kv_len_mask=mask, **sc)
+    perm = torch.randperm(k.shape[0], generator=gen, device="cuda")
+    inv = torch.argsort(perm).int()
+    shuf = fa.flash_hyft_decode_paged(
+        q, k[perm].contiguous(), v[perm].contiguous(), inv[bt.long()].contiguous(),
+        HYFT16, kv_len_mask=mask, **{n: t[perm].contiguous() for n, t in sc.items()})
+    assert torch.equal(base, shuf)
+    Sk = NB * ps
+    kc, vc, scc, _ = _kv(gen, Sk, cache_dtype)
+
+    def pages(x):   # (B, Hkv, Sk[, D]) -> (B * NB, Hkv, ps[, D]), in order
+        x = x.reshape(B, HKV, NB, ps, *x.shape[3:]).transpose(1, 2)
+        return x.reshape(B * NB, HKV, ps, *x.shape[4:]).contiguous()
+    seq = torch.arange(B * NB, dtype=torch.int32, device="cuda").reshape(B, NB)
+    dense = fa.flash_hyft_decode(q, kc, vc, HYFT16, block_k=ps, kv_len_mask=mask, **scc)
+    paged = fa.flash_hyft_decode_paged(q, pages(kc), pages(vc), seq, HYFT16,
+                                       kv_len_mask=mask,
+                                       **{n: pages(t) for n, t in scc.items()})
+    assert torch.equal(dense, paged)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_rejects_bad_input():
+    gen = _card()
+    k, v, sc, _, bt, mask, _ = _paged(gen, 16, "float32")
+    q3 = torch.randn(B * HKV, HQ // HKV, D, generator=gen, device="cuda")
+    kw = dict(cfg=HYFT16, sm_scale=D ** -0.5, hkv=HKV, sq=None)
+    k12 = torch.zeros(k.shape[0], HKV, 12, D, device="cuda")   # page size not built
+    mask12 = torch.ones(B, NB * 12, device="cuda")
+    with pytest.raises(ValueError, match="page size"):
+        fa._paged_tiles_cuda(q3, k12, k12, None, None, bt, mask12, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        fa._paged_tiles_cuda(q3, k, v, None, None, bt.long(), mask, **kw)
+
+
+# --------------------------------------------------------------------------
 # the flash kernels (training)
 # --------------------------------------------------------------------------
 
@@ -184,6 +308,7 @@ def test_training_step_runs_on_the_flash_kernels():
     state, metrics = step(state, batch)
     torch.cuda.synchronize()
     assert fa.LAUNCHES == {"hyft_splitk_decode": 0, "hyft_splitk_verify": 0,
+                           "hyft_paged_decode": 0, "hyft_paged_verify": 0,
                            "hyft_flash_fwd": 4, "hyft_flash_bwd_dq": 2,
                            "hyft_flash_bwd_dkv": 2}
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])

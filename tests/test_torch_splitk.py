@@ -142,11 +142,16 @@ def test_wrapper_dispatches_on_device_only():
 
 
 def test_paged_verify_is_not_ported():
+    """Paged verify was the unported branch; it now takes the pool and
+    block tables (``test_torch_paged.py`` holds it to JAX): at Sq == 1 it
+    is the paged decode, where it used to raise NotImplementedError."""
     q, k, v = _inputs(16, 1)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        tfa.flash_hyft_verify(torch.from_numpy(q), torch.from_numpy(k),
-                              torch.from_numpy(v), torch.ones(B, 1, 16),
-                              thyft.HYFT16, block_tables=torch.zeros(B, 1))
+    kp = torch.cat([torch.zeros(1, HKV, 16, D), torch.from_numpy(k)])  # page b + 1
+    bt = torch.tensor([[1], [2]], dtype=torch.int32)
+    qt = torch.from_numpy(q)
+    ver = tfa.flash_hyft_verify(qt, kp, kp, torch.ones(B, 1, 16), thyft.HYFT16,
+                                block_tables=bt)
+    assert torch.equal(ver, tfa.flash_hyft_decode_paged(qt, kp, kp, bt, thyft.HYFT16))
 
 
 
