@@ -81,7 +81,32 @@ script exits non-zero without its last line:
               ``PARITY_BOUND``; and, not gated, the token agreement of the
               paged engine with the dense continuous engine on the same
               requests;
- 12. kernels  per kernel variant: ``ms``, its device time per launch
+ 12. softmax check  the standalone softmax kernels (forward and backward)
+              against their plain versions at the unfused path's shapes:
+              training rows (4 x 12 x 1024, 1024) causal, prompt rows
+              (4 x 12 x 1024, 1057), decode rows (48, 1057) ragged and
+              nearly flat, and small odd shapes (37 x 200, 3 x 5 x 64, one
+              column, 65536 columns); HYFT16, HYFT32, HYFT16B, HYFT32 with
+              step 2 and 4; fp32, fp16 and bf16 scores; the backward on the
+              forward's output and a seeded dy.  Bitwise in every row within
+              the sum precondition of ``kernels/hyft_softmax.py``, within
+              its stated bound past it (``softmax_errors``);
+ 13. unfused serve  greedy ``generate`` at full width with
+              ``softmax_impl="hyft16_kernel"``, ``attn_mode="unfused"``,
+              bf16 compute, fp2fx8 cache, batch 4, prompt 1024, 32 new
+              tokens: exactly 28 + 28 * 31 softmax-forward launches and no
+              other kernel; prefill ms, decode ms per token; then the same
+              request with the plain ``hyft16`` softmax: token agreement,
+              and the prefill and first-decode logits within PARITY_BOUND;
+              then the profile of phase 6 over this path;
+ 14. unfused train  the launcher's functions, hyft16_kernel, unfused, bf16
+              compute, fp32 params, AdamW, remat="full", 4 x 1024 tokens:
+              one warm-up and 2 timed steps, each launching the softmax
+              forward exactly 56 times and the backward 28 times; step ms,
+              tokens/s, peak memory; one profiled step; then one step's
+              loss and gradients against ``hyft16`` on the same weights and
+              batch (gates 1e-6 and 1e-5; bitwise expected);
+ 15. kernels  per kernel variant: ``ms``, its device time per launch
               (torch.profiler); ``kernel_ms``, CUDA events over many
               launches from Python after a warm-up (the wrapper's host time
               included: it bounds decode, whose kernel is short);
@@ -89,6 +114,8 @@ script exits non-zero without its last line:
               ``bound_ms``, the least time the card could take (bytes over
               3.35 TB/s or fp32 FLOPs over 67 TFLOP/s, whichever is larger,
               FLOPs counted over the keys each row really attends to);
+              the softmax kernels timed over input buffers that together
+              exceed the 50 MB L2;
 
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -141,6 +168,17 @@ TRAIN_PARITY_BOUND = {"loss": 0.01, "grad": 0.25}
 PAGE, SLOTS, SERVE_LEN, CHUNK, BURST = 16, 8, 2048, 256, 8
 N_REQ, SYS_PROMPT, RATE = 24, 512, 8.0
 STARVED_PAGES = 200
+UNFUSED_STEPS = 2                     # timed steps of the unfused training
+# the unfused training step with the kernel softmax against the plain Hyft
+# softmax on the same weights and batch: the same arithmetic (bitwise while
+# every row's sum stays within the precondition of kernels/hyft_softmax.py)
+UNFUSED_TRAIN_GATE = {"loss": 1e-6, "grad": 1e-5}
+# 32-bit scalar operations per element of the softmax kernels, counted from
+# csrc/hyft_softmax.cu (forward: FP2FX and max, exponent unit and adder,
+# exponent unit again and the divide; backward: two log_mul and two
+# fx_quantize), at the fp32 rate outside the tensor cores
+SOFTMAX_OPS = {"hyft_softmax_fwd": 62, "hyft_softmax_bwd": 50}
+L2_BYTES = 50e6
 
 
 def emit(obj):
@@ -674,7 +712,7 @@ def _device_events(torch, events):
     return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def profile_phase(torch, params, cfg):
+def profile_phase(torch, params, cfg, softmax="hyft16", attn_mode="kernel"):
     """torch.profiler over generate with the fp2fx8 cache: once for the
     prompt alone (max_new=1) and once for the prompt plus 3 decode steps;
     the decode figures are the difference.  Per part: wall, device busy
@@ -684,12 +722,12 @@ def profile_phase(torch, params, cfg):
     from repro_torch.models import build_model
     from repro_torch.serve.engine import generate
 
-    model = build_model(cfg.with_(softmax_impl="hyft16"))
+    model = build_model(cfg.with_(softmax_impl=softmax))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     tokens = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen,
                            device="cuda", dtype=torch.int32)
     scfg = ServeConfig(max_len=MAX_LEN,
-                       cache_dtype="fp2fx8", attn_mode="kernel")
+                       cache_dtype="fp2fx8", attn_mode=attn_mode)
     parts = {}
     for name, n in (("prefill", 1), ("prefill+3_decode_steps", 4)):
         events, wall = _profiled(torch, lambda: generate(
@@ -705,7 +743,8 @@ def profile_phase(torch, params, cfg):
     parts["3_decode_steps"] = {k: b[k] - a[k] for k in a}
     for part in parts.values():
         part["device_idle_share"] = 1.0 - part["device_busy_ms"] / part["wall_ms"]
-    emit({"phase": "profile", "cache": "fp2fx8", **parts, "top_kernels": top})
+    emit({"phase": "profile", "softmax": softmax, "attn_mode": attn_mode,
+          "cache": "fp2fx8", **parts, "top_kernels": top})
 
 
 def _train_profile(torch, fn):
@@ -1036,6 +1075,301 @@ def flash_kernels_phase(torch, errors, launches):
     return kernels
 
 
+def _zero(*counts):
+    for c in counts:
+        for name in c:
+            c[name] = 0
+
+
+def _scores(torch, gen, shape, keep, scale=3.0):
+    """Seeded fp32 scores of ``shape``; row r (over the flattened leading
+    axes) keeps its first ``keep[r]`` keys, the rest NEG_BIG."""
+    from repro_torch.kernels.flash_attention import NEG_BIG
+    cols = shape[-1]
+    z = torch.randn(shape, generator=gen, device="cuda").reshape(-1, cols) * scale
+    live = torch.arange(cols, device="cuda")[None] < keep[:, None]
+    return torch.where(live, z, NEG_BIG).reshape(shape)
+
+
+def _softmax_shapes(torch):
+    """(name, shape, keep per row, scale) of the softmax check: the unfused
+    path's rows (training causal, prompt causal over the cache, decode with
+    ragged lengths, decode nearly flat) and small odd shapes."""
+    ar = lambda n: torch.arange(n, device="cuda")  # noqa: E731
+    ragged = torch.tensor([MAX_LEN, 900, 300, 5], device="cuda").repeat_interleave(HQ)
+    return [
+        ("train", (B * HQ * SEQ, SEQ), ar(B * HQ * SEQ) % SEQ + 1, 3.0),
+        ("prompt", (B * HQ * PROMPT, MAX_LEN), ar(B * HQ * PROMPT) % PROMPT + 1, 3.0),
+        ("decode", (B * HQ, MAX_LEN), ragged, 3.0),
+        ("decode_flat", (B * HQ, MAX_LEN), ragged, 0.005),
+        ("37x200", (37, 200), ar(37) * 5 % 200 + 1, 3.0),
+        ("3x5x64", (3, 5, 64), torch.full((15,), 64, device="cuda"), 3.0),
+        ("one_column", (5, 1), torch.ones(5, device="cuda"), 3.0),
+        ("65536", (4, 65536), torch.tensor([65536, 40000, 1000, 1], device="cuda"), 3.0),
+    ]
+
+
+def softmax_check_phase(torch):
+    """Kernels 1 and 2 against their plain versions on the same inputs.
+    Every row within the sum precondition must agree bit for bit (forward
+    and backward); forward rows past it must stay within the bound of
+    ``hs.softmax_errors``, and the data must hold such rows (HYFT32 at the
+    training shape, HYFT16 on flat decode rows).  The backward's data must
+    stay within its precondition."""
+    from repro_torch.core.hyft import HYFT16, HYFT16B, HYFT32
+    from repro_torch.kernels import hyft_softmax as hs
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    cfgs = [HYFT16, HYFT32, HYFT16B, dataclasses.replace(HYFT32, step=2),
+            dataclasses.replace(HYFT32, step=4)]
+    errors, past_rows = {}, 0
+    shapes = _softmax_shapes(torch)
+    for name, shape, keep, scale in shapes:
+        z32 = _scores(torch, gen, shape, keep, scale)
+        dy32 = torch.randn(shape, generator=gen, device="cuda")
+        for cfg in cfgs:
+            rec = {"phase": "softmax_check", "shape": name, "cfg": cfg.io_dtype,
+                   "step": cfg.step, "rows": 0, "fwd_rows_past_precondition": 0,
+                   "fwd_mismatches": 0, "fwd_past_ratio": 0.0, "fwd_max_abs_err": 0.0,
+                   "bwd_mismatches": 0, "bwd_max_abs_err": 0.0}
+            for dtype in (torch.float32, torch.float16, torch.bfloat16):
+                z = z32.to(dtype)
+                s = hs.hyft_softmax_fwd_kernel(z, cfg)
+                err = hs.softmax_errors(s, hs.hyft_softmax_fwd(z, cfg),
+                                        hs.fwd_sum_units(z, cfg), cfg)
+                assert torch.isfinite(s).all(), f"{name}: non-finite softmax"
+                dy = dy32.to(s.dtype)
+                bunits = hs.bwd_sum_units(s, dy, cfg)
+                assert int(bunits.max()) <= hs.EXACT_UNITS, \
+                    f"{name}: backward data past the sum precondition"
+                dz = hs.hyft_softmax_bwd_kernel(s, dy, cfg)
+                berr = hs.softmax_errors(dz, hs.hyft_softmax_bwd(s, dy, cfg), bunits, cfg)
+                rec["rows"] = err["rows"]
+                rec["fwd_rows_past_precondition"] += err["rows_past_precondition"]
+                rec["fwd_mismatches"] += err["mismatches"]
+                rec["fwd_past_ratio"] = max(rec["fwd_past_ratio"], err["past_ratio"])
+                rec["fwd_max_abs_err"] = max(rec["fwd_max_abs_err"], err["max_abs_err"])
+                rec["bwd_mismatches"] += berr["mismatches"]
+                rec["bwd_max_abs_err"] = max(rec["bwd_max_abs_err"], berr["max_abs_err"])
+                if name == "train" and cfg is HYFT16 and dtype == torch.float32:
+                    errors["hyft_softmax_fwd"] = err["max_abs_err"]
+                    errors["hyft_softmax_bwd"] = berr["max_abs_err"]
+                del z, s, dy, dz
+            emit(rec)
+            past_rows += rec["fwd_rows_past_precondition"]
+            assert rec["fwd_mismatches"] == 0, f"{name}: forward not bitwise its plain version"
+            assert rec["fwd_past_ratio"] <= 1, f"{name}: forward past its bound"
+            assert rec["bwd_mismatches"] == 0, f"{name}: backward not bitwise its plain version"
+        del z32, dy32
+        torch.cuda.synchronize()
+    assert past_rows > 0, "no case past the sum precondition"
+    emit({"phase": "softmax_check", "cases": len(shapes) * len(cfgs) * 3,
+          "fwd_rows_past_precondition": past_rows})
+    return errors
+
+
+def unfused_serve_phase(torch, params, cfg):
+    """Greedy generate in the unfused mode through the softmax kernel, then
+    the same request with the plain Hyft softmax on the card: launches,
+    prefill and decode times, token agreement and logits parity."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import generate
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    scfg = ServeConfig(max_len=MAX_LEN, cache_dtype="fp2fx8", attn_mode="unfused")
+    outs, logits, launches = {}, {}, None
+    for impl in ("hyft16_kernel", "hyft16"):
+        model = build_model(cfg.with_(softmax_impl=impl, attn_mode="unfused"))
+        run = lambda n: generate(model, params, {"tokens": tokens}, scfg,  # noqa: E731
+                                 max_new=n)
+        _timed(torch, lambda: run(2))                  # warm-up
+        _, t_prefill = _timed(torch, lambda: run(1))
+        torch.cuda.reset_peak_memory_stats()
+        _zero(fa.LAUNCHES, hs.LAUNCHES)                # the main path's run
+        out, t_all = _timed(torch, lambda: run(NEW))
+        got = {**fa.LAUNCHES, **hs.LAUNCHES}
+        want = dict.fromkeys(got, 0)
+        if impl == "hyft16_kernel":
+            want["hyft_softmax_fwd"] = cfg.n_layers + cfg.n_layers * (NEW - 1)
+            launches = got
+        t_decode = t_all - t_prefill
+        emit({"phase": "unfused_serve", "softmax": impl, "cache": "fp2fx8",
+              "launches": got, "expected": want, "prefill_ms": t_prefill * 1e3,
+              "decode_ms_per_token": t_decode / (NEW - 1) * 1e3,
+              "decode_tokens_per_s": B * (NEW - 1) / t_decode,
+              "generate_ms": t_all * 1e3,
+              "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        assert got == want, f"launch counts {got} != {want}"
+        assert out.shape == (B, NEW) and out.dtype == torch.int32
+        assert bool(((out >= 0) & (out < cfg.vocab)).all())
+        outs[impl] = out
+        cache = model.init_cache(params, B, MAX_LEN, "fp2fx8")
+        lp, cache = model.prefill_chunk(params, cache, tokens,
+                                        torch.zeros(B, dtype=torch.int32, device="cuda"))
+        ld, _ = model.decode_step(params, cache, tokens[:, :1], PROMPT)
+        logits[impl] = (lp[:, -1].float(), ld[:, -1].float())
+        del cache, lp, ld, model
+    res = {"phase": "unfused_serve", "token_agreement_kernel_vs_plain": float(
+        (outs["hyft16_kernel"] == outs["hyft16"]).float().mean())}
+    for i, part in enumerate(("prefill", "decode")):
+        a, b = logits["hyft16_kernel"][i], logits["hyft16"][i]
+        assert torch.isfinite(a).all() and torch.isfinite(b).all()
+        res[f"{part}_maxdiff_over_std"] = float((a - b).abs().max() / b.std())
+        res[f"{part}_bitwise"] = bool(torch.equal(a, b))
+    res["bound"] = PARITY_BOUND
+    emit(res)
+    assert res["prefill_maxdiff_over_std"] <= PARITY_BOUND, "unfused prefill parity"
+    assert res["decode_maxdiff_over_std"] <= PARITY_BOUND, "unfused decode parity"
+    return launches
+
+
+def unfused_train_phase(torch):
+    """qwen2-1.5b at full width through the launcher's functions in the
+    unfused mode with the kernel softmax: one warm-up step, then
+    UNFUSED_STEPS timed steps with their launch counts, one profiled step,
+    and one step's loss and gradients against the plain Hyft softmax on
+    the same weights and batch.  Returns the launches of one step."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build_model
+    from repro_torch.train.step import grads_of, make_loss_fn
+    from repro_torch.tree import tree_leaves
+
+    args = launch.parse_args([
+        "--arch", "qwen2-1.5b", "--softmax", "hyft16_kernel", "--attn-mode", "unfused",
+        "--global-batch", str(B), "--seq", str(SEQ), "--steps", str(UNFUSED_STEPS + 2),
+        "--remat", "full", "--optimizer", "adamw", "--lr", "1e-3", "--seed", str(SEED)])
+    run = launch.build(args)
+    model = run["model"]
+    n_layers = model.cfg.n_layers
+    want = dict.fromkeys({**fa.LAUNCHES, **hs.LAUNCHES}, 0)
+    want.update(hyft_softmax_fwd=2 * n_layers, hyft_softmax_bwd=n_layers)
+    state, timed = run["state"], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + UNFUSED_STEPS):
+        batch = run["batch_fn"](i)
+        _zero(fa.LAUNCHES, hs.LAUNCHES)                # the main path's run
+        (state, metrics), dt = _timed(torch, lambda: run["step"](state, batch))
+        got = {**fa.LAUNCHES, **hs.LAUNCHES}
+        rec = {"phase": "unfused_train", "step": i, "warmup": i == 0, "ms": dt * 1e3,
+               "tokens_per_s": B * SEQ / dt, "loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]), "launches": got}
+        emit(rec)
+        assert got == want, f"launch counts {got} != {want}"
+        assert math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])
+        if i:
+            timed.append(rec)
+    step_ms = sum(r["ms"] for r in timed) / len(timed)
+    emit({"phase": "unfused_train", "arch": model.cfg.name, "timed_steps": len(timed),
+          "mean_step_ms": step_ms, "tokens_per_s": B * SEQ / step_ms * 1e3,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches_per_step": want})
+    batch = run["batch_fn"](1 + UNFUSED_STEPS)
+    emit({**_train_profile(torch, lambda: run["step"](state, batch)),
+          "part": "unfused_train_step"})
+    tcfg = TrainConfig(remat="full", attn_mode="unfused")
+    batch = run["batch_fn"](2 + UNFUSED_STEPS)
+    lk, _, gk = grads_of(make_loss_fn(model, tcfg), state["params"], batch)
+    gk = tree_leaves(gk)
+    plain = build_model(model.cfg.with_(softmax_impl="hyft16"))
+    lh, _, gh = grads_of(make_loss_fn(plain, tcfg), state["params"], batch)
+    gh = tree_leaves(gh)
+    d2 = sum(float(((a.float() - b.float()) ** 2).sum()) for a, b in zip(gk, gh))
+    n2 = sum(float((b.float() ** 2).sum()) for b in gh)
+    out = {"phase": "unfused_train_parity", "loss_kernel": float(lk), "loss_plain": float(lh),
+           "loss_gap": abs(float(lk) - float(lh)) / abs(float(lh)),
+           "grad_gap": (d2 / n2) ** 0.5,
+           "bitwise": bool(torch.equal(lk, lh)) and all(torch.equal(a, b) for a, b in zip(gk, gh)),
+           "gate": UNFUSED_TRAIN_GATE}
+    emit(out)
+    assert out["loss_gap"] <= UNFUSED_TRAIN_GATE["loss"], "unfused train parity: loss"
+    assert out["grad_gap"] <= UNFUSED_TRAIN_GATE["grad"], "unfused train parity: gradients"
+    return want
+
+
+def softmax_kernels_phase(torch, errors, serve_launches, train_launches):
+    """Kernels 1 and 2 at the unfused path's shapes under HYFT16 (fp32
+    scores in, fp16 out; the backward reads fp16 s and dy), against their
+    plain versions and their bounds.  Every timing rotates over as many
+    input buffers as it takes to exceed twice the L2: ``ms`` is the
+    kernel's device time per launch (torch.profiler), ``kernel_ms`` the
+    CUDA-event time per launch from Python (the wrapper's host time
+    included: it sets decode's, whose kernel is a few microseconds)."""
+    from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import hyft_softmax as hs
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    n_layers = serve_launches["hyft_softmax_fwd"] // NEW
+    shapes = {s[0]: s for s in _softmax_shapes(torch)}
+    specs = [  # entry, shape name, launches, what they count
+        ("hyft_softmax_fwd", "train", train_launches["hyft_softmax_fwd"], "per training step"),
+        ("hyft_softmax_fwd", "prompt", n_layers,
+         f"per generate (of its {serve_launches['hyft_softmax_fwd']}: the prompt)"),
+        ("hyft_softmax_fwd", "decode", n_layers * (NEW - 1),
+         f"per generate (of its {serve_launches['hyft_softmax_fwd']}: the decode steps)"),
+        ("hyft_softmax_bwd", "train", train_launches["hyft_softmax_bwd"], "per training step"),
+    ]
+    kernels = []
+    for entry, name, n_launch, launches_are in specs:
+        _, shape, keep, _ = shapes[name]
+        rows, cols = math.prod(shape[:-1]), shape[-1]
+        bwd = entry == "hyft_softmax_bwd"
+        in_bytes = 2 if bwd else 4
+        nbytes = rows * cols * ((2 * in_bytes if bwd else in_bytes) + 2)
+        nbuf = max(1, math.ceil(2 * L2_BYTES / nbytes))
+        bufs = []
+        for _ in range(nbuf):
+            z = _scores(torch, gen, shape, keep)
+            if bwd:
+                s = hs.hyft_softmax_fwd_kernel(z, HYFT16)
+                bufs.append((s, torch.randn(shape, generator=gen, device="cuda").half()))
+            else:
+                bufs.append((z,))
+        if bwd:
+            kernel = lambda i: hs.hyft_softmax_bwd_kernel(*bufs[i % nbuf], HYFT16)  # noqa: E731
+            plain = lambda i: hs.hyft_softmax_bwd(*bufs[i % nbuf], HYFT16)  # noqa: E731
+        else:
+            kernel = lambda i: hs.hyft_softmax_fwd_kernel(*bufs[i % nbuf], HYFT16)  # noqa: E731
+            plain = lambda i: hs.hyft_softmax_fwd(*bufs[i % nbuf], HYFT16)  # noqa: E731
+        big = rows > 1024
+        reps = 20 if big else 2 * nbuf
+        event_ms = _event_ms(torch, kernel, reps)
+        events, _ = _profiled(torch, lambda: [kernel(i) for i in range(reps)])
+        ours = [e for e in _device_events(torch, events)
+                if ("softmax_bwd_kernel" if bwd else "softmax_fwd_kernel") in e.key]
+        n = sum(e.count for e in ours)
+        device_ms = sum(map(_self_device_us, ours)) / n / 1e3 if n else None
+        plain_ms = _event_ms(torch, plain, 5 if big else 50)
+        ops = SOFTMAX_OPS[entry] * rows * cols
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_FLOPS_PER_S * 1e3
+        kernels.append({
+            "name": f"{entry}[{name}]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/hyft_softmax.cu",
+            "replaces": ("src/repro/kernels/hyft_softmax.py:44" if bwd
+                         else "src/repro/kernels/hyft_softmax.py:28"),
+            "tpu_kernel": "_bwd_kernel" if bwd else "_fwd_kernel",
+            "shape": [rows, cols], "launches": n_launch, "launches_are": launches_are,
+            "max_abs_err": errors[entry],
+            "ms": device_ms if device_ms is not None else event_ms,
+            "ms_source": ("torch.profiler device time" if device_ms is not None
+                          else "cuda events"),
+            "kernel_ms": event_ms, "kernel_ms_buffers": nbuf, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "library_ms": None})
+        del bufs
+        torch.cuda.empty_cache()
+    return kernels
+
+
 def main():
     import torch
 
@@ -1047,6 +1381,7 @@ def main():
     errors = check_phase(torch)
     flash_errs = flash_check_phase(torch)
     paged_errs = paged_check_phase(torch)
+    softmax_errs = softmax_check_phase(torch)
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -1059,15 +1394,21 @@ def main():
     profile_phase(torch, params, cfg)
     paged_launches, paged_outs, reqs = continuous_serve_phase(torch, params, cfg)
     paged_parity_phase(torch, params, cfg, paged_outs, reqs)
+    unfused_launches = unfused_serve_phase(torch, params, cfg)
+    profile_phase(torch, params, cfg, softmax="hyft16_kernel", attn_mode="unfused")
     del params                                        # free the serving weights
     torch.cuda.empty_cache()
     train_launches = train_phase(torch)
     torch.cuda.empty_cache()
     train_parity_phase(torch)
     torch.cuda.empty_cache()
+    unfused_train_launches = unfused_train_phase(torch)
+    torch.cuda.empty_cache()
     emit({"kernels": kernels_phase(torch, errors, launches)
           + paged_kernels_phase(torch, paged_errs, paged_launches)
-          + flash_kernels_phase(torch, flash_errs, train_launches)})
+          + flash_kernels_phase(torch, flash_errs, train_launches)
+          + softmax_kernels_phase(torch, softmax_errs, unfused_launches,
+                                  unfused_train_launches)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
 

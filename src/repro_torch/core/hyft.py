@@ -143,3 +143,15 @@ def hyft_softmax(z: torch.Tensor, cfg: HyftConfig = HYFT32) -> torch.Tensor:
     (the paper's training mode), or the exact softmax VJP for ablations.
     """
     return _HyftSoftmax.apply(z, cfg)
+
+
+def hyft_jacobian(s: torch.Tensor, cfg: HyftConfig = HYFT32) -> torch.Tensor:
+    """Full Jacobian  ds/dz = diag(s) - s s^T  (paper Eq. 5), via log_mul.
+
+    The paper-faithful N x N backward block; the VJP above is the
+    matrix-free form used in training.
+    """
+    s32 = s.to(F32)
+    outer = nm.log_mul(s32[..., :, None], s32[..., None, :], cfg.mant_bits)
+    diag = torch.eye(s.shape[-1], dtype=F32, device=s.device) * s32[..., None, :]
+    return (diag - outer).to(cfg.dtype)

@@ -13,6 +13,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace hyft {
@@ -26,6 +27,9 @@ struct Params {
 __device__ __forceinline__ float load_f32(const float* p, long i) { return p[i]; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p, long i) {
   return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ float load_f32(const __half* p, long i) {
+  return __half2float(p[i]);
 }
 __device__ __forceinline__ float load_f32(const int8_t* p, long i) {
   return static_cast<float>(p[i]);
@@ -66,19 +70,19 @@ __device__ __forceinline__ float assemble(int e, int m, int mant) {
   return __fmul_rn(static_cast<float>((1 << mant) + m), pow2_float(e - mant));
 }
 
-// adder-tree input: the multiple of 2^-acc below the value -- expfloat_to_fx
-__device__ __forceinline__ float expfloat_to_fx(int e, int m, int mant, int acc) {
+// adder-tree input as an integer count of 2^-acc: floor(value * 2^acc)
+__device__ __forceinline__ int expfloat_to_fx_raw(int e, int m, int mant, int acc) {
   const int shift = e + acc - mant;
   const int base = (1 << mant) + m;
-  int q;
-  if (shift >= 0) {
-    q = base << shift;
-  } else if (shift <= -32) {
-    q = 0;
-  } else {
-    q = base >> min(-shift, 31);
-  }
-  return __fmul_rn(static_cast<float>(q), pow2_float(-acc));
+  if (shift >= 0) return base << shift;
+  if (shift <= -32) return 0;
+  return base >> min(-shift, 31);
+}
+
+// adder-tree input: the multiple of 2^-acc below the value -- expfloat_to_fx
+__device__ __forceinline__ float expfloat_to_fx(int e, int m, int mant, int acc) {
+  return __fmul_rn(static_cast<float>(expfloat_to_fx_raw(e, m, mant, acc)),
+                   pow2_float(-acc));
 }
 
 // two's-complement truncation to frac fractional bits -- numerics.fx_quantize
@@ -108,6 +112,22 @@ __device__ __forceinline__ float log_div(int e_a, int m_a, int e_b, int m_b, int
   const int e = e_a - e_b - neg;
   const int m = neg ? (1 << mant) + diff : diff;
   return assemble(e, m, mant);
+}
+
+// hybrid multiply a * b ~= 2^(ea + eb) (1 + ma + mb + ma * mb) with the
+// half-range partial product (top mant/2 bits of b's mantissa; paper
+// Eq. 10) -- numerics.log_mul(half_range=True).  ma * mb_top < 2^(3 mant / 2)
+// stays in int32 for mant <= 20; the scale flushes below 2^-126.
+__device__ __forceinline__ float log_mul(float a, float b, int mant) {
+  int sa, ea, ma, sb, eb, mb;
+  float_fields(a, mant, sa, ea, ma);
+  float_fields(b, mant, sb, eb, mb);
+  const int half = mant / 2;
+  const int prod = (ma * (mb >> (mant - half))) >> half;
+  const int num = (1 << mant) + ma + mb + prod;
+  const float mag = __fmul_rn(static_cast<float>(num), pow2_float(ea + eb - mant));
+  if (a == 0.0f || b == 0.0f) return 0.0f;
+  return (sa ^ sb) ? -mag : mag;
 }
 
 // Hyft exp of a fixed-point max delta d <= 0, as fp32 -- hyft_alpha

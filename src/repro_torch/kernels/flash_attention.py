@@ -251,9 +251,10 @@ def _hyft_args(cfg: HyftConfig) -> tuple:
     return (cfg.frac_bits, cfg.total_bits, cfg.mant_bits, cfg.acc_bits, cfg.step)
 
 
-def _launch(name: str, device, *args):
+def _launch(name: str, device, *args, counts: dict | None = None):
     """Call the C entry ``name`` on the current stream of ``device``; raise
-    if the launch fails, count it if it does not."""
+    if the launch fails, count it in ``counts`` (this module's
+    ``LAUNCHES`` by default) if it does not."""
     from repro_torch.kernels import build
 
     lib = build.load()
@@ -262,7 +263,7 @@ def _launch(name: str, device, *args):
     if err:
         raise RuntimeError(f"{name} failed: cudaError {err} "
                            f"({lib.hyft_error_string(err).decode()})")
-    LAUNCHES[name] += 1
+    (LAUNCHES if counts is None else counts)[name] += 1
 
 
 def _tiles_for(device: torch.device, paged: bool = False):

@@ -10,7 +10,9 @@ see a float side input.  Every online mode carries per-row ``(m, l)`` stats
 — the int32 fixed-point running max and the fp32 fixed-point sum — and the
 fused kernel saves exactly these for its backward.
 
-The standalone softmax kernels come with a later slice (ROADMAP queue 2).
+``hyft_softmax`` is differentiable: its forward is the standalone softmax
+kernel and its backward the backward kernel (the accelerator's reused
+DIV/MUL datapath), whatever ``cfg.grad`` says, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from repro_torch.core.hyft import HyftConfig
 from repro_torch.kernels.flash_attention import (
     flash_hyft_attention, flash_hyft_decode, flash_hyft_decode_paged,
     flash_hyft_verify)
+from repro_torch.kernels.hyft_softmax import (hyft_softmax_bwd_kernel,
+                                              hyft_softmax_fwd_kernel)
 
 F32 = torch.float32
 
@@ -29,6 +33,30 @@ def as_mask_f(kv_len_mask) -> torch.Tensor | None:
     if kv_len_mask is None:
         return None
     return kv_len_mask.to(F32)
+
+
+class _HyftSoftmaxKernel(torch.autograd.Function):
+    """Forward: the softmax kernel, output in ``cfg.dtype``.  Backward: the
+    backward kernel, rounded to ``cfg.dtype`` and then cast to the input's
+    dtype (JAX's ``dt_marker``)."""
+
+    @staticmethod
+    def forward(ctx, z, cfg):
+        s = hyft_softmax_fwd_kernel(z, cfg)
+        ctx.save_for_backward(s)
+        ctx.cfg, ctx.z_dtype = cfg, z.dtype
+        return s
+
+    @staticmethod
+    def backward(ctx, dy):
+        (s,) = ctx.saved_tensors
+        return hyft_softmax_bwd_kernel(s, dy, ctx.cfg).to(ctx.z_dtype), None
+
+
+def hyft_softmax(z: torch.Tensor, cfg: HyftConfig) -> torch.Tensor:
+    """Hyft softmax over the last axis through the standalone kernels,
+    differentiable: the registry's ``hyft*_kernel`` entries."""
+    return _HyftSoftmaxKernel.apply(z, cfg)
 
 
 def hyft_attention(q, k, v, cfg: HyftConfig, sm_scale=None, causal=True,

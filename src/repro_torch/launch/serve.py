@@ -5,6 +5,11 @@ over a slot pool (dense or paged KV cache), on the card.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --softmax hyft16 --attn-mode kernel --cache-dtype fp2fx8
 
+  # the unfused mode: full score rows through the standalone Hyft softmax
+  # kernel, for the prompt and every decode step
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+      --softmax hyft16_kernel --attn-mode unfused --cache-dtype fp2fx8
+
   # continuous batching over a paged pool with prefix caching: ragged
   # prompts and horizons, chunked prefill, the paged CUDA kernels
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \

@@ -4,6 +4,12 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
       --steps 3 --global-batch 4 --seq 1024 --softmax hyft16 --attn-mode kernel
 
+  # the unfused mode through the standalone Hyft softmax kernels (forward,
+  # and the accelerator's own backward)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
+      --steps 3 --global-batch 4 --seq 1024 --softmax hyft16_kernel \
+      --attn-mode unfused --remat full
+
   # the same at smoke size on the CPU (plain PyTorch versions of the kernels)
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --smoke \
       --device cpu --steps 3 --attn-mode kernel

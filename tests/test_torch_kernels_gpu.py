@@ -14,6 +14,7 @@ import torch
 from repro_torch.core.hyft import HYFT16, HYFT32
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.attention import fp2fx8_quantize
+from repro_torch.tree import tree_leaves
 
 B, HQ, HKV, D = 2, 6, 2, 128
 
@@ -312,3 +313,148 @@ def test_training_step_runs_on_the_flash_kernels():
                            "hyft_flash_fwd": 4, "hyft_flash_bwd_dq": 2,
                            "hyft_flash_bwd_dkv": 2}
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+
+
+# --------------------------------------------------------------------------
+# the standalone softmax kernels (TPU kernels 1 and 2)
+# --------------------------------------------------------------------------
+
+
+def _softmax_case(gen, shape, scale, dtype):
+    """Seeded scores with a ragged causal-style mask (row r keeps its first
+    r % cols + 1 keys) and a seeded dy, both of ``dtype``."""
+    from repro_torch.kernels.flash_attention import NEG_BIG
+    z = torch.randn(shape, generator=gen, device="cuda") * scale
+    cols = shape[-1]
+    rows = z.numel() // cols
+    keep = (torch.arange(rows, device="cuda") % cols + 1)[:, None]
+    live = torch.arange(cols, device="cuda")[None] < keep
+    z = torch.where(live, z.reshape(rows, cols), NEG_BIG).reshape(shape)
+    if dtype == torch.float16:
+        z = z.clamp(min=-6e4)
+    dy = torch.randn(shape, generator=gen, device="cuda")
+    return z.to(dtype), dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16],
+                         ids=["f32", "f16", "bf16"])
+@pytest.mark.parametrize("cfg", [HYFT16, HYFT32, dataclasses.replace(HYFT16, io_dtype="bfloat16"),
+                                 dataclasses.replace(HYFT32, step=4)],
+                         ids=["hyft16", "hyft32", "hyft16b", "hyft32-step4"])
+@pytest.mark.parametrize("shape", [(37, 200), (3, 5, 64), (7, 1), (2, 9000), (64, 1056)])
+def test_softmax_kernels_match_plain(shape, cfg, dtype):
+    """Both kernels against their plain versions on the same inputs: bit for
+    bit in every row within the sum precondition, within the stated bound
+    past it (forward); block_rows changes nothing.  9000 columns do not fit
+    the shared-memory stage, so they take the passes over device memory."""
+    from repro_torch.kernels import hyft_softmax as hs
+    gen = _card()
+    z, dy = _softmax_case(gen, shape, 3.0, dtype)
+    s = hs.hyft_softmax_fwd_kernel(z, cfg)
+    ref = hs.hyft_softmax_fwd(z, cfg)
+    err = hs.softmax_errors(s, ref, hs.fwd_sum_units(z, cfg), cfg)
+    assert s.dtype == cfg.dtype and s.shape == z.shape
+    assert err["mismatches"] == 0 and err["past_ratio"] <= 1, err
+    assert torch.equal(hs.hyft_softmax_fwd_kernel(z, cfg, block_rows=3), s)
+    dy = dy.to(s.dtype)
+    units = hs.bwd_sum_units(s, dy, cfg)
+    assert int(units.max()) <= hs.EXACT_UNITS
+    dz = hs.hyft_softmax_bwd_kernel(s, dy, cfg)
+    berr = hs.softmax_errors(dz, hs.hyft_softmax_bwd(s, dy, cfg), units, cfg)
+    assert berr["mismatches"] == 0, berr
+    assert torch.equal(hs.hyft_softmax_bwd_kernel(s, dy, cfg, block_rows=4), dz)
+
+
+@pytest.mark.gpu
+def test_softmax_kernels_reject_bad_input():
+    from repro_torch.kernels import hyft_softmax as hs
+    _card()
+    z = torch.zeros(4, 8, device="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        hs.hyft_softmax_fwd_kernel(z.double(), HYFT16)
+    with pytest.raises(ValueError, match="last axis"):
+        hs.hyft_softmax_fwd_kernel(z[:, :0], HYFT16)
+    with pytest.raises(ValueError, match="shape"):
+        hs.hyft_softmax_bwd_kernel(z, z[:, :4], HYFT16)
+    with pytest.raises(ValueError, match="on cpu"):
+        hs.hyft_softmax_bwd_kernel(z, z.cpu(), HYFT16)
+    with pytest.raises(ValueError, match="block_rows"):
+        hs.hyft_softmax_bwd_kernel(z, z, HYFT16, block_rows=0)
+    with pytest.raises(RuntimeError, match="cudaError"):     # refused by the C entry
+        hs._fwd_cuda(z, HYFT16, 0)
+
+
+def _unfused_model():
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import build_model
+    return build_model(smoke_config(get_config("qwen2-1.5b")).with_(
+        softmax_impl="hyft16_kernel", attn_mode="unfused"))
+
+
+@pytest.mark.gpu
+def test_unfused_training_step_launches_the_softmax_kernels():
+    """One training step of a 2-layer model in the unfused mode with the
+    kernel softmax, remat "full": the forward kernel twice per layer, the
+    backward kernel once, no attention kernel; the same loss and gradient
+    bits as the plain hyft16 softmax on the card."""
+    from repro_torch import optim
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.synthetic import DataConfig, lm_batch
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.models import build_model
+    from repro_torch.train.step import grads_of, make_loss_fn, make_step_fn
+    from repro_torch.train.state import init_state
+
+    _card()
+    model = _unfused_model()
+    ocfg = optim.OptConfig(lr=1e-3)
+    state = init_state(model, ocfg, 0, device="cuda")
+    batch = lm_batch(DataConfig(vocab=model.cfg.vocab, seq_len=96, global_batch=2), 0,
+                     device="cuda")
+    tcfg = TrainConfig(warmup_steps=0, total_steps=4, remat="full")
+    grads = {}
+    for impl in ("hyft16", "hyft16_kernel"):
+        m = build_model(model.cfg.with_(softmax_impl=impl))
+        grads[impl] = grads_of(make_loss_fn(m, tcfg), state["params"], batch)
+    (lh, _, gh), (lk, _, gk) = grads["hyft16"], grads["hyft16_kernel"]
+    assert torch.equal(lh, lk)
+    for a, b in zip(tree_leaves(gh), tree_leaves(gk)):
+        assert torch.equal(a, b)
+    for counts in (hs.LAUNCHES, fa.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+    state, metrics = make_step_fn(model, tcfg, ocfg)(state, batch)
+    torch.cuda.synchronize()
+    n = model.cfg.n_layers
+    assert hs.LAUNCHES == {"hyft_softmax_fwd": 2 * n, "hyft_softmax_bwd": n}
+    assert not any(fa.LAUNCHES.values())
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+
+
+@pytest.mark.gpu
+def test_unfused_generate_launches_the_forward_kernel_only():
+    """Greedy generate in the unfused mode with the kernel softmax: one
+    forward launch per layer for the prompt and per decode step, no
+    backward and no attention kernel."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.serve.engine import generate
+
+    gen = _card()
+    model = _unfused_model()
+    params = model.init(0)
+    tokens = torch.randint(0, model.cfg.vocab, (2, 12), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    for counts in (hs.LAUNCHES, fa.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+    out = generate(model, params, {"tokens": tokens},
+                   ServeConfig(max_len=24, cache_dtype="fp2fx8", attn_mode="unfused"),
+                   max_new=6)
+    torch.cuda.synchronize()
+    n = model.cfg.n_layers
+    assert hs.LAUNCHES == {"hyft_softmax_fwd": n * 6, "hyft_softmax_bwd": 0}
+    assert not any(fa.LAUNCHES.values())
+    assert out.shape == (2, 6)
+
