@@ -94,10 +94,15 @@ script exits non-zero without its last line:
  13. unfused serve  greedy ``generate`` at full width with
               ``softmax_impl="hyft16_kernel"``, ``attn_mode="unfused"``,
               bf16 compute, fp2fx8 cache, batch 4, prompt 1024, 32 new
-              tokens: exactly 28 + 28 * 31 softmax-forward launches and no
-              other kernel; prefill ms, decode ms per token; then the same
-              request with the plain ``hyft16`` softmax: token agreement,
-              and the prefill and first-decode logits within PARITY_BOUND;
+              tokens: the prompt alone (max_new=1) launches the softmax
+              forward exactly 28 times and the whole generate 28 + 28 * 31,
+              no other kernel; prefill ms, decode ms per token; then the
+              same request with the plain ``hyft16`` softmax, which records
+              every row's adder-tree sum: token agreement, and the prefill
+              and first-decode logits, bitwise while every row of the
+              request stays within the sum precondition (then the kernel
+              path computes the same bits step by step), else within
+              PARITY_BOUND;
               then the profile of phase 6 over this path;
  14. unfused train  the launcher's functions, hyft16_kernel, unfused, bf16
               compute, fp32 params, AdamW, remat="full", 4 x 1024 tokens:
@@ -179,6 +184,7 @@ UNFUSED_TRAIN_GATE = {"loss": 1e-6, "grad": 1e-5}
 # fx_quantize), at the fp32 rate outside the tensor cores
 SOFTMAX_OPS = {"hyft_softmax_fwd": 62, "hyft_softmax_bwd": 50}
 L2_BYTES = 50e6
+PROFILED_LAUNCHES = 200               # the least launches of one profiled window
 
 
 def emit(obj):
@@ -842,6 +848,28 @@ def train_parity_phase(torch):
     assert out["grad_gap"] <= TRAIN_PARITY_BOUND["grad"], "train parity: gradients"
 
 
+def _kernel_ms(torch, fn, reps, key, event_ms):
+    """The ``ms`` of a kernels-line row: the device time per launch of the
+    kernels whose name holds ``key``, from torch.profiler over at least
+    PROFILED_LAUNCHES calls of ``fn(i)`` (late in a long run the profiler
+    kept no device event of windows of 10-20 launches, while windows of a
+    few hundred kept theirs); where it recorded none of them, the
+    CUDA-event time ``event_ms``, with what the profiler did record."""
+    def launches():
+        for i in range(max(reps, PROFILED_LAUNCHES)):
+            fn(i)
+    events, _ = _profiled(torch, launches)
+    dev = _device_events(torch, events)
+    ours = [e for e in dev if key in e.key]
+    n = sum(e.count for e in ours)
+    if n:
+        return {"ms": sum(map(_self_device_us, ours)) / n / 1e3,
+                "ms_source": "torch.profiler device time"}
+    return {"ms": event_ms, "ms_source": "cuda events",
+            "profiler_saw": {"device_events": sum(e.count for e in dev),
+                             "keys": [e.key[:60] for e in dev[:4]]}}
+
+
 def _event_ms(torch, fn, reps):
     for _ in range(2):
         fn(0)
@@ -892,11 +920,7 @@ def kernels_phase(torch, errors, launches):
             reps = 200 if kind == "decode" else 10
             event_ms = _event_ms(torch, call(fa._splitk_tiles_cuda), reps)
             fn = call(fa._splitk_tiles_cuda)
-            events, _ = _profiled(torch, lambda: [fn(i) for i in range(reps)])
-            ours = [e for e in _device_events(torch, events)
-                    if "splitk_tile_kernel" in e.key]
-            n = sum(e.count for e in ours)
-            device_ms = sum(map(_self_device_us, ours)) / n / 1e3 if n else None
+            timing = _kernel_ms(torch, fn, reps, "splitk_tile_kernel", event_ms)
             plain_ms = _event_ms(torch, call(fa.splitk_tiles_plain),
                                  50 if kind == "decode" else 3)
             kv_bytes = 1 if cache_dtype == "fp2fx8" else 4
@@ -918,9 +942,7 @@ def kernels_phase(torch, errors, launches):
                                else "_verify_fwd_kernel"),
                 "launches": launches[cache_dtype][entry],
                 "max_abs_err": errors[(kind, cache_dtype)],
-                "ms": device_ms if device_ms is not None else event_ms,
-                "ms_source": ("torch.profiler device time" if device_ms is not None
-                              else "cuda events"),
+                **timing,
                 "kernel_ms": event_ms,
                 "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops),
@@ -971,11 +993,7 @@ def paged_kernels_phase(torch, errors, launches):
             reps = 200 if sq is None else 10
             event_ms = _event_ms(torch, call(fa._paged_tiles_cuda), reps)
             fn = call(fa._paged_tiles_cuda)
-            events, _ = _profiled(torch, lambda: [fn(i) for i in range(reps)])
-            ours = [e for e in _device_events(torch, events)
-                    if "splitk_tile_kernel" in e.key]
-            n = sum(e.count for e in ours)
-            device_ms = sum(map(_self_device_us, ours)) / n / 1e3 if n else None
+            timing = _kernel_ms(torch, fn, reps, "splitk_tile_kernel", event_ms)
             plain_ms = _event_ms(torch, call(fa.paged_tiles_plain),
                                  20 if sq is None else 3)
             kv_bytes = 1 if cache_dtype == "fp2fx8" else 4
@@ -999,9 +1017,7 @@ def paged_kernels_phase(torch, errors, launches):
                 "launches": launches[cache_dtype][entry],
                 "launches_are": "per continuous_serve run",
                 "max_abs_err": errors[(f"paged_{kind}", cache_dtype)],
-                "ms": device_ms if device_ms is not None else event_ms,
-                "ms_source": ("torch.profiler device time" if device_ms is not None
-                              else "cuda events"),
+                **timing,
                 "kernel_ms": event_ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1050,10 +1066,7 @@ def flash_kernels_phase(torch, errors, launches):
     for entry, kname, line, tpu, kernel, plain, nbytes, per_pair in specs:
         reps = 10
         event_ms = _event_ms(torch, lambda i: kernel(), reps)
-        events, _ = _profiled(torch, lambda: [kernel() for _ in range(reps)])
-        ours = [e for e in _device_events(torch, events) if kname in e.key]
-        n = sum(e.count for e in ours)
-        device_ms = sum(map(_self_device_us, ours)) / n / 1e3 if n else None
+        timing = _kernel_ms(torch, lambda i: kernel(), reps, kname, event_ms)
         plain_ms = _event_ms(torch, lambda i: plain(), 3)
         flops = per_pair * D * pairs
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1065,9 +1078,7 @@ def flash_kernels_phase(torch, errors, launches):
             "tpu_kernel": tpu, "launches": launches[entry],
             "launches_are": "per training step",
             "max_abs_err": errors[entry],
-            "ms": device_ms if device_ms is not None else event_ms,
-            "ms_source": ("torch.profiler device time" if device_ms is not None
-                          else "cuda events"),
+            **timing,
             "kernel_ms": event_ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1170,9 +1181,16 @@ def softmax_check_phase(torch):
 
 def unfused_serve_phase(torch, params, cfg):
     """Greedy generate in the unfused mode through the softmax kernel, then
-    the same request with the plain Hyft softmax on the card: launches,
-    prefill and decode times, token agreement and logits parity."""
+    the same request with the plain Hyft softmax on the card: launches of
+    the prompt and of the whole generate, prefill and decode times, token
+    agreement and logits parity.  The plain runs go through a registry
+    entry that records the largest adder-tree sum of any row: while it
+    stays within the precondition, kernel and plain version give the same
+    bits at every step, so the tokens and logits must be equal.  Returns
+    the softmax forward's launches {"prompt", "decode", "generate"}."""
     from repro_torch.configs import ServeConfig
+    from repro_torch.core.hyft import HYFT16
+    from repro_torch.core.registry import get_softmax, register_softmax
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hyft_softmax as hs
     from repro_torch.models import build_model
@@ -1182,40 +1200,67 @@ def unfused_serve_phase(torch, params, cfg):
     tokens = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen,
                            device="cuda", dtype=torch.int32)
     scfg = ServeConfig(max_len=MAX_LEN, cache_dtype="fp2fx8", attn_mode="unfused")
+    sums, plain = [0], get_softmax("hyft16")
+
+    def recorded(z):
+        sums[0] = max(sums[0], int(hs.fwd_sum_units(z, HYFT16).max()))
+        return plain(z)
+    register_softmax("hyft16_recorded", recorded)
+
+    def model_of(impl):
+        return build_model(cfg.with_(softmax_impl=impl, attn_mode="unfused"))
+
     outs, logits, launches = {}, {}, None
     for impl in ("hyft16_kernel", "hyft16"):
-        model = build_model(cfg.with_(softmax_impl=impl, attn_mode="unfused"))
+        model = model_of(impl)
         run = lambda n: generate(model, params, {"tokens": tokens}, scfg,  # noqa: E731
                                  max_new=n)
         _timed(torch, lambda: run(2))                  # warm-up
+        _zero(fa.LAUNCHES, hs.LAUNCHES)                # the prompt alone
         _, t_prefill = _timed(torch, lambda: run(1))
+        prompt = {**fa.LAUNCHES, **hs.LAUNCHES}
         torch.cuda.reset_peak_memory_stats()
         _zero(fa.LAUNCHES, hs.LAUNCHES)                # the main path's run
         out, t_all = _timed(torch, lambda: run(NEW))
         got = {**fa.LAUNCHES, **hs.LAUNCHES}
-        want = dict.fromkeys(got, 0)
+        decode = {k: got[k] - prompt[k] for k in got}
+        want_prompt, want_decode = dict.fromkeys(got, 0), dict.fromkeys(got, 0)
         if impl == "hyft16_kernel":
-            want["hyft_softmax_fwd"] = cfg.n_layers + cfg.n_layers * (NEW - 1)
-            launches = got
+            want_prompt["hyft_softmax_fwd"] = cfg.n_layers
+            want_decode["hyft_softmax_fwd"] = cfg.n_layers * (NEW - 1)
+            launches = {"prompt": prompt["hyft_softmax_fwd"],
+                        "decode": decode["hyft_softmax_fwd"],
+                        "generate": got["hyft_softmax_fwd"]}
         t_decode = t_all - t_prefill
         emit({"phase": "unfused_serve", "softmax": impl, "cache": "fp2fx8",
-              "launches": got, "expected": want, "prefill_ms": t_prefill * 1e3,
+              "launches": got, "launches_prompt": prompt,
+              "expected_prompt": want_prompt, "expected_decode": want_decode,
+              "prefill_ms": t_prefill * 1e3,
               "decode_ms_per_token": t_decode / (NEW - 1) * 1e3,
               "decode_tokens_per_s": B * (NEW - 1) / t_decode,
               "generate_ms": t_all * 1e3,
               "max_memory_allocated": torch.cuda.max_memory_allocated()})
-        assert got == want, f"launch counts {got} != {want}"
+        assert prompt == want_prompt, f"prompt launch counts {prompt} != {want_prompt}"
+        assert decode == want_decode, f"decode launch counts {decode} != {want_decode}"
         assert out.shape == (B, NEW) and out.dtype == torch.int32
         assert bool(((out >= 0) & (out < cfg.vocab)).all())
         outs[impl] = out
+        del model
+    recorder = model_of("hyft16_recorded")   # the plain request again, its sums recorded
+    out = generate(recorder, params, {"tokens": tokens}, scfg, max_new=NEW)
+    assert torch.equal(out, outs["hyft16"]), "the recorded plain run drifted"
+    for impl, model in (("hyft16_kernel", model_of("hyft16_kernel")), ("hyft16", recorder)):
         cache = model.init_cache(params, B, MAX_LEN, "fp2fx8")
         lp, cache = model.prefill_chunk(params, cache, tokens,
                                         torch.zeros(B, dtype=torch.int32, device="cuda"))
         ld, _ = model.decode_step(params, cache, tokens[:, :1], PROMPT)
         logits[impl] = (lp[:, -1].float(), ld[:, -1].float())
         del cache, lp, ld, model
+    within = sums[0] <= hs.EXACT_UNITS
     res = {"phase": "unfused_serve", "token_agreement_kernel_vs_plain": float(
-        (outs["hyft16_kernel"] == outs["hyft16"]).float().mean())}
+        (outs["hyft16_kernel"] == outs["hyft16"]).float().mean()),
+        "max_sum_units": sums[0], "exact_units": hs.EXACT_UNITS,
+        "within_precondition": within}
     for i, part in enumerate(("prefill", "decode")):
         a, b = logits["hyft16_kernel"][i], logits["hyft16"][i]
         assert torch.isfinite(a).all() and torch.isfinite(b).all()
@@ -1223,6 +1268,10 @@ def unfused_serve_phase(torch, params, cfg):
         res[f"{part}_bitwise"] = bool(torch.equal(a, b))
     res["bound"] = PARITY_BOUND
     emit(res)
+    if within:   # the same bits at every step
+        assert res["token_agreement_kernel_vs_plain"] == 1.0, "unfused tokens differ"
+        assert res["prefill_bitwise"], "unfused prefill logits not bitwise"
+        assert res["decode_bitwise"], "unfused decode logits not bitwise"
     assert res["prefill_maxdiff_over_std"] <= PARITY_BOUND, "unfused prefill parity"
     assert res["decode_maxdiff_over_std"] <= PARITY_BOUND, "unfused decode parity"
     return launches
@@ -1306,14 +1355,14 @@ def softmax_kernels_phase(torch, errors, serve_launches, train_launches):
     from repro_torch.kernels import hyft_softmax as hs
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    n_layers = serve_launches["hyft_softmax_fwd"] // NEW
     shapes = {s[0]: s for s in _softmax_shapes(torch)}
+    total = serve_launches["generate"]
     specs = [  # entry, shape name, launches, what they count
         ("hyft_softmax_fwd", "train", train_launches["hyft_softmax_fwd"], "per training step"),
-        ("hyft_softmax_fwd", "prompt", n_layers,
-         f"per generate (of its {serve_launches['hyft_softmax_fwd']}: the prompt)"),
-        ("hyft_softmax_fwd", "decode", n_layers * (NEW - 1),
-         f"per generate (of its {serve_launches['hyft_softmax_fwd']}: the decode steps)"),
+        ("hyft_softmax_fwd", "prompt", serve_launches["prompt"],
+         f"per generate (of its {total}: the prompt alone, max_new=1)"),
+        ("hyft_softmax_fwd", "decode", serve_launches["decode"],
+         f"per generate (of its {total}: the rest, the decode steps)"),
         ("hyft_softmax_bwd", "train", train_launches["hyft_softmax_bwd"], "per training step"),
     ]
     kernels = []
@@ -1341,11 +1390,8 @@ def softmax_kernels_phase(torch, errors, serve_launches, train_launches):
         big = rows > 1024
         reps = 20 if big else 2 * nbuf
         event_ms = _event_ms(torch, kernel, reps)
-        events, _ = _profiled(torch, lambda: [kernel(i) for i in range(reps)])
-        ours = [e for e in _device_events(torch, events)
-                if ("softmax_bwd_kernel" if bwd else "softmax_fwd_kernel") in e.key]
-        n = sum(e.count for e in ours)
-        device_ms = sum(map(_self_device_us, ours)) / n / 1e3 if n else None
+        timing = _kernel_ms(torch, kernel, reps,
+                            "softmax_bwd_kernel" if bwd else "softmax_fwd_kernel", event_ms)
         plain_ms = _event_ms(torch, plain, 5 if big else 50)
         ops = SOFTMAX_OPS[entry] * rows * cols
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1358,9 +1404,7 @@ def softmax_kernels_phase(torch, errors, serve_launches, train_launches):
             "tpu_kernel": "_bwd_kernel" if bwd else "_fwd_kernel",
             "shape": [rows, cols], "launches": n_launch, "launches_are": launches_are,
             "max_abs_err": errors[entry],
-            "ms": device_ms if device_ms is not None else event_ms,
-            "ms_source": ("torch.profiler device time" if device_ms is not None
-                          else "cuda events"),
+            **timing,
             "kernel_ms": event_ms, "kernel_ms_buffers": nbuf, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",

@@ -40,8 +40,8 @@ ENTRY_ARGS = {
     "hyft_flash_fwd": [_P] * 7 + [_I] * 10 + [_F] + _HYFT_ARGS,
     "hyft_flash_bwd_dq": [_P] * 9 + [_I] * 9 + [_F] + _HYFT_ARGS,
     "hyft_flash_bwd_dkv": [_P] * 10 + [_I] * 9 + [_F] + _HYFT_ARGS,
-    "hyft_softmax_fwd": [_P] * 2 + [_I] * 5 + _HYFT_ARGS,
-    "hyft_softmax_bwd": [_P] * 3 + [_I] * 7 + [_P],
+    "hyft_softmax_fwd": [_P] * 2 + [_I] * 4 + _HYFT_ARGS,
+    "hyft_softmax_bwd": [_P] * 3 + [_I] * 6 + [_P],
 }
 _lib: ctypes.CDLL | None = None
 

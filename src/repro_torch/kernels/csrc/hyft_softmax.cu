@@ -31,7 +31,7 @@
 // integer operations between.  qwen2-1.5b training at B 4 x 1024 under
 // HYFT16 (49,152 rows of 1024 fp32 scores, fp16 out): 302 MB, about 90 us
 // at 3.35 TB/s.  This first version is plain: one block of 256 threads per
-// row (or per block_rows rows, in turn), the row's FP2FX raws staged in
+// row, the row's FP2FX raws staged in
 // shared memory when they fit in 32 KB (else recomputed from device memory
 // in each pass), block reductions over warp shuffles in a fixed order.
 
@@ -80,74 +80,62 @@ __device__ long long block_sum(long long v, long long* scratch) {
   return r;
 }
 
-// Grid: ceil(rows / rows_per_block) blocks; dynamic shared memory: cols
-// int32 when kStaged.
+// Grid: one block per row; dynamic shared memory: cols int32 when kStaged.
 template <typename Tin, typename Tout, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
-    softmax_fwd_kernel(const Tin* __restrict__ z, Tout* __restrict__ out, int rows, int cols,
-                       int rows_per_block, Params h) {
+    softmax_fwd_kernel(const Tin* __restrict__ z, Tout* __restrict__ out, int cols, Params h) {
   extern __shared__ int raw[];
   __shared__ long long scratch[kWarps];
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(rows, r0 + rows_per_block);
-  for (int r = r0; r < r1; ++r) {
-    const Tin* zr = z + static_cast<long>(r) * cols;
-    Tout* o = out + static_cast<long>(r) * cols;
-    // input pre-processor: FP2FX and the strided max
-    int mx = INT_MIN;
-    for (int j = threadIdx.x; j < cols; j += kThreads) {
-      const int x = fp2fx(load_f32(zr, j), h.frac, h.total);
-      if (kStaged) raw[j] = x;
-      if (j % h.step == 0) mx = max(mx, x);
-    }
-    mx = block_max(mx, scratch);  // its barriers also publish raw[]
-    // exponent unit and the adder tree, in exact integer counts of 2^-acc
-    long long units = 0;
-    for (int j = threadIdx.x; j < cols; j += kThreads) {
-      const int x = kStaged ? raw[j] : fp2fx(load_f32(zr, j), h.frac, h.total);
-      int e, m;
-      exp_unit(x - mx, h.frac, h.mant, e, m);
-      units += expfloat_to_fx_raw(e, m, h.mant, h.acc);
-    }
-    units = block_sum(units, scratch);
-    const float denom = __fmul_rn(__ll2float_rn(units), pow2_float(-h.acc));
-    int e_b, m_b;
-    lod_refloat(denom, h.mant, e_b, m_b);
-    // DIV unit: log-subtract division
-    for (int j = threadIdx.x; j < cols; j += kThreads) {
-      const int x = kStaged ? raw[j] : fp2fx(load_f32(zr, j), h.frac, h.total);
-      int e, m;
-      exp_unit(x - mx, h.frac, h.mant, e, m);
-      store(o, j, log_div(e, m, e_b, m_b, h.mant));
-    }
-    __syncthreads();  // raw[] is rewritten by the next row
+  const Tin* zr = z + static_cast<long>(blockIdx.x) * cols;
+  Tout* o = out + static_cast<long>(blockIdx.x) * cols;
+  // input pre-processor: FP2FX and the strided max
+  int mx = INT_MIN;
+  for (int j = threadIdx.x; j < cols; j += kThreads) {
+    const int x = fp2fx(load_f32(zr, j), h.frac, h.total);
+    if (kStaged) raw[j] = x;
+    if (j % h.step == 0) mx = max(mx, x);
+  }
+  mx = block_max(mx, scratch);  // its barriers also publish raw[]
+  // exponent unit and the adder tree, in exact integer counts of 2^-acc
+  long long units = 0;
+  for (int j = threadIdx.x; j < cols; j += kThreads) {
+    const int x = kStaged ? raw[j] : fp2fx(load_f32(zr, j), h.frac, h.total);
+    int e, m;
+    exp_unit(x - mx, h.frac, h.mant, e, m);
+    units += expfloat_to_fx_raw(e, m, h.mant, h.acc);
+  }
+  units = block_sum(units, scratch);
+  const float denom = __fmul_rn(__ll2float_rn(units), pow2_float(-h.acc));
+  int e_b, m_b;
+  lod_refloat(denom, h.mant, e_b, m_b);
+  // DIV unit: log-subtract division
+  for (int j = threadIdx.x; j < cols; j += kThreads) {
+    const int x = kStaged ? raw[j] : fp2fx(load_f32(zr, j), h.frac, h.total);
+    int e, m;
+    exp_unit(x - mx, h.frac, h.mant, e, m);
+    store(o, j, log_div(e, m, e_b, m_b, h.mant));
   }
 }
 
-// Grid: ceil(rows / rows_per_block) blocks.
+// Grid: one block per row.
 template <typename Tin, typename Tout>
 __global__ void __launch_bounds__(kThreads)
     softmax_bwd_kernel(const Tin* __restrict__ s, const Tin* __restrict__ dy,
-                       Tout* __restrict__ dz, int rows, int cols, int rows_per_block, int mant,
-                       int acc) {
+                       Tout* __restrict__ dz, int cols, int mant, int acc) {
   __shared__ long long scratch[kWarps];
   const float scale = pow2_float(acc);
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(rows, r0 + rows_per_block);
-  for (int r = r0; r < r1; ++r) {
-    const long base = static_cast<long>(r) * cols;
-    // log-domain products, quantized to counts of 2^-acc, summed exactly
-    long long units = 0;
-    for (int j = threadIdx.x; j < cols; j += kThreads) {
-      const float p = log_mul(load_f32(dy, base + j), load_f32(s, base + j), mant);
-      units += __float2ll_rz(floorf(__fmul_rn(p, scale)));
-    }
-    units = block_sum(units, scratch);
-    const float dot = __fmul_rn(__ll2float_rn(units), pow2_float(-acc));
-    for (int j = threadIdx.x; j < cols; j += kThreads) {
-      const float diff = __fsub_rn(fx_quantize(load_f32(dy, base + j), acc), dot);
-      store(dz, base + j, log_mul(diff, load_f32(s, base + j), mant));
-    }
+  const long base = static_cast<long>(blockIdx.x) * cols;
+  // log-domain products, quantized to counts of 2^-acc, summed exactly
+  long long units = 0;
+  for (int j = threadIdx.x; j < cols; j += kThreads) {
+    const float p = log_mul(load_f32(dy, base + j), load_f32(s, base + j), mant);
+    units += __float2ll_rz(floorf(__fmul_rn(p, scale)));
+  }
+  units = block_sum(units, scratch);
+  const float dot = __fmul_rn(__ll2float_rn(units), pow2_float(-acc));
+  for (int j = threadIdx.x; j < cols; j += kThreads) {
+    const float diff = __fsub_rn(fx_quantize(load_f32(dy, base + j), acc), dot);
+    store(dz, base + j, log_mul(diff, load_f32(s, base + j), mant));
   }
 }
 
@@ -174,17 +162,15 @@ int by_types(int in_type, int out_type, A... a) {
 
 template <typename Tin, typename Tout>
 struct Fwd {
-  static int run(const void* z, void* out, int rows, int cols, int rpb, Params h,
-                 cudaStream_t st) {
-    const int blocks = (rows + rpb - 1) / rpb;
+  static int run(const void* z, void* out, int rows, int cols, Params h, cudaStream_t st) {
     const Tin* zt = static_cast<const Tin*>(z);
     Tout* ot = static_cast<Tout*>(out);
     if (cols <= kStageCols) {
       softmax_fwd_kernel<Tin, Tout, true>
-          <<<blocks, kThreads, cols * sizeof(int), st>>>(zt, ot, rows, cols, rpb, h);
+          <<<rows, kThreads, cols * sizeof(int), st>>>(zt, ot, cols, h);
     } else {
       softmax_fwd_kernel<Tin, Tout, false>
-          <<<blocks, kThreads, 0, st>>>(zt, ot, rows, cols, rpb, h);
+          <<<rows, kThreads, 0, st>>>(zt, ot, cols, h);
     }
     return cudaGetLastError();
   }
@@ -192,12 +178,11 @@ struct Fwd {
 
 template <typename Tin, typename Tout>
 struct Bwd {
-  static int run(const void* s, const void* dy, void* dz, int rows, int cols, int rpb,
-                 int mant, int acc, cudaStream_t st) {
-    const int blocks = (rows + rpb - 1) / rpb;
-    softmax_bwd_kernel<Tin, Tout><<<blocks, kThreads, 0, st>>>(
+  static int run(const void* s, const void* dy, void* dz, int rows, int cols, int mant,
+                 int acc, cudaStream_t st) {
+    softmax_bwd_kernel<Tin, Tout><<<rows, kThreads, 0, st>>>(
         static_cast<const Tin*>(s), static_cast<const Tin*>(dy), static_cast<Tout*>(dz),
-        rows, cols, rpb, mant, acc);
+        cols, mant, acc);
     return cudaGetLastError();
   }
 };
@@ -207,16 +192,15 @@ struct Bwd {
 extern "C" {
 
 // z (rows, cols) of in_type -> out (rows, cols) of out_type: the Hyft
-// softmax of every row; rows_per_block rows per block of threads, in turn.
-// Returns the cudaError_t of the launch.
+// softmax of every row, one block of threads per row.  Returns the
+// cudaError_t of the launch.
 int hyft_softmax_fwd(const void* z, void* out, int in_type, int out_type, int rows, int cols,
-                     int rows_per_block, int frac, int total, int mant, int acc, int step,
-                     void* stream) {
-  if (rows <= 0 || cols <= 0 || rows_per_block <= 0 || step < 1 || frac >= total ||
+                     int frac, int total, int mant, int acc, int step, void* stream) {
+  if (rows <= 0 || cols <= 0 || step < 1 || frac >= total ||
       total > 31 || mant < 1 || mant > frac || acc < 0 || acc > 22)
     return cudaErrorInvalidValue;
   const Params h{frac, total, mant, acc, step};
-  return by_types<Fwd>(in_type, out_type, z, out, rows, cols, rows_per_block, h,
+  return by_types<Fwd>(in_type, out_type, z, out, rows, cols, h,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -224,12 +208,10 @@ int hyft_softmax_fwd(const void* z, void* out, int in_type, int out_type, int ro
 // softmax VJP of every row at mantissa width mant and a dot-product grid of
 // 2^-bwd_acc.  Returns the cudaError_t of the launch.
 int hyft_softmax_bwd(const void* s, const void* dy, void* dz, int in_type, int out_type,
-                     int rows, int cols, int rows_per_block, int mant, int bwd_acc,
-                     void* stream) {
-  if (rows <= 0 || cols <= 0 || rows_per_block <= 0 || mant < 2 || mant > 20 || bwd_acc < 0 ||
-      bwd_acc > 30)
+                     int rows, int cols, int mant, int bwd_acc, void* stream) {
+  if (rows <= 0 || cols <= 0 || mant < 2 || mant > 20 || bwd_acc < 0 || bwd_acc > 30)
     return cudaErrorInvalidValue;
-  return by_types<Bwd>(in_type, out_type, s, dy, dz, rows, cols, rows_per_block, mant, bwd_acc,
+  return by_types<Bwd>(in_type, out_type, s, dy, dz, rows, cols, mant, bwd_acc,
                        static_cast<cudaStream_t>(stream));
 }
 

@@ -11,9 +11,9 @@ Each wrapper picks by the tensor's device and nothing else: a CPU tensor
 runs the plain version, which is the core's ``hyft_softmax_fwd`` /
 ``hyft_softmax_bwd`` (the oracles that JAX's ``ref.py`` names for these
 kernels); a CUDA tensor launches ``csrc/hyft_softmax.cu`` or raises; any
-other device raises.  The output is in ``cfg.dtype``.  ``block_rows`` is
-the rows one block of threads takes in turn on the card (default 1); it
-changes nothing numerically, and the plain version ignores it.
+other device raises.  The output is in ``cfg.dtype``.  ``block_rows``, the
+TPU kernel's tile of rows in VMEM, is checked and then ignored: the kernel
+gives every row its own block of threads.
 
 When kernel and plain version agree bit for bit.  Both compute the same
 integer and fp32 steps; only the adder trees' sums differ in how they are
@@ -66,23 +66,20 @@ def _check_rows(x: torch.Tensor, name: str):
         raise ValueError(f"{name} needs a last axis of at least 1, got {tuple(x.shape)}")
 
 
-def _rows_per_block(block_rows) -> int:
-    if block_rows is None:
-        return 1
-    if block_rows < 1:
+def _check_block_rows(block_rows):
+    if block_rows is not None and block_rows < 1:
         raise ValueError(f"block_rows={block_rows} must be at least 1")
-    return int(block_rows)
 
 
 def hyft_softmax_fwd_kernel(z: torch.Tensor, cfg: HyftConfig,
                             block_rows: int | None = None) -> torch.Tensor:
     """Hyft softmax over the last axis of ``z`` (..., cols), in ``cfg.dtype``."""
     _check_rows(z, "z")
-    rpb = _rows_per_block(block_rows)
+    _check_block_rows(block_rows)
     if z.device.type == "cpu":
         return hyft_softmax_fwd(z, cfg)
     if z.device.type == "cuda":
-        return _fwd_cuda(z, cfg, rpb)
+        return _fwd_cuda(z, cfg)
     raise ValueError(f"no Hyft softmax kernel for device {z.device}")
 
 
@@ -96,26 +93,26 @@ def hyft_softmax_bwd_kernel(s: torch.Tensor, dy: torch.Tensor, cfg: HyftConfig,
         raise ValueError(f"s {tuple(s.shape)} and dy {tuple(dy.shape)} differ in shape")
     if s.device != dy.device:
         raise ValueError(f"s on {s.device} and dy on {dy.device}")
-    rpb = _rows_per_block(block_rows)
+    _check_block_rows(block_rows)
     if s.device.type == "cpu":
         return hyft_softmax_bwd(s, dy, cfg)
     if s.device.type == "cuda":
-        return _bwd_cuda(s, dy, cfg, rpb)
+        return _bwd_cuda(s, dy, cfg)
     raise ValueError(f"no Hyft softmax kernel for device {s.device}")
 
 
-def _fwd_cuda(z, cfg: HyftConfig, rpb: int):
+def _fwd_cuda(z, cfg: HyftConfig):
     cols = z.shape[-1]
     z = z.contiguous()
     out = torch.empty(z.shape, dtype=cfg.dtype, device=z.device)
     rows = z.numel() // cols
     if rows:
         _launch("hyft_softmax_fwd", z.device, _ptr(z), _ptr(out), _TYPES[z.dtype],
-                _TYPES[cfg.dtype], rows, cols, rpb, *_hyft_args(cfg), counts=LAUNCHES)
+                _TYPES[cfg.dtype], rows, cols, *_hyft_args(cfg), counts=LAUNCHES)
     return out
 
 
-def _bwd_cuda(s, dy, cfg: HyftConfig, rpb: int):
+def _bwd_cuda(s, dy, cfg: HyftConfig):
     if s.dtype != dy.dtype:   # the kernel reads one type; fp32 holds both exactly
         s, dy = s.to(F32), dy.to(F32)
     cols = s.shape[-1]
@@ -124,7 +121,7 @@ def _bwd_cuda(s, dy, cfg: HyftConfig, rpb: int):
     rows = s.numel() // cols
     if rows:
         _launch("hyft_softmax_bwd", s.device, _ptr(s), _ptr(dy), _ptr(dz),
-                _TYPES[s.dtype], _TYPES[cfg.dtype], rows, cols, rpb, cfg.mant_bits,
+                _TYPES[s.dtype], _TYPES[cfg.dtype], rows, cols, cfg.mant_bits,
                 cfg.bwd_acc_bits, counts=LAUNCHES)
     return dz
 

@@ -382,7 +382,8 @@ def test_softmax_kernels_reject_bad_input():
     with pytest.raises(ValueError, match="block_rows"):
         hs.hyft_softmax_bwd_kernel(z, z, HYFT16, block_rows=0)
     with pytest.raises(RuntimeError, match="cudaError"):     # refused by the C entry
-        hs._fwd_cuda(z, HYFT16, 0)
+        fa._launch("hyft_softmax_fwd", z.device, fa._ptr(z), fa._ptr(z), 7, 0, 4, 8,
+                   *fa._hyft_args(HYFT16), counts=hs.LAUNCHES)   # no input type 7
 
 
 def _unfused_model():
