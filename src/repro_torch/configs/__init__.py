@@ -6,7 +6,7 @@ import importlib
 from repro_torch.configs.base import ModelConfig, ServeConfig, TrainConfig  # noqa: F401
 
 # the architectures the port serves so far; the others of the JAX package
-# come with the slices that port their families (ROADMAP queue 1 item 9)
+# come with the slices that port their families (ROADMAP queue 1, the other families)
 ARCHS = {
     "qwen2-1.5b": "qwen2_1_5b",
 }

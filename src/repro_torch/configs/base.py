@@ -114,7 +114,8 @@ class ServeConfig:
     slot-pool scheduler (``repro_torch.serve.scheduler``), with the JAX
     defaults.  The speculative (``spec_mode``, ``draft_k``, ...),
     sequence-parallel and telemetry fields come with the slices that port
-    those layers (ROADMAP queue 1 item 7)."""
+    those layers (ROADMAP queue 1: speculative decoding, obs/, distributed
+    and the mesh)."""
 
     max_len: int = 256
     # KV-cache storage: a dtype name, or "fp2fx8" = int8 FP2FX raws +

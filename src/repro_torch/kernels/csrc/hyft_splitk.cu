@@ -7,7 +7,8 @@
 //                          (pallas_call at :963, contiguous flash_hyft_verify)
 // Both run the templated tile of hyft_splitk_tile.cuh (the port of
 // _decode_tile), with splits of bk keys over a (BH, sk, D) stripe.  The
-// paged twins are in hyft_paged.cu.
+// paged kernels (hyft_paged.cu) compute the same level 1 per page and
+// merge the pages themselves.
 //
 // What bounds it on an H100: decode (Sq = 1, rows = the GQA group) reads the
 // whole K/V cache for a handful of rows and is bound by memory bandwidth
@@ -35,9 +36,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks, const 
   const HyftParams h{frac, total, mant, acc_bits, step};
   if (bk % kKeys != 0 || bk <= 0 || !valid_common(rows, sk, sq, h))
     return cudaErrorInvalidValue;
-  return launch_typed<kPerLane, false, kKeys>(q, k, v, ks, vs, nullptr, mask, acc, m, l,
-                                              kv_type, bh, hkv, rows, sk, bk, d, sq,
-                                              scale, h, static_cast<cudaStream_t>(stream));
+  return launch_typed<kPerLane, kKeys>(q, k, v, ks, vs, mask, acc, m, l, kv_type, bh,
+                                       hkv, rows, sk, bk, d, sq, scale, h,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

@@ -1,26 +1,16 @@
-// The split-K Hyft tile: level 1 of the paper's tree, shared by the
-// contiguous kernels (hyft_splitk.cu) and the paged ones (hyft_paged.cu).
+// The split-K Hyft tile: level 1 of the paper's tree, for the contiguous
+// kernels (hyft_splitk.cu).
 //
 // splitk_tile_kernel is the port of the JAX package's _decode_tile
 // (src/repro/kernels/flash_attention.py:497): per KV split, z = q.k * scale,
 // masked entries set to NEG_BIG, FP2FX, the integer (strided) max, the Booth
 // exponent unit, the fixed-point sum and PV.  It writes the split-local
 // (acc, m_loc, l_loc); the combine across splits (_splitk_combine) stays in
-// torch, as in JAX.
-//
-// The one thing the two layouts do differently is where split j's keys
-// live, so that is a template parameter (kPaged):
-//  * contiguous: K/V (BH, sk, D); key j of head bh at row bh * sk + j;
-//  * paged: a pool (n_pages + 1, Hkv, ps, D) and a block table (B, nb)
-//    read on the device; split j of sequence b is physical page
-//    p = bt[b, j], and its key i sits at row (p * Hkv + h) * ps + i.  A
-//    split is exactly one page (bk == ps), as on the TPU: each split adds
-//    one Hyft rescale, so merging pages into wider splits would compute
-//    another function.
-// Everything else, and so every bit of the result, is shared: with a
-// sequential block table over a contiguous pool the paged kernel is the
-// contiguous one at bk == ps, page placement cannot change a bit, and chunk
-// attention at Sq = 1 is decode.
+// torch, as in JAX.  K/V are (BH, sk, D): key j of head bh at row
+// bh * sk + j.  The paged kernels (hyft_paged.cu) compute the same level 1
+// per page with the same arithmetic and merge the pages themselves; a
+// sequential block table over a contiguous pool gives this tile's stats at
+// bk == page size followed by the torch combine, bit for bit.
 //
 // Arithmetic rules that keep it equal to the JAX reference:
 //  * each score is one fmaf chain over d = 0..D-1 and each PV output one
@@ -54,24 +44,22 @@ constexpr int kThreads = 256;
 constexpr int kRows = 16;   // query rows of one block
 
 // One block: kRows query rows of one (b, kv head) against one split of bk
-// keys, staged KK keys at a time (KK divides bk; a page of 8, 16 or 32 keys
-// is one sub-tile).  Grid (row tiles, splits, B*Hkv).  Shared memory
-// (dynamic):
+// keys, staged KK keys at a time (KK divides bk).  Grid (row tiles, splits,
+// B*Hkv).  Shared memory (dynamic):
 //   sq  [kRows][D]        the query rows
 //   skv [KK][D + 1]       one K or V sub-tile (padded: no bank conflicts)
 //   sz  [kRows][bk]       fixed-point scores, then the probabilities p
 //   sa  [kRows][bk]       the adder-tree addends
-template <typename KV, bool kPerLane, bool kPaged, int KK, int D>
+template <typename KV, bool kPerLane, int KK, int D>
 __global__ void __launch_bounds__(kThreads) splitk_tile_kernel(
     const float* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-    const int* __restrict__ block_table, const float* __restrict__ mask,
-    float* __restrict__ acc_out, int* __restrict__ m_out, float* __restrict__ l_out,
+    const float* __restrict__ mask, float* __restrict__ acc_out, int* __restrict__ m_out,
+    float* __restrict__ l_out,
     int hkv, int rows, int sk, int bk, int sq, float sm_scale, HyftParams h) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
-  // rows per thread in QK: KK threads per row group; a sub-tile of 8 keys
-  // has more threads than (row, key) pairs, and the surplus idles there
-  constexpr int kScoreRows = kRows * KK / kThreads > 0 ? kRows * KK / kThreads : 1;
+  constexpr int kScoreRows = kRows * KK / kThreads;     // rows per thread, QK
+  static_assert(kScoreRows >= 1, "every thread holds a row of the sub-tile");
   constexpr int kPvRows = kRows * D / kThreads;           // rows per thread, PV
   extern __shared__ float smem[];
   float* s_q = smem;
@@ -89,12 +77,7 @@ __global__ void __launch_bounds__(kThreads) splitk_tile_kernel(
   const int bh = blockIdx.z;
   const int b = bh / hkv;
   const int s0 = split * bk;
-  // the K/V row of the split's first key: contiguous stripe, or the page
-  // the block table names (one index load per block)
-  const long kv_row0 =
-      kPaged ? (static_cast<long>(block_table[static_cast<long>(b) * ns + split]) * hkv +
-                bh % hkv) * bk
-             : static_cast<long>(bh) * sk + s0;
+  const long kv_row0 = static_cast<long>(bh) * sk + s0;   // the split's first key
 
   for (int i = tid; i < kRows * D; i += kThreads) {
     const int row = row0 + i / D;
@@ -124,31 +107,29 @@ __global__ void __launch_bounds__(kThreads) splitk_tile_kernel(
     __syncthreads();
     stage(k, k_scale, kt);
     __syncthreads();
-    if (rq0 < kRows) {
-      float dot[kScoreRows];
+    float dot[kScoreRows];
 #pragma unroll
-      for (int rr = 0; rr < kScoreRows; ++rr) dot[rr] = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        const float kd = s_kv[jj * (D + 1) + d];
+    for (int rr = 0; rr < kScoreRows; ++rr) dot[rr] = 0.0f;
+    for (int d = 0; d < D; ++d) {
+      const float kd = s_kv[jj * (D + 1) + d];
 #pragma unroll
-        for (int rr = 0; rr < kScoreRows; ++rr)
-          dot[rr] = fmaf(s_q[(rq0 + rr) * D + d], kd, dot[rr]);
+      for (int rr = 0; rr < kScoreRows; ++rr)
+        dot[rr] = fmaf(s_q[(rq0 + rr) * D + d], kd, dot[rr]);
+    }
+    const int j = s0 + kt + jj;
+#pragma unroll
+    for (int rr = 0; rr < kScoreRows; ++rr) {
+      const int r = rq0 + rr;
+      const int row = row0 + r;
+      float valid = 0.0f;
+      if (j < sk && row < rows) {
+        const long mi = kPerLane
+                            ? (static_cast<long>(b) * sq + row % sq) * sk + j
+                            : static_cast<long>(b) * sk + j;
+        valid = mask[mi];
       }
-      const int j = s0 + kt + jj;
-#pragma unroll
-      for (int rr = 0; rr < kScoreRows; ++rr) {
-        const int r = rq0 + rr;
-        const int row = row0 + r;
-        float valid = 0.0f;
-        if (j < sk && row < rows) {
-          const long mi = kPerLane
-                              ? (static_cast<long>(b) * sq + row % sq) * sk + j
-                              : static_cast<long>(b) * sk + j;
-          valid = mask[mi];
-        }
-        const float z = valid > 0.0f ? dot[rr] * sm_scale : kNegBig;
-        s_zi[r * bk + kt + jj] = fp2fx(z, h.frac, h.total);
-      }
+      const float z = valid > 0.0f ? dot[rr] * sm_scale : kNegBig;
+      s_zi[r * bk + kt + jj] = fp2fx(z, h.frac, h.total);
     }
   }
   __syncthreads();
@@ -211,12 +192,12 @@ __global__ void __launch_bounds__(kThreads) splitk_tile_kernel(
 }
 
 // One launch over every (row tile, split, b * Hkv): ceil(sk / bk) splits.
-template <typename KV, bool kPerLane, bool kPaged, int KK, int D>
+template <typename KV, bool kPerLane, int KK, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
-                   const void* vs, const void* bt, const void* mask, void* acc, void* m,
+                   const void* vs, const void* mask, void* acc, void* m,
                    void* l, int bh, int hkv, int rows, int sk, int bk, int sq, float scale,
                    HyftParams h, cudaStream_t stream) {
-  auto kern = splitk_tile_kernel<KV, kPerLane, kPaged, KK, D>;
+  auto kern = splitk_tile_kernel<KV, kPerLane, KK, D>;
   const size_t smem = sizeof(float) * (kRows * D + KK * (D + 1) + 2 * kRows * bk);
   // raise the dynamic shared memory limit once per instantiation and size
   // (one device per process, as the wrappers use it)
@@ -231,7 +212,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const int*>(bt), static_cast<const float*>(mask),
+      static_cast<const float*>(mask),
       static_cast<float*>(acc), static_cast<int*>(m), static_cast<float*>(l), hkv, rows,
       sk, bk, sq, scale, h);
   return cudaGetLastError();
@@ -239,15 +220,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks,
 
 // The K/V type switch: kv_type 0 f32, 1 bf16, 2 int8 with f32 scales; the
 // head width of the served models only.
-template <bool kPerLane, bool kPaged, int KK>
+template <bool kPerLane, int KK>
 cudaError_t launch_typed(const void* q, const void* k, const void* v, const void* ks,
-                         const void* vs, const void* bt, const void* mask, void* acc,
+                         const void* vs, const void* mask, void* acc,
                          void* m, void* l, int kv_type, int bh, int hkv, int rows, int sk,
                          int bk, int d, int sq, float scale, HyftParams h,
                          cudaStream_t s) {
 #define HYFT_LAUNCH(T)                                                               \
-  launch<T, kPerLane, kPaged, KK, 128>(q, k, v, ks, vs, bt, mask, acc, m, l, bh, hkv, \
-                                       rows, sk, bk, sq, scale, h, s)
+  launch<T, kPerLane, KK, 128>(q, k, v, ks, vs, mask, acc, m, l, bh, hkv, rows, sk, \
+                               bk, sq, scale, h, s)
   if (d == 128) {
     if (kv_type == 0) return HYFT_LAUNCH(float);
     if (kv_type == 1) return HYFT_LAUNCH(__nv_bfloat16);

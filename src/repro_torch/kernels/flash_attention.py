@@ -34,9 +34,12 @@ both by name on the same folded inputs and measure with ``tile_errors``.
 
 The paged entries are the same machine with one page as one split: the
 pool ``(n_pages + 1, Hkv, page_size, D)`` (page 0 the null page) is read
-through a ``(B, nb)`` int32 block table, in ``csrc/hyft_paged.cu`` on the
-card and by ``paged_tiles_plain`` (a gather, then ``splitk_tiles_plain`` at
-``bk = page_size``) on the CPU.
+through a ``(B, nb)`` int32 block table.  On the card both levels run in one
+launch of ``csrc/hyft_paged.cu``, which merges the pages on chip and writes
+only the final output, bit for bit what level 1 at ``bk = page_size`` and
+the torch ``_splitk_combine`` give.  On the CPU the plain version
+``paged_attention_plain`` is exactly that: ``paged_tiles_plain`` (a gather,
+then ``splitk_tiles_plain`` at ``bk = page_size``) and ``_splitk_combine``.
 
 Layouts are the JAX package's: q ``(B, Hq, Sq, D)``, K/V ``(B, Hkv, Sk, D)``
 float or int8 FP2FX raws with fp32 ``(B, Hkv, Sk)`` scales.  The GQA group
@@ -68,7 +71,7 @@ _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _IN_TYPES = {torch.float32: 0, torch.bfloat16: 1}   # the flash kernels' q/k/v
 _KEYS_PER_STAGE = 64   # the CUDA kernel stages K/V in sub-tiles of 64 keys
 _HEAD_DIMS = (128,)  # head widths the CUDA kernel is instantiated for
-# page sizes the paged kernels take: the K/V sub-tile is min(64, page size)
+# page sizes the paged kernels are built for
 _PAGE_SIZES = (8, 16, 32, 64, 128, 256)
 
 
@@ -266,18 +269,28 @@ def _launch(name: str, device, *args, counts: dict | None = None):
     (LAUNCHES if counts is None else counts)[name] += 1
 
 
-def _tiles_for(device: torch.device, paged: bool = False):
-    """The wrapper's one choice: the plain version for a CPU tensor, the
-    kernel for a CUDA tensor."""
+def _tiles_for(device: torch.device):
+    """The contiguous wrappers' one choice: the plain version for a CPU
+    tensor, the kernel for a CUDA tensor."""
     if device.type == "cpu":
-        return paged_tiles_plain if paged else splitk_tiles_plain
+        return splitk_tiles_plain
     if device.type == "cuda":
-        return _paged_tiles_cuda if paged else _splitk_tiles_cuda
+        return _splitk_tiles_cuda
     raise ValueError(f"no split-K attention for device {device}")
 
 
+def _paged_attention_for(device: torch.device):
+    """The paged wrappers' one choice, likewise: both levels in plain
+    PyTorch for a CPU tensor, the one-launch kernel for a CUDA tensor."""
+    if device.type == "cpu":
+        return paged_attention_plain
+    if device.type == "cuda":
+        return _paged_attention_cuda
+    raise ValueError(f"no paged attention for device {device}")
+
+
 # --------------------------------------------------------------------------
-# level 1 over a paged pool: one split per page
+# a paged pool: one split per page, both levels
 # --------------------------------------------------------------------------
 
 
@@ -312,12 +325,24 @@ def paged_tiles_plain(q3, k_pages, v_pages, k_scale, v_scale, block_tables,
         sm_scale=sm_scale, bk=k_pages.shape[2], hkv=hkv, sq=sq)
 
 
-def _paged_tiles_cuda(q3, k_pages, v_pages, k_scale, v_scale, block_tables,
-                      mask, *, cfg: HyftConfig, sm_scale: float, hkv: int,
-                      sq: int | None):
-    """Per-page Hyft stats from the CUDA kernel; same contract as
-    ``paged_tiles_plain``.  The kernel reads each page through the block
-    table on the device."""
+def paged_attention_plain(q3, k_pages, v_pages, k_scale, v_scale, block_tables,
+                          mask, *, cfg: HyftConfig, sm_scale: float, hkv: int,
+                          sq: int | None):
+    """Paged Hyft attention, in plain PyTorch, on any device: the per-page
+    stats of ``paged_tiles_plain`` merged by ``_splitk_combine``.  Same
+    operands as ``paged_tiles_plain``; returns (BH, rows, D) fp32."""
+    return _splitk_combine(*paged_tiles_plain(
+        q3, k_pages, v_pages, k_scale, v_scale, block_tables, mask, cfg=cfg,
+        sm_scale=sm_scale, hkv=hkv, sq=sq), cfg)
+
+
+def _paged_attention_cuda(q3, k_pages, v_pages, k_scale, v_scale, block_tables,
+                          mask, *, cfg: HyftConfig, sm_scale: float, hkv: int,
+                          sq: int | None):
+    """Paged Hyft attention from one launch of the CUDA kernel; same
+    contract as ``paged_attention_plain``.  The kernel reads each page
+    through the block table on the device and merges the pages itself: no
+    per-page stats leave it."""
     name = "hyft_paged_decode" if sq is None else "hyft_paged_verify"
     BH, rows, D = q3.shape
     P, ps = k_pages.shape[0], k_pages.shape[2]
@@ -328,24 +353,25 @@ def _paged_tiles_cuda(q3, k_pages, v_pages, k_scale, v_scale, block_tables,
     _check(ps in _PAGE_SIZES, f"page size {ps} not in {_PAGE_SIZES}")
     _check_operands(q3, k_pages, v_pages, k_scale, v_scale, mask, (P, hkv, ps, D),
                     (B, nb * ps) if sq is None else (B, sq, nb * ps), block_tables)
+    _check(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+           "K/V pools must be 16-byte aligned")
 
-    acc = torch.empty((BH, nb, rows, D), dtype=F32, device=q3.device)
-    m_loc = torch.empty((BH, nb, rows), dtype=I32, device=q3.device)
-    l_loc = torch.empty((BH, nb, rows), dtype=F32, device=q3.device)
+    out = torch.empty((BH, rows, D), dtype=F32, device=q3.device)
     _launch(name, q3.device, _ptr(q3), _ptr(k_pages), _ptr(v_pages),
             _ptr(k_scale), _ptr(v_scale), _ptr(block_tables), _ptr(mask),
-            _ptr(acc), _ptr(m_loc), _ptr(l_loc), _KV_TYPES[k_pages.dtype], BH,
-            hkv, rows, nb, ps, D, sq if sq is not None else 1,
-            ctypes.c_float(sm_scale), *_hyft_args(cfg))
-    return acc, m_loc, l_loc
+            _ptr(out), _KV_TYPES[k_pages.dtype], BH, hkv, rows, nb, ps, D,
+            sq if sq is not None else 1, ctypes.c_float(sm_scale),
+            *_hyft_args(cfg))
+    return out
 
 
 def tile_errors(got, ref, cfg: HyftConfig, v_absmax: float, bk: int) -> dict:
     """Level-1 stats ``got`` against ``ref``, both ``(acc, m_loc, l_loc)``
     for the same inputs (the kernel's and the plain version's), as the
     worst |diff| over its bound: each of ``m_loc``, ``l_loc`` and ``out``
-    must be <= 1.  A kernel that sums its fp32 dot products in another
-    order may differ from the plain version only so:
+    (``out_errors`` of the combined ``got``) must be <= 1.  A kernel that
+    sums its fp32 dot products in another order may differ from the plain
+    version only so:
 
     * a score can round to the neighbouring FP2FX raw, so ``m_loc`` may
       move by one raw;
@@ -360,15 +386,25 @@ def tile_errors(got, ref, cfg: HyftConfig, v_absmax: float, bk: int) -> dict:
     """
     eps = 2.0 ** -cfg.mant_bits
     (_, m_g, l_g), (_, m_r, l_r) = got, ref
-    out_g, out_r = _splitk_combine(*got, cfg), _splitk_combine(*ref, cfg)
-    alpha = hyft_alpha(m_r - m_r.amax(1, keepdim=True), cfg)
-    l_glob = (l_r * alpha).sum(1)[..., None]               # (BH, rows, 1)
-    diff = (out_g - out_r).abs()
     return {"m_loc": float((m_g - m_r).abs().max()),
             "m_loc_mismatches": int((m_g != m_r).sum()),
             "l_loc": float(((l_g - l_r).abs()
                             / (2 * eps * l_r + bk * 2.0 ** -cfg.acc_bits)).max()),
-            "out": float((diff / (2 * eps * (out_r.abs() + v_absmax / l_glob))).max()),
+            **out_errors(_splitk_combine(*got, cfg), ref, cfg, v_absmax)}
+
+
+def out_errors(out, ref, cfg: HyftConfig, v_absmax: float) -> dict:
+    """A final output ``out`` (BH, rows, D) against the plain version's
+    level-1 stats ``ref`` = ``(acc, m_loc, l_loc)`` for the same inputs:
+    the ``out`` term of ``tile_errors`` (<= 1), for a kernel that merges
+    its splits itself and so shows no stats."""
+    eps = 2.0 ** -cfg.mant_bits
+    _, m_r, l_r = ref
+    out_r = _splitk_combine(*ref, cfg)
+    alpha = hyft_alpha(m_r - m_r.amax(1, keepdim=True), cfg)
+    l_glob = (l_r * alpha).sum(1)[..., None]               # (BH, rows, 1)
+    diff = (out - out_r).abs()
+    return {"out": float((diff / (2 * eps * (out_r.abs() + v_absmax / l_glob))).max()),
             "max_abs_err": float(diff.max())}
 
 
@@ -437,11 +473,11 @@ def flash_hyft_decode_paged(q, k_pages, v_pages, block_tables, cfg: HyftConfig,
     maskf = (kv_len_mask.to(F32).contiguous() if kv_len_mask is not None
              else torch.ones((B, nb * ps), dtype=F32, device=q.device))
     q3 = q.reshape(B * Hkv, g, D).to(F32).contiguous()
-    acc, m_loc, l_loc = _tiles_for(q.device, paged=True)(
+    out = _paged_attention_for(q.device)(
         q3, k_pages, v_pages, k_scale, v_scale,
         block_tables.to(I32).contiguous(), maskf, cfg=cfg, sm_scale=scale,
         hkv=Hkv, sq=None)
-    return _splitk_combine(acc, m_loc, l_loc, cfg).reshape(B, Hq, 1, D)
+    return out.reshape(B, Hq, 1, D)
 
 
 def flash_hyft_verify(q, k, v, kv_pos_mask, cfg: HyftConfig,
@@ -456,8 +492,8 @@ def flash_hyft_verify(q, k, v, kv_pos_mask, cfg: HyftConfig,
     per-lane validity over the (virtual) KV axis (the causal frontier
     ``kv_index <= pos + t``).  Returns (B, Hq, Sq, D) fp32.  At Sq == 1
     this is bitwise ``flash_hyft_decode`` (same splits) or
-    ``flash_hyft_decode_paged`` (pages as splits): the tile and the
-    combine are shared, only the mask gained a lane axis.
+    ``flash_hyft_decode_paged`` (pages as splits): the arithmetic is
+    shared, only the mask gained a lane axis.
     """
     B, Hq, Sq, D = q.shape
     Hkv = k.shape[1]
@@ -466,11 +502,11 @@ def flash_hyft_verify(q, k, v, kv_pos_mask, cfg: HyftConfig,
     scale = sm_scale if sm_scale is not None else D ** -0.5
     q3 = q.reshape(B * Hkv, g * Sq, D).to(F32).contiguous()
     if block_tables is not None:          # paged pool: pages as splits
-        acc, m_loc, l_loc = _tiles_for(q.device, paged=True)(
+        out = _paged_attention_for(q.device)(
             q3, k, v, k_scale, v_scale, block_tables.to(I32).contiguous(),
             kv_pos_mask.to(F32).contiguous(), cfg=cfg, sm_scale=scale,
             hkv=Hkv, sq=Sq)
-        return _splitk_combine(acc, m_loc, l_loc, cfg).reshape(B, Hq, Sq, D)
+        return out.reshape(B, Hq, Sq, D)
     Sk = k.shape[2]
     tiles = _tiles_for(q.device)
     acc, m_loc, l_loc = tiles(

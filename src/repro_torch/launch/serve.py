@@ -31,12 +31,13 @@ that port those layers.
 import argparse
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--softmax", default="hyft16")
-    ap.add_argument("--attn-mode", default=None, choices=["unfused", "kernel"],
+    ap.add_argument("--attn-mode", default=None,
+                    choices=["unfused", "chunked", "kernel"],
                     help="attention path; 'kernel' = the split-K CUDA kernels")
     ap.add_argument("--cache-dtype", default="float32",
                     help="KV cache storage: a dtype name or 'fp2fx8' "
@@ -68,10 +69,26 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="max prompt tokens per prefill call (0 = whole "
                          "prompt)")
+    ap.add_argument("--pack-prefill", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="pack every prefilling slot into one chunk call "
+                         "(--no-pack-prefill = one prompt at a time in "
+                         "arrival order)")
+    ap.add_argument("--audit", action="store_true",
+                    help="recompute page-pool and radix-trie refcounts at "
+                         "every admission, finish and preemption; raise on "
+                         "drift")
     ap.add_argument("--max-queue", type=int, default=0,
                     help="bounded admission queue: arrivals past this many "
                          "waiting requests fail with 'queue_full' (0 = "
                          "unbounded)")
+    ap.add_argument("--max-retries", type=int, default=32,
+                    help="per-request requeue budget (preemptions) before a "
+                         "'retries_exhausted' failure")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-request TTL in seconds: a request unfinished "
+                         "at its deadline fails with reason 'deadline' and "
+                         "frees its slot and pages")
     ap.add_argument("--batch", type=int, default=4,
                     help="lockstep batch size / continuous request count")
     ap.add_argument("--prefill", type=int, default=16,
@@ -87,7 +104,11 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     import numpy as np
     import torch
@@ -116,7 +137,8 @@ def main(argv=None):
                        kv_layout=args.kv_layout, page_size=args.page_size,
                        n_pages=args.n_pages, prefix_cache=args.prefix_cache,
                        prefill_chunk=args.prefill_chunk,
-                       max_queue=args.max_queue)
+                       pack_prefill=args.pack_prefill, audit=args.audit,
+                       max_queue=args.max_queue, max_retries=args.max_retries)
 
     if (args.scheduler == "continuous" or args.kv_layout != "dense"
             or args.prefix_cache or args.prefill_chunk > 0):
@@ -127,7 +149,8 @@ def main(argv=None):
             reqs.append(Request(
                 rid=rid, tokens=rng.integers(0, cfg.vocab, plen).astype(np.int32),
                 max_new=int(rng.integers(max(1, args.max_new // 2),
-                                         args.max_new + 1))))
+                                         args.max_new + 1)),
+                deadline=args.deadline))
         eng = SlotPoolEngine(model, params, scfg, generator=gen, device=dev)
         try:
             done = eng.run(reqs)

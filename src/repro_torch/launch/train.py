@@ -16,8 +16,8 @@
 
 Weights are random, made from ``--seed``; batches come from the synthetic
 Markov stream.  One device: ``--data-mesh`` and ``--model-mesh`` take only
-1 (``distributed/`` is ROADMAP queue 1 item 10), and checkpointing
-(``--ckpt-dir``, item 8) raises.
+1 (``distributed/``: ROADMAP queue 1, distributed and the mesh), and
+checkpointing (``--ckpt-dir``: remat='dots' and checkpointing) raises.
 """
 import argparse
 

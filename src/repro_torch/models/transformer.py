@@ -10,7 +10,7 @@ forward runs again in the backward).  The cache is ``{"blocks": {"k",
 "v"[, "k_scale", "v_scale"]}}``, stacked the same way, and updated in
 place; the paged cache holds page pools there and its ``"block_tables"``
 (B, nb) beside them.  The MoE, SSM, hybrid and VLM families come with later slices
-(ROADMAP queue 1 item 9).
+(ROADMAP queue 1, the other families).
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ I32 = torch.int32
 def _check_dense(cfg):
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP queue 1 item 9")
+            f"family {cfg.family!r} is not ported yet: ROADMAP queue 1, the other families")
 
 
 def _layers(tree, n: int) -> list:
@@ -164,7 +164,7 @@ def _remat(fn, policy: str):
     if policy == "dots":
         raise NotImplementedError(
             "remat='dots' (save the matmul outputs) is not ported yet: ROADMAP "
-            "queue 1 item 8")
+            "queue 1, remat='dots' and checkpointing")
     raise ValueError(f"unknown remat policy {policy!r}")
 
 

@@ -29,7 +29,8 @@ latest arrival and requeues it with its tokens folded into the prompt;
 
 Requests end in a definite outcome: finished, cancelled, or a structured
 failure (``invalid``, ``queue_full``, ``deadline``, ``retries_exhausted``).
-Not ported yet (ROADMAP queue 1 item 7): the speculative scheduler, the
+Not ported yet (ROADMAP queue 1, the items "speculative decoding", "the
+quarantine ladder, then chaos" and "obs/"): the speculative scheduler, the
 chaos harness, the numeric quarantine ladder and the ``obs`` layer.  Until
 the ladder comes, non-finite logits in an active slot raise RuntimeError.
 
@@ -190,7 +191,7 @@ class SlotPoolEngine:
         if scfg.scheduler == "spec":
             raise NotImplementedError(
                 "scheduler='spec' (speculative bursts, serve/spec.py) is not "
-                "ported yet: ROADMAP queue 1 item 7")
+                "ported yet: ROADMAP queue 1, speculative decoding")
         if scfg.scheduler not in ("continuous", "lockstep"):
             raise ValueError(f"unknown scheduler {scfg.scheduler!r}")
         if scfg.kv_layout not in ("dense", "paged"):
@@ -436,7 +437,7 @@ class SlotPoolEngine:
         raise RuntimeError(
             f"non-finite logits in slot {s} (request {self.slot_rid[s]}) at "
             f"{where}: the numeric quarantine ladder is not ported yet "
-            f"(ROADMAP queue 1 item 7)")
+            f"(ROADMAP queue 1, the quarantine ladder)")
 
     def _finish_prefill(self, s: int, tok0: int, now: float) -> None:
         """Slot ``s``'s prompt is cached and its first token in hand:

@@ -1,7 +1,7 @@
 """Training loop with straggler monitoring (own copy of ``repro.train.loop``).
 
 Checkpoint/restart (``ckpt_dir``) needs ``checkpoint/``, which is not
-ported yet (ROADMAP queue 1 item 8).
+ported yet (ROADMAP queue 1, remat='dots' and checkpointing).
 """
 from __future__ import annotations
 
@@ -50,7 +50,8 @@ def run_train(state, train_step, batch_fn: Callable[[int], dict],
     """
     if ckpt_dir:
         raise NotImplementedError(
-            "checkpoint/restart is not ported yet: ROADMAP queue 1 item 8")
+            "checkpoint/restart is not ported yet: ROADMAP queue 1, "
+            "remat='dots' and checkpointing")
     history: list = []
     monitor = StragglerMonitor()
     for step in range(tcfg.total_steps):

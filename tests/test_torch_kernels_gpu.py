@@ -131,12 +131,15 @@ def _kv_pool(gen, shape, cache_dtype):
 
 
 def _hold_paged(cfg, q3, k, v, sc, bt, mask, sq, vf):
+    """The one-launch paged kernel's output against its plain version on
+    the same inputs, within the ``out`` bound of ``fa.out_errors``; returns
+    the kernel's output."""
     kw = dict(cfg=cfg, sm_scale=D ** -0.5, hkv=HKV, sq=sq)
     args = (q3, k, v, sc.get("k_scale"), sc.get("v_scale"), bt, mask)
-    got = fa._paged_tiles_cuda(*args, **kw)
-    ref = fa.paged_tiles_plain(*args, **kw)
-    err = fa.tile_errors(got, ref, cfg, float(vf.abs().max()), k.shape[2])
-    assert err["m_loc"] <= 1 and err["l_loc"] <= 1 and err["out"] <= 1, err
+    got = fa._paged_attention_cuda(*args, **kw)
+    err = fa.out_errors(got, fa.paged_tiles_plain(*args, **kw), cfg,
+                        float(vf.abs().max()))
+    assert torch.isfinite(got).all() and err["out"] <= 1, err
     return got
 
 
@@ -147,14 +150,14 @@ def _hold_paged(cfg, q3, k, v, sc, bt, mask, sq, vf):
 @pytest.mark.parametrize("ps", [8, 16, 64, 128])
 def test_paged_decode_kernel_matches_plain(ps, cache_dtype, cfg):
     """Kernel 7 against its plain version, then through the wrapper: the
-    shared combine of its stats, and paged verify at Sq = 1 bitwise."""
+    same launch, and paged verify (kernel 9) at Sq = 1 bitwise."""
     gen = _card()
     k, v, sc, vf, bt, mask, _ = _paged(gen, ps, cache_dtype)
     q = torch.randn(B, HQ, 1, D, generator=gen, device="cuda")
     got = _hold_paged(cfg, q.reshape(B * HKV, HQ // HKV, D), k, v, sc, bt, mask,
                       None, vf)
     out = fa.flash_hyft_decode_paged(q, k, v, bt, cfg, kv_len_mask=mask, **sc)
-    assert torch.equal(out, fa._splitk_combine(*got, cfg).reshape(out.shape))
+    assert torch.equal(out, got.reshape(out.shape))
     one = fa.flash_hyft_verify(q, k, v, mask[:, None], cfg, block_tables=bt, **sc)
     assert torch.equal(one, out)
 
@@ -173,7 +176,10 @@ def test_paged_verify_kernel_matches_plain(ps, Sq, cache_dtype):
     pm = (torch.arange(NB * ps, device="cuda")[None, None]
           <= (start[:, None, None] + torch.arange(Sq, device="cuda")[None, :, None]))
     for cfg in (HYFT16, HYFT32):
-        _hold_paged(cfg, q3, k, v, sc, bt, pm.float().contiguous(), Sq, vf)
+        got = _hold_paged(cfg, q3, k, v, sc, bt, pm.float().contiguous(), Sq, vf)
+        out = fa.flash_hyft_verify(q3.reshape(B, HQ, Sq, D), k, v, pm.float(), cfg,
+                                   block_tables=bt, **sc)
+        assert torch.equal(out, got.reshape(out.shape))
 
 
 @pytest.mark.gpu
@@ -207,6 +213,32 @@ def test_paged_kernel_layout_invariances(cache_dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", ["float32", "fp2fx8"])
+@pytest.mark.parametrize("Sq", [1, 7])
+def test_paged_verify_sequential_pages_bitwise_contiguous(Sq, cache_dtype):
+    """Kernel 9 over a sequential table equals the contiguous chunk kernel
+    (8) at bk = 64 followed by the torch ``_splitk_combine``, bit for bit:
+    the pages are merged on chip in the torch combine's order and ops."""
+    gen = _card()
+    ps, Sk = 64, NB * 64
+    kc, vc, scc, _ = _kv(gen, Sk, cache_dtype)
+    q = torch.randn(B, HQ, Sq, D, generator=gen, device="cuda")
+    start = torch.tensor([Sk - Sq, 70], device="cuda")
+    pm = (torch.arange(Sk, device="cuda")[None, None]
+          <= (start[:, None, None] + torch.arange(Sq, device="cuda")[None, :, None]))
+    pm = pm.float().contiguous()
+
+    def pages(x):   # (B, Hkv, Sk[, D]) -> (B * NB, Hkv, ps[, D]), in order
+        x = x.reshape(B, HKV, NB, ps, *x.shape[3:]).transpose(1, 2)
+        return x.reshape(B * NB, HKV, ps, *x.shape[4:]).contiguous()
+    seq = torch.arange(B * NB, dtype=torch.int32, device="cuda").reshape(B, NB)
+    dense = fa.flash_hyft_verify(q, kc, vc, pm, HYFT16, block_k=64, **scc)
+    paged = fa.flash_hyft_verify(q, pages(kc), pages(vc), pm, HYFT16, block_tables=seq,
+                                 **{n: pages(t) for n, t in scc.items()})
+    assert torch.equal(dense, paged)
+
+
+@pytest.mark.gpu
 def test_paged_kernel_rejects_bad_input():
     gen = _card()
     k, v, sc, _, bt, mask, _ = _paged(gen, 16, "float32")
@@ -215,9 +247,28 @@ def test_paged_kernel_rejects_bad_input():
     k12 = torch.zeros(k.shape[0], HKV, 12, D, device="cuda")   # page size not built
     mask12 = torch.ones(B, NB * 12, device="cuda")
     with pytest.raises(ValueError, match="page size"):
-        fa._paged_tiles_cuda(q3, k12, k12, None, None, bt, mask12, **kw)
+        fa._paged_attention_cuda(q3, k12, k12, None, None, bt, mask12, **kw)
     with pytest.raises(ValueError, match="int32"):
-        fa._paged_tiles_cuda(q3, k, v, None, None, bt.long(), mask, **kw)
+        fa._paged_attention_cuda(q3, k, v, None, None, bt.long(), mask, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, nb", [(17, NB), (6, 8 * 60)],
+                         ids=["group-of-17", "60-pages-per-rank"])
+def test_paged_decode_kernel_refuses_shapes_it_does_not_take(rows, nb):
+    """Kernel 7 computes at most 16 rows, and each cluster rank keeps every
+    page's terms of its 16 output columns in shared memory: a larger GQA
+    group, or 480 pages of 16 per sequence at 6 rows, is refused by the
+    launch."""
+    gen = _card()
+    P = nb + 1
+    k = torch.randn(P, HKV, 16, D, generator=gen, device="cuda")
+    bt = torch.arange(1, B * nb + 1, dtype=torch.int32, device="cuda").reshape(B, nb) % P
+    q3 = torch.randn(B * HKV, rows, D, generator=gen, device="cuda")
+    mask = torch.ones(B, nb * 16, device="cuda")
+    with pytest.raises(RuntimeError, match="hyft_paged_decode failed"):
+        fa._paged_attention_cuda(q3, k, k, None, None, bt.contiguous(), mask,
+                                 cfg=HYFT16, sm_scale=D ** -0.5, hkv=HKV, sq=None)
 
 
 # --------------------------------------------------------------------------

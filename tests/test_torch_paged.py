@@ -310,8 +310,48 @@ def test_paged_model_step_matches_dense_and_placement(attn_mode):
 
 def test_paged_wrapper_dispatches_on_device_only():
     """The plain version for a CPU tensor and nothing else: a CUDA tensor
-    launches the paged kernel, any other device raises."""
-    assert tfa._tiles_for(torch.device("cpu"), paged=True) is tfa.paged_tiles_plain
-    assert tfa._tiles_for(torch.device("cuda"), paged=True) is tfa._paged_tiles_cuda
+    launches the one-launch paged kernel, any other device raises."""
+    assert tfa._paged_attention_for(torch.device("cpu")) is tfa.paged_attention_plain
+    assert tfa._paged_attention_for(torch.device("cuda")) is tfa._paged_attention_cuda
     with pytest.raises(ValueError):
-        tfa._tiles_for(torch.device("meta"), paged=True)
+        tfa._paged_attention_for(torch.device("meta"))
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("Sq", [None, 5], ids=["decode", "verify5"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "fp2fx8"])
+def test_paged_attention_plain_is_tiles_then_combine(quantized, Sq, name):
+    """The plain version of the one-launch kernels is bitwise the per-page
+    stats merged by the torch combine, and JAX's paged decode / paged
+    verify within the stated tolerance, ``2 * 2**-mant * max|v|`` per
+    output.  The share of outputs that differ from JAX at all is not held
+    here: one FP2FX raw that rounds the other way moves a whole row of 16
+    outputs, so on these few rows the share depends on the data (3.1% of
+    the fp2fx8 decode outputs under HYFT16 at this seed)."""
+    cj, ct = CONFIGS[name]
+    ps = 16
+    k, v, sc, bt, lengths = _pool(ps, 10, quantized)
+    n = 1 if Sq is None else Sq
+    q = np.random.default_rng(11).standard_normal((B, HKV * G, n, D)).astype(np.float32)
+    if Sq is None:
+        mask = (np.arange(NB * ps)[None] < lengths[:, None]).astype(np.float32)
+    else:
+        mask = (np.arange(NB * ps)[None, None]
+                <= (lengths - Sq)[:, None, None] + np.arange(Sq)[None, :, None]
+                ).astype(np.float32)
+    (jk, jv, jbt, jsc), (tk, tv, tbt, tsc) = _operands(k, v, sc, bt)
+    q3 = torch.from_numpy(q).reshape(B * HKV, G * n, D)
+    args = (q3, tk, tv, tsc.get("k_scale"), tsc.get("v_scale"), tbt,
+            torch.from_numpy(mask))
+    kw = dict(cfg=ct, sm_scale=D ** -0.5, hkv=HKV, sq=Sq)
+    out = tfa.paged_attention_plain(*args, **kw)
+    assert out.shape == (B * HKV, G * n, D)
+    assert torch.equal(out, tfa._splitk_combine(*tfa.paged_tiles_plain(*args, **kw), ct))
+    if Sq is None:
+        ref = flash_hyft_decode_paged(jnp.asarray(q), jk, jv, jbt, cj, interpret=True,
+                                      kv_len_mask=jnp.asarray(mask), **jsc)
+    else:
+        ref = flash_hyft_verify(jnp.asarray(q), jk, jv, jnp.asarray(mask), cj,
+                                interpret=True, block_tables=jbt, **jsc)
+    np.testing.assert_allclose(out.reshape(q.shape).numpy(), np.asarray(ref), rtol=0,
+                               atol=2.0 * 2.0 ** -ct.mant_bits * _vmax(v, sc))

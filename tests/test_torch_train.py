@@ -299,7 +299,7 @@ def test_train_loop_logs_and_flags_stragglers():
                             log_every=2, log_fn=lambda *_: None)
     assert state == 5 and calls == [0, 1, 2, 3, 4]
     assert [h["step"] for h in hist] == [0, 2, 4]
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="remat='dots' and checkpointing"):
         run_train(0, step, lambda s: s, TrainConfig(total_steps=1), ckpt_dir="ckpt")
 
 
