@@ -15,9 +15,12 @@ script exits non-zero without its last line:
               K/V, HYFT16, HYFT32 and HYFT16 with step 2; chunk attention
               at Sq 1024 over Lk 1057 with the causal per-lane mask; chunk
               attention at Sq 1 bitwise equal to decode.  Kernel and plain
-              version are called by name on the same folded inputs; their
-              level-1 stats and the output of the shared combine must stay
-              within the bounds that ``tile_errors`` states.  Then the flash
+              version are called by name on the same folded inputs; the
+              kernels merge their splits on chip, so their output must stay
+              within the ``out`` bound of ``out_errors`` against the plain
+              per-split stats and the torch combine.  Decode at 131,072 keys
+              (B 1, fp2fx8) through the contiguous and the paged kernel
+              alike, nothing refused.  Then the flash
               forward, dq and dk/dv kernels at the training path's shapes
               (B 4, Hq 12, Hkv 2, S 1024, D 128, causal, bf16 and fp32
               inputs, HYFT16, HYFT32, HYFT16 with step 2) and on small
@@ -35,7 +38,7 @@ script exits non-zero without its last line:
               mode, no kernel) on the same weights;
   6. profile  torch.profiler over generate (the prompt, then the prompt
               and 3 decode steps): wall, device busy time and idle share,
-              launches, the top kernels;
+              launches per prefill and per decode step, the top kernels;
   7. train    qwen2-1.5b at full width (28 layers, random weights from the
               seed) through ``repro_torch.launch.train``'s functions:
               hyft16, attn_mode="kernel", bf16 compute (attention in fp32:
@@ -59,9 +62,9 @@ script exits non-zero without its last line:
               of 256), fp32 / fp2fx8 / bf16 pages of 16 and 64, HYFT16 and
               HYFT32; then, bitwise on the card: paged verify at Sq 1 equals
               paged decode, moving the pages in the pool changes nothing,
-              and over a sequential table of pages of 64 the paged decode
-              and chunk kernels equal the contiguous kernels at bk 64
-              followed by the torch ``_splitk_combine`` (fp32, fp2fx8);
+              and over a sequential table of pages of 64 and of 256 the
+              paged decode and chunk kernels equal the contiguous kernels
+              at bk 64 and 256 (fp32, fp2fx8): both merge on chip;
  10. continuous serve  ``SlotPoolEngine`` serving qwen2-1.5b at full width
               (hyft16, kernel mode, bf16 compute) over a paged pool (pages
               of 16, prefix cache, 8 slots, max_len 2048, prefill chunks of
@@ -120,7 +123,8 @@ script exits non-zero without its last line:
               ``plain_ms``, its plain version's time (CUDA events); and
               ``bound_ms``, the least time the card could take (bytes over
               3.35 TB/s or fp32 FLOPs over 67 TFLOP/s, whichever is larger,
-              FLOPs counted over the keys each row really attends to);
+              each input read and each output written once, FLOPs counted
+              over the keys the mask admits to each row);
               the softmax kernels timed over input buffers that together
               exceed the 50 MB L2;
 
@@ -228,10 +232,12 @@ def _cache_kv(torch, gen, cache_dtype, shape):
 
 
 def check_phase(torch):
-    """Each kernel against its plain version, both called by name on the
-    same folded inputs: the level-1 stats and the output of the shared
-    combine, each within the bound ``fa.tile_errors`` states; then, through
-    the wrappers, chunk attention at Sq = 1 bitwise equal to decode."""
+    """Kernels 6 and 8 against their plain versions, both called by name on
+    the same folded inputs: the kernels merge their splits on chip, so their
+    output is held within the ``out`` bound of ``fa.out_errors`` against the
+    plain per-split stats and the torch combine; then, through the wrappers,
+    chunk attention at Sq = 1 bitwise equal to decode; last, decode at
+    131,072 keys (kernels 6 and 7)."""
     from repro_torch.core.hyft import HYFT16, HYFT32
     from repro_torch.kernels import flash_attention as fa
 
@@ -257,23 +263,58 @@ def check_phase(torch):
         for cfg in (HYFT16, HYFT32, dataclasses.replace(HYFT16, step=2)):
             kw = dict(cfg=cfg, sm_scale=D ** -0.5, bk=bk, hkv=HKV)
             for kind, q3, m, sq in cases:
-                got = fa._splitk_tiles_cuda(q3, *flat, m, **kw, sq=sq)
-                ref = fa.splitk_tiles_plain(q3, *flat, m, **kw, sq=sq)
-                err = fa.tile_errors(got, ref, cfg, float(vf.abs().max()), bk)
+                got = fa._splitk_attention_cuda(q3, *flat, m, **kw, sq=sq)
+                err = fa.out_errors(got, fa.splitk_tiles_plain(q3, *flat, m, **kw, sq=sq),
+                                    cfg, float(vf.abs().max()))
                 emit({"phase": "check", "kernel": kind, "kv": cache_dtype,
                       "cfg": cfg.io_dtype, "step": cfg.step, **err})
-                assert torch.isfinite(got[0]).all(), f"{kind}: non-finite acc"
-                assert err["m_loc"] <= 1 and err["l_loc"] <= 1 and err["out"] <= 1, \
-                    f"{kind} disagrees with its plain version"
+                assert torch.isfinite(got).all(), f"{kind}: non-finite output"
+                assert err["out"] <= 1, f"{kind} disagrees with its plain version"
                 if cfg is HYFT16:     # the main path's config
                     errors[(kind, cache_dtype)] = err["max_abs_err"]
-                del got, ref
+                del got
             out = fa.flash_hyft_decode(q1, k, v, cfg, kv_len_mask=mask, **sc)
             one = fa.flash_hyft_verify(q1, k, v, mask[:, None], cfg, **sc)
             assert torch.equal(one, out), "chunk at Sq=1 is not bitwise decode"
         emit({"phase": "check", "kv": cache_dtype, "sq1_bitwise_decode": True})
         torch.cuda.synchronize()
+    long_decode_check(torch, gen)
     return errors
+
+
+LONG_KEYS = 131072   # qwen2-1.5b's max_seq
+
+
+def long_decode_check(torch, gen):
+    """Decode at LONG_KEYS keys, B 1, fp2fx8, HYFT16: the contiguous kernel
+    (6, splits of 256) and the paged kernel (7, a shuffled table of pages of
+    16) against their plain versions (the ``out`` bound); neither refuses
+    the length (the splits go in rounds when they do not fit one)."""
+    from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import flash_attention as fa
+
+    g, nb = HQ // HKV, LONG_KEYS // PAGE
+    q3 = torch.randn(HKV, g, D, generator=gen, device="cuda")
+    mask = (torch.arange(LONG_KEYS, device="cuda") < LONG_KEYS - 1000).float()[None]
+    kw = dict(cfg=HYFT16, sm_scale=D ** -0.5, hkv=HKV, sq=None)
+    k, v, sc, vf = _cache_kv(torch, gen, "fp2fx8", (HKV, LONG_KEYS, D))
+    args = (q3, k, v, sc["k_scale"], sc["v_scale"], mask)
+    got = fa._splitk_attention_cuda(*args, **kw, bk=256)
+    err6 = fa.out_errors(got, fa.splitk_tiles_plain(*args, **kw, bk=256), HYFT16,
+                         float(vf.abs().max()))
+    del k, v, sc, args, got
+    k, v, sc, vf = _cache_kv(torch, gen, "fp2fx8", (nb + 1, HKV, PAGE, D))
+    bt = (torch.randperm(nb, generator=gen, device="cuda") + 1).int()[None]
+    args = (q3, k, v, sc["k_scale"], sc["v_scale"], bt, mask)
+    got = fa._paged_attention_cuda(*args, **kw)
+    err7 = fa.out_errors(got, fa.paged_tiles_plain(*args, **kw), HYFT16,
+                         float(vf.abs().max()))
+    emit({"phase": "check", "kernel": "decode", "keys": LONG_KEYS, "kv": "fp2fx8",
+          "hyft_splitk_decode": err6, "hyft_paged_decode": err7})
+    assert torch.isfinite(got).all(), "long paged decode: non-finite output"
+    assert err6["out"] <= 1 and err7["out"] <= 1, "long decode disagrees with its plain version"
+    del k, v, sc, args, got
+    torch.cuda.synchronize()
 
 
 # the flash kernels' small masked cases: (name, causal, Sq, Sk, q_offset),
@@ -504,30 +545,33 @@ def paged_check_phase(torch):
             emit({"phase": "paged_check", "kv": cache_dtype, "page_size": ps,
                   "sq1_bitwise_paged_decode": True, "placement_invariant": True})
             torch.cuda.synchronize()
-    nb = SERVE_LEN // 64
-    for cache_dtype in ("float32", "fp2fx8"):
-        kc, vc, scc, _ = _cache_kv(torch, gen, cache_dtype, (SLOTS, HKV, SERVE_LEN, D))
-        q1 = torch.randn(SLOTS, HQ, 1, D, generator=gen, device="cuda")
-        lens = torch.tensor(lengths, device="cuda")
-        mask = (torch.arange(SERVE_LEN, device="cuda")[None] < lens[:, None]).float()
-        qc = torch.randn(SLOTS, HQ, CHUNK, D, generator=gen, device="cuda")
-        chunk_mask = _chunk_mask(torch, lens, CHUNK)
+    for ps in (64, 256):
+        nb = SERVE_LEN // ps
+        for cache_dtype in ("float32", "fp2fx8"):
+            kc, vc, scc, _ = _cache_kv(torch, gen, cache_dtype, (SLOTS, HKV, SERVE_LEN, D))
+            q1 = torch.randn(SLOTS, HQ, 1, D, generator=gen, device="cuda")
+            lens = torch.tensor(lengths, device="cuda")
+            mask = (torch.arange(SERVE_LEN, device="cuda")[None] < lens[:, None]).float()
+            qc = torch.randn(SLOTS, HQ, CHUNK, D, generator=gen, device="cuda")
+            chunk_mask = _chunk_mask(torch, lens, CHUNK)
 
-        def pages(x):   # (B, Hkv, L[, D]) -> (B * nb, Hkv, 64[, D]), in order
-            x = x.reshape(SLOTS, HKV, nb, 64, *x.shape[3:]).transpose(1, 2)
-            return x.reshape(SLOTS * nb, HKV, 64, *x.shape[4:]).contiguous()
-        seq = torch.arange(SLOTS * nb, dtype=torch.int32, device="cuda").reshape(SLOTS, nb)
-        pool = (pages(kc), pages(vc), {n: pages(t) for n, t in scc.items()})
-        dense = fa.flash_hyft_decode(q1, kc, vc, HYFT16, block_k=64, kv_len_mask=mask, **scc)
-        paged = fa.flash_hyft_decode_paged(q1, pool[0], pool[1], seq, HYFT16,
-                                           kv_len_mask=mask, **pool[2])
-        assert torch.equal(dense, paged), "sequential pages != contiguous decode at bk 64"
-        dense = fa.flash_hyft_verify(qc, kc, vc, chunk_mask, HYFT16, block_k=64, **scc)
-        paged = fa.flash_hyft_verify(qc, pool[0], pool[1], chunk_mask, HYFT16,
-                                     block_tables=seq, **pool[2])
-        assert torch.equal(dense, paged), "sequential pages != contiguous chunk at bk 64"
-        emit({"phase": "paged_check", "kv": cache_dtype,
-              "sequential_pages_bitwise_contiguous_bk64": {"decode": True, "verify": True}})
+            def pages(x):   # (B, Hkv, L[, D]) -> (B * nb, Hkv, ps[, D]), in order
+                x = x.reshape(SLOTS, HKV, nb, ps, *x.shape[3:]).transpose(1, 2)
+                return x.reshape(SLOTS * nb, HKV, ps, *x.shape[4:]).contiguous()
+            seq = torch.arange(SLOTS * nb, dtype=torch.int32, device="cuda").reshape(SLOTS, nb)
+            pool = (pages(kc), pages(vc), {n: pages(t) for n, t in scc.items()})
+            dense = fa.flash_hyft_decode(q1, kc, vc, HYFT16, block_k=ps, kv_len_mask=mask,
+                                         **scc)
+            paged = fa.flash_hyft_decode_paged(q1, pool[0], pool[1], seq, HYFT16,
+                                               kv_len_mask=mask, **pool[2])
+            assert torch.equal(dense, paged), f"sequential pages != contiguous decode at bk {ps}"
+            dense = fa.flash_hyft_verify(qc, kc, vc, chunk_mask, HYFT16, block_k=ps, **scc)
+            paged = fa.flash_hyft_verify(qc, pool[0], pool[1], chunk_mask, HYFT16,
+                                         block_tables=seq, **pool[2])
+            assert torch.equal(dense, paged), f"sequential pages != contiguous chunk at bk {ps}"
+            emit({"phase": "paged_check", "kv": cache_dtype, "block_k": ps,
+                  "sequential_pages_bitwise_contiguous": {"decode": True, "verify": True}})
+            del kc, vc, scc, pool
     return errors
 
 
@@ -762,6 +806,8 @@ def profile_phase(torch, params, cfg, softmax="hyft16", attn_mode="kernel"):
     parts["3_decode_steps"] = {k: b[k] - a[k] for k in a}
     for part in parts.values():
         part["device_idle_share"] = 1.0 - part["device_busy_ms"] / part["wall_ms"]
+    parts["launches_per_prefill"] = a["launches"]
+    parts["launches_per_decode_step"] = parts["3_decode_steps"]["launches"] / 3
     emit({"phase": "profile", "softmax": softmax, "attn_mode": attn_mode,
           "cache": "fp2fx8", **parts, "top_kernels": top})
 
@@ -897,16 +943,18 @@ def _event_ms(torch, fn, reps):
 
 
 def kernels_phase(torch, errors, launches):
-    """Time each kernel variant at the main path's shapes against its plain
-    version and its bound.  Decode rotates over 28 K/V buffers (one per
-    layer, 240 MB of fp32) so that, as in a decode step, the cache comes
-    from device memory and not from the 50 MB L2."""
+    """Time kernels 6 and 8 (each one launch, both levels) at the main path's
+    shapes against their plain versions and their bounds.  Decode rotates
+    over 28 K/V buffers (one per layer, 240 MB of fp32) so that, as in a
+    decode step, the cache comes from device memory and not from the 50 MB
+    L2.  The bound counts every input once (q, K/V and their scales, the
+    mask) and the one output, (rows, D) fp32 per (b, kv head); FLOPs over
+    the (row, key) pairs the mask admits."""
     from repro_torch.core.hyft import HYFT16
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     BH, g, bk = B * HKV, HQ // HKV, 256
-    ns = -(-MAX_LEN // bk)
     rows_of = {"decode": g, "verify": g * PROMPT}
     kernels = []
     for kind, sq in (("decode", None), ("verify", PROMPT)):
@@ -923,24 +971,27 @@ def kernels_phase(torch, errors, launches):
                         <= torch.arange(sq, device="cuda")[None, :, None])
                 mask = mask.float().expand(B, sq, MAX_LEN).contiguous()
 
-            def call(tiles):
+            def call(attend):
                 def fn(i):
                     k, v, sc, _ = bufs[i % nbuf]
-                    return tiles(q3, k, v, sc.get("k_scale"), sc.get("v_scale"),
-                                 mask, cfg=HYFT16, sm_scale=D ** -0.5, bk=bk,
-                                 hkv=HKV, sq=sq)
+                    return attend(q3, k, v, sc.get("k_scale"), sc.get("v_scale"),
+                                  mask, cfg=HYFT16, sm_scale=D ** -0.5, bk=bk,
+                                  hkv=HKV, sq=sq)
                 return fn
             reps = 200 if kind == "decode" else 10
-            event_ms = _event_ms(torch, call(fa._splitk_tiles_cuda), reps)
-            fn = call(fa._splitk_tiles_cuda)
-            timing = _kernel_ms(torch, fn, reps, "splitk_tile_kernel", event_ms)
-            plain_ms = _event_ms(torch, call(fa.splitk_tiles_plain),
+            event_ms = _event_ms(torch, call(fa._splitk_attention_cuda), reps)
+            fn = call(fa._splitk_attention_cuda)
+            timing = _kernel_ms(torch, fn, reps, f"{kind}_kernel", event_ms)
+            plain_ms = _event_ms(torch, call(fa.splitk_attention_plain),
                                  50 if kind == "decode" else 3)
             kv_bytes = 1 if cache_dtype == "fp2fx8" else 4
             nbytes = (BH * rows * D * 4 + 2 * BH * MAX_LEN * D * kv_bytes
                       + (2 * BH * MAX_LEN * 4 if cache_dtype == "fp2fx8" else 0)
-                      + mask.numel() * 4 + BH * ns * rows * (D + 2) * 4)
-            flops = 4 * BH * rows * MAX_LEN * D   # QK^T + PV over the real keys
+                      + mask.numel() * 4 + BH * rows * D * 4)
+            # QK^T + PV over the admitted pairs: the mask is shared by the g
+            # query heads of each of the HKV heads (decode: every row its own)
+            pairs = int(mask.sum()) * HKV * g if sq is not None else BH * rows * MAX_LEN
+            flops = 4 * D * pairs
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / FP32_FLOPS_PER_S * 1e3
             entry = "hyft_splitk_decode" if kind == "decode" else "hyft_splitk_verify"
@@ -1005,7 +1056,7 @@ def paged_kernels_phase(torch, errors, launches):
             reps = 200 if sq is None else 10
             event_ms = _event_ms(torch, call(fa._paged_attention_cuda), reps)
             fn = call(fa._paged_attention_cuda)
-            timing = _kernel_ms(torch, fn, reps, f"paged_{kind}_kernel", event_ms)
+            timing = _kernel_ms(torch, fn, reps, f"{kind}_kernel", event_ms)
             plain_ms = _event_ms(torch, call(fa.paged_attention_plain),
                                  20 if sq is None else 3)
             kv_bytes = 1 if cache_dtype == "fp2fx8" else 4

@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's split-K attention of one source tree on the card.
+
+    python3 scripts/torch_splitk_ab.py [--tree DIR] [--label NAME] [--kernels-only]
+
+``--tree`` is the root of a checkout of this repository (default: the one
+holding this script); its ``src/repro_torch`` is imported and its kernels
+are built into its own ``build/``.  To compare two commits on one card,
+unpack the other into a directory that git ignores (``git archive``) and
+run parent, change, change, parent in one call.
+
+Prints one JSON object per line, each naming the card (``nvidia-smi``
+name and power limit):
+
+* ``kernels``: at the main path's shapes (qwen2-1.5b, B 4, Hq 12, Hkv 2,
+  D 128, HYFT16, splits of 256), the contiguous decode (Sk 1057, rotating
+  over 28 caches as a decode step does) and the causal prompt (Sq 1024
+  over 1057 keys), fp32 and fp2fx8; and the paged decode at the
+  continuous-serving shape (8 slots, 128 pages of 16).  Per variant:
+  ``event_ms``, CUDA events per call over many calls (the wrapper's host
+  time included), and ``device_ms``, the device time per call of every
+  kernel the call launched (torch.profiler): on a tree whose contiguous
+  kernels return per-split stats, the call is that kernel followed by the
+  torch ``_splitk_combine``, as its wrappers ran them;
+* ``generate``: greedy ``generate`` of qwen2-1.5b at full width (28
+  layers, random weights from seed 0, hyft16, kernel mode, bf16 compute,
+  fp2fx8 cache, batch 4, prompt 1024) under torch.profiler: the prompt
+  alone, then the prompt and 3 decode steps; wall ms, device busy ms and
+  launches of each, the decode step's as the difference over 3.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+B, HQ, HKV, D = 4, 12, 2, 128
+PROMPT, MAX_LEN = 1024, 1057
+SLOTS, SERVE_LEN, PAGE = 8, 2048, 16
+
+
+def _device_ms(torch, fn, calls):
+    """Device time per call of every kernel ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+             for e in dev)
+    return us / calls / 1e3, sum(e.count for e in dev) / calls
+
+
+def _event_ms(torch, fn, calls):
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(calls):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _kv(torch, gen, fp2fx8, shape):
+    from repro_torch.models.attention import fp2fx8_quantize
+    k = torch.randn(shape, generator=gen, device="cuda")
+    v = torch.randn(shape, generator=gen, device="cuda")
+    if fp2fx8:
+        (kr, ks), (vr, vs) = fp2fx8_quantize(k), fp2fx8_quantize(v)
+        return kr, vr, ks, vs
+    return k, v, None, None
+
+
+def kernels(torch, card):
+    from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import flash_attention as fa
+
+    if hasattr(fa, "_splitk_attention_cuda"):
+        contiguous = fa._splitk_attention_cuda
+    else:   # per-split stats, merged by the torch combine
+        def contiguous(*args, **kw):
+            return fa._splitk_combine(*fa._splitk_tiles_cuda(*args, **kw), kw["cfg"])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    BH, g = B * HKV, HQ // HKV
+    kw = dict(cfg=HYFT16, sm_scale=D ** -0.5, hkv=HKV)
+    for kind in ("decode", "verify"):
+        for dtype in ("float32", "fp2fx8"):
+            nbuf = 28 if kind == "decode" else 1
+            bufs = [_kv(torch, gen, dtype == "fp2fx8", (BH, MAX_LEN, D)) for _ in range(nbuf)]
+            if kind == "decode":
+                q3 = torch.randn(BH, g, D, generator=gen, device="cuda")
+                mask, sq = torch.ones(B, MAX_LEN, device="cuda"), None
+            else:
+                q3 = torch.randn(BH, g * PROMPT, D, generator=gen, device="cuda")
+                mask = (torch.arange(MAX_LEN, device="cuda")[None, None]
+                        <= torch.arange(PROMPT, device="cuda")[None, :, None])
+                mask, sq = mask.float().expand(B, PROMPT, MAX_LEN).contiguous(), PROMPT
+
+            def fn(i):
+                return contiguous(q3, *bufs[i % nbuf], mask, **kw, bk=256, sq=sq)
+            calls = 200 if kind == "decode" else 10
+            ms, launches = _device_ms(torch, fn, calls)
+            emit({"part": "kernels", "card": card, "kernel": f"hyft_splitk_{kind}",
+                  "kv": dtype, "event_ms": _event_ms(torch, fn, calls), "device_ms": ms,
+                  "launches_per_call": launches})
+            del bufs
+    nb = SERVE_LEN // PAGE
+    for dtype in ("float32", "fp2fx8"):
+        pools = []
+        for _ in range(28):
+            k, v, ks, vs = _kv(torch, gen, dtype == "fp2fx8", (SLOTS * nb + 1, HKV, PAGE, D))
+            bt = (torch.randperm(SLOTS * nb, generator=gen, device="cuda") + 1).int()
+            pools.append((k, v, ks, vs, bt.reshape(SLOTS, nb)))
+        q3 = torch.randn(SLOTS * HKV, g, D, generator=gen, device="cuda")
+        mask = torch.ones(SLOTS, SERVE_LEN, device="cuda")
+
+        def fn(i):
+            return fa._paged_attention_cuda(q3, *pools[i % 28], mask, **kw, sq=None)
+        ms, launches = _device_ms(torch, fn, 200)
+        emit({"part": "kernels", "card": card, "kernel": "hyft_paged_decode", "kv": dtype,
+              "event_ms": _event_ms(torch, fn, 200), "device_ms": ms,
+              "launches_per_call": launches})
+        del pools
+
+
+def generate_profile(torch, card):
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import generate
+
+    cfg = get_config("qwen2-1.5b").with_(softmax_impl="hyft16")
+    model = build_model(cfg)
+    params = model.init(0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    scfg = ServeConfig(max_len=MAX_LEN, cache_dtype="fp2fx8", attn_mode="kernel")
+    generate(model, params, {"tokens": tokens}, scfg, max_new=2)   # warm-up
+    parts = {}
+    for name, n in (("prefill", 1), ("prefill+3_decode_steps", 4)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            generate(model, params, {"tokens": tokens}, scfg, max_new=n)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        parts[name] = {"wall_ms": wall * 1e3, "launches": sum(e.count for e in dev),
+                       "device_busy_ms": sum(
+                           getattr(e, "self_device_time_total", 0.0) for e in dev) / 1e3}
+    a, b = parts["prefill"], parts["prefill+3_decode_steps"]
+    step = {k: (b[k] - a[k]) / 3 for k in a}
+    emit({"part": "generate", "card": card, "prefill": a, "decode_step": step,
+          "decode_step_idle_share": 1.0 - step["device_busy_ms"] / step["wall_ms"],
+          "prefill_idle_share": 1.0 - a["device_busy_ms"] / a["wall_ms"]})
+
+
+def emit(obj):
+    obj["label"] = ARGS.label
+    print(json.dumps(obj), flush=True)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_splitk_ab: no CUDA device")
+    sys.path.insert(0, str(ARGS.tree / "src"))
+    import repro_torch
+    assert Path(repro_torch.__file__).resolve().is_relative_to(ARGS.tree), repro_torch.__file__
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    emit({"part": "build", "card": card, "seconds": build.build()["seconds"]})
+    kernels(torch, card)
+    if not ARGS.kernels_only:
+        generate_profile(torch, card)
+
+
+if __name__ == "__main__":
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tree", type=Path, default=Path(__file__).resolve().parents[1])
+    parser.add_argument("--label", default="")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="time the kernels, skip the profiled generate")
+    ARGS = parser.parse_args()
+    ARGS.tree = ARGS.tree.resolve()
+    main()

@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the entry points' argument types, in the order of their C signatures
-_SPLITK_ARGS = [_P] * 9 + [_I] * 8 + [_F] + [_I] * 5 + [_P]
+_SPLITK_ARGS = [_P] * 7 + [_I] * 8 + [_F] + [_I] * 5 + [_P]
 _PAGED_ARGS = [_P] * 8 + [_I] * 8 + [_F] + [_I] * 5 + [_P]
 _HYFT_ARGS = [_I] * 5 + [_P]                  # frac, total, mant, acc, step; stream
 ENTRY_ARGS = {

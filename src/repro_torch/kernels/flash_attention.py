@@ -16,7 +16,7 @@ The PyTorch counterpart of ``repro.kernels.flash_attention``:
 * ``flash_hyft_decode_paged`` replaces ``_paged_decode_kernel`` (``:660``,
   launched from ``:747``).
 
-The flash half is described at its section below.  The split-K half's two
+The flash half is described at its section below.  The split-K half's
 entries are one machine.  The KV axis is cut into splits of
 ``bk = min(block_k, ceil128(Sk))`` keys; per split, level 1 of the paper's
 tree (``_decode_tile``: FP2FX, integer max, exponent unit, fixed-point sum,
@@ -25,21 +25,24 @@ PV) emits local ``(acc, m_loc, l_loc)`` stats, and level 2
 fixed-sum merge, ``hyft_finalize`` divide) merges them.  The split size is
 part of the arithmetic: every split adds one Hyft rescale.
 
-Level 1 runs in the hand-written CUDA kernel ``csrc/hyft_splitk.cu`` for a
-CUDA tensor and in its plain PyTorch version (``splitk_tiles_plain``) for a
-CPU tensor; the wrapper picks by ``q.device.type`` and nothing else.  Level
-2 is plain torch on the device for both, as the JAX package computes it
-outside the ``pallas_call``.  To hold the kernel to its plain version, call
-both by name on the same folded inputs and measure with ``tile_errors``.
+On the card both levels run in one launch of a hand-written CUDA kernel,
+which merges the splits on chip and writes only the final output, bit for
+bit what the per-split stats followed by the torch ``_splitk_combine``
+give: ``csrc/hyft_splitk.cu`` over a contiguous cache
+(``_splitk_attention_cuda``), ``csrc/hyft_paged.cu`` over a paged pool
+(``_paged_attention_cuda``), both instantiating ``csrc/hyft_attend.cuh``.
+On the CPU the plain versions are exactly those two levels:
+``splitk_attention_plain`` (``splitk_tiles_plain``, then
+``_splitk_combine``) and ``paged_attention_plain`` (``paged_tiles_plain``:
+a gather, then ``splitk_tiles_plain`` at ``bk = page_size``; then
+``_splitk_combine``).  The wrappers pick by ``q.device.type`` and nothing
+else.  To hold a kernel to its plain version, call both by name on the same
+folded inputs and measure with ``out_errors``.
 
 The paged entries are the same machine with one page as one split: the
 pool ``(n_pages + 1, Hkv, page_size, D)`` (page 0 the null page) is read
-through a ``(B, nb)`` int32 block table.  On the card both levels run in one
-launch of ``csrc/hyft_paged.cu``, which merges the pages on chip and writes
-only the final output, bit for bit what level 1 at ``bk = page_size`` and
-the torch ``_splitk_combine`` give.  On the CPU the plain version
-``paged_attention_plain`` is exactly that: ``paged_tiles_plain`` (a gather,
-then ``splitk_tiles_plain`` at ``bk = page_size``) and ``_splitk_combine``.
+through a ``(B, nb)`` int32 block table, so that a sequential table over a
+contiguous pool gives the contiguous entries' bits at ``bk = page_size``.
 
 Layouts are the JAX package's: q ``(B, Hq, Sq, D)``, K/V ``(B, Hkv, Sk, D)``
 float or int8 FP2FX raws with fp32 ``(B, Hkv, Sk)`` scales.  The GQA group
@@ -69,9 +72,10 @@ LAUNCHES = {"hyft_splitk_decode": 0, "hyft_splitk_verify": 0,
 
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _IN_TYPES = {torch.float32: 0, torch.bfloat16: 1}   # the flash kernels' q/k/v
-_KEYS_PER_STAGE = 64   # the CUDA kernel stages K/V in sub-tiles of 64 keys
 _HEAD_DIMS = (128,)  # head widths the CUDA kernel is instantiated for
-# page sizes the paged kernels are built for
+# split sizes the contiguous kernels, and page sizes the paged kernels, are
+# built for
+_SPLIT_SIZES = (64, 128, 256)
 _PAGE_SIZES = (8, 16, 32, 64, 128, 256)
 
 
@@ -151,7 +155,7 @@ def _verify_mask_rows(mask, group: int):
 
 
 # --------------------------------------------------------------------------
-# level 1 over all splits: the plain version and the CUDA kernel
+# a contiguous cache: level 1 over all splits, then level 2
 # --------------------------------------------------------------------------
 
 
@@ -188,29 +192,39 @@ def splitk_tiles_plain(q3, k3, v3, k_scale, v_scale, mask, *, cfg: HyftConfig,
     return acc, m_loc[..., 0], l_loc[..., 0]
 
 
-def _splitk_tiles_cuda(q3, k3, v3, k_scale, v_scale, mask, *, cfg: HyftConfig,
-                       sm_scale: float, bk: int, hkv: int, sq: int | None):
-    """Per-split Hyft stats from the CUDA kernel; same contract as
-    ``splitk_tiles_plain``.  The kernel reads the unpadded K/V and masks the
-    ragged last split itself."""
+def splitk_attention_plain(q3, k3, v3, k_scale, v_scale, mask, *, cfg: HyftConfig,
+                           sm_scale: float, bk: int, hkv: int, sq: int | None):
+    """Split-K Hyft attention, in plain PyTorch, on any device: the
+    per-split stats of ``splitk_tiles_plain`` merged by ``_splitk_combine``.
+    Same operands as ``splitk_tiles_plain``; returns (BH, rows, D) fp32."""
+    return _splitk_combine(*splitk_tiles_plain(
+        q3, k3, v3, k_scale, v_scale, mask, cfg=cfg, sm_scale=sm_scale, bk=bk,
+        hkv=hkv, sq=sq), cfg)
+
+
+def _splitk_attention_cuda(q3, k3, v3, k_scale, v_scale, mask, *, cfg: HyftConfig,
+                           sm_scale: float, bk: int, hkv: int, sq: int | None):
+    """Split-K Hyft attention from one launch of the CUDA kernel; same
+    contract as ``splitk_attention_plain``.  The kernel reads the unpadded
+    K/V, masks the ragged last split itself and merges the splits on chip:
+    no per-split stats leave it."""
     name = "hyft_splitk_decode" if sq is None else "hyft_splitk_verify"
     BH, rows, D = q3.shape
     Sk = k3.shape[1]
     B = BH // hkv
+    _check(B * hkv == BH, f"{BH} q3 rows not a multiple of {hkv} heads")
+    _check(bk in _SPLIT_SIZES, f"bk={bk} not in {_SPLIT_SIZES}")
     _check_operands(q3, k3, v3, k_scale, v_scale, mask, (BH, Sk, D),
                     (B, Sk) if sq is None else (B, sq, Sk))
-    _check(bk % _KEYS_PER_STAGE == 0, f"bk={bk} not a multiple of {_KEYS_PER_STAGE}")
+    _check(k3.data_ptr() % 16 == 0 and v3.data_ptr() % 16 == 0,
+           "K/V must be 16-byte aligned")
 
-    ns = -(-Sk // bk)
-    acc = torch.empty((BH, ns, rows, D), dtype=F32, device=q3.device)
-    m_loc = torch.empty((BH, ns, rows), dtype=I32, device=q3.device)
-    l_loc = torch.empty((BH, ns, rows), dtype=F32, device=q3.device)
+    out = torch.empty((BH, rows, D), dtype=F32, device=q3.device)
     _launch(name, q3.device, _ptr(q3), _ptr(k3), _ptr(v3), _ptr(k_scale),
-            _ptr(v_scale), _ptr(mask), _ptr(acc), _ptr(m_loc), _ptr(l_loc),
-            _KV_TYPES[k3.dtype], BH, hkv, rows, Sk, bk, D,
-            sq if sq is not None else 1, ctypes.c_float(sm_scale),
+            _ptr(v_scale), _ptr(mask), _ptr(out), _KV_TYPES[k3.dtype], BH, hkv,
+            rows, Sk, bk, D, sq if sq is not None else 1, ctypes.c_float(sm_scale),
             *_hyft_args(cfg))
-    return acc, m_loc, l_loc
+    return out
 
 
 def _check(ok: bool, msg: str):
@@ -269,13 +283,13 @@ def _launch(name: str, device, *args, counts: dict | None = None):
     (LAUNCHES if counts is None else counts)[name] += 1
 
 
-def _tiles_for(device: torch.device):
-    """The contiguous wrappers' one choice: the plain version for a CPU
-    tensor, the kernel for a CUDA tensor."""
+def _splitk_attention_for(device: torch.device):
+    """The contiguous wrappers' one choice: both levels in plain PyTorch for
+    a CPU tensor, the one-launch kernel for a CUDA tensor."""
     if device.type == "cpu":
-        return splitk_tiles_plain
+        return splitk_attention_plain
     if device.type == "cuda":
-        return _splitk_tiles_cuda
+        return _splitk_attention_cuda
     raise ValueError(f"no split-K attention for device {device}")
 
 
@@ -365,39 +379,23 @@ def _paged_attention_cuda(q3, k_pages, v_pages, k_scale, v_scale, block_tables,
     return out
 
 
-def tile_errors(got, ref, cfg: HyftConfig, v_absmax: float, bk: int) -> dict:
-    """Level-1 stats ``got`` against ``ref``, both ``(acc, m_loc, l_loc)``
-    for the same inputs (the kernel's and the plain version's), as the
-    worst |diff| over its bound: each of ``m_loc``, ``l_loc`` and ``out``
-    (``out_errors`` of the combined ``got``) must be <= 1.  A kernel that
-    sums its fp32 dot products in another order may differ from the plain
-    version only so:
+def out_errors(out, ref, cfg: HyftConfig, v_absmax: float) -> dict:
+    """A kernel's final output ``out`` (BH, rows, D) against the plain
+    version's level-1 stats ``ref`` = ``(acc, m_loc, l_loc)`` for the same
+    inputs, as the worst |diff| over its bound (``out``, which must be <= 1)
+    and the worst |diff| (``max_abs_err``).  A kernel that sums its fp32 dot
+    products in another order may differ from the plain version only so:
 
     * a score can round to the neighbouring FP2FX raw, so ``m_loc`` may
       move by one raw;
     * that moves one key's Hyft exponent by about 2**-mant of itself, or
-      every key's through ``m_loc``, and the addends round to
-      2**-acc_bits: ``|dl| <= 2 * 2**-mant * l + bk * 2**-acc_bits``;
-    * after the shared combine, the output moves by 2**-mant * max|v| *
-      p / l for the key that moved, with l the row's merged fixed-point
-      sum and p <= 1 (exactly 1 at the max; a strided max may leave a key
-      above it, covered up to p = 2), plus 2**-mant of |out| from the
+      every key's through ``m_loc``;
+    * after the combine, the output moves by 2**-mant * max|v| * p / l for
+      the key that moved, with l the row's merged fixed-point sum and
+      p <= 1 (exactly 1 at the max; a strided max may leave a key above
+      it, covered up to p = 2), plus 2**-mant of |out| from the
       log-subtract divide; twice each.
     """
-    eps = 2.0 ** -cfg.mant_bits
-    (_, m_g, l_g), (_, m_r, l_r) = got, ref
-    return {"m_loc": float((m_g - m_r).abs().max()),
-            "m_loc_mismatches": int((m_g != m_r).sum()),
-            "l_loc": float(((l_g - l_r).abs()
-                            / (2 * eps * l_r + bk * 2.0 ** -cfg.acc_bits)).max()),
-            **out_errors(_splitk_combine(*got, cfg), ref, cfg, v_absmax)}
-
-
-def out_errors(out, ref, cfg: HyftConfig, v_absmax: float) -> dict:
-    """A final output ``out`` (BH, rows, D) against the plain version's
-    level-1 stats ``ref`` = ``(acc, m_loc, l_loc)`` for the same inputs:
-    the ``out`` term of ``tile_errors`` (<= 1), for a kernel that merges
-    its splits itself and so shows no stats."""
     eps = 2.0 ** -cfg.mant_bits
     _, m_r, l_r = ref
     out_r = _splitk_combine(*ref, cfg)
@@ -409,7 +407,7 @@ def out_errors(out, ref, cfg: HyftConfig, v_absmax: float) -> dict:
 
 
 # --------------------------------------------------------------------------
-# wrappers: the JAX entry points' folding, then level 1, then level 2
+# wrappers: the JAX entry points' folding, then both levels
 # --------------------------------------------------------------------------
 
 
@@ -437,14 +435,13 @@ def flash_hyft_decode(q, k, v, cfg: HyftConfig, sm_scale: float | None = None,
     maskf = (kv_len_mask.to(F32).contiguous() if kv_len_mask is not None
              else torch.ones((B, Sk), dtype=F32, device=q.device))
     q3 = q.reshape(B * Hkv, g, D).to(F32).contiguous()
-    tiles = _tiles_for(q.device)
-    acc, m_loc, l_loc = tiles(
+    out = _splitk_attention_for(q.device)(
         q3, k.reshape(B * Hkv, Sk, D), v.reshape(B * Hkv, Sk, D),
         None if k_scale is None else k_scale.reshape(B * Hkv, Sk),
         None if v_scale is None else v_scale.reshape(B * Hkv, Sk),
         maskf, cfg=cfg, sm_scale=scale, bk=_block_k(Sk, block_k), hkv=Hkv,
         sq=None)
-    return _splitk_combine(acc, m_loc, l_loc, cfg).reshape(B, Hq, 1, D)
+    return out.reshape(B, Hq, 1, D)
 
 
 def flash_hyft_decode_paged(q, k_pages, v_pages, block_tables, cfg: HyftConfig,
@@ -508,14 +505,13 @@ def flash_hyft_verify(q, k, v, kv_pos_mask, cfg: HyftConfig,
             hkv=Hkv, sq=Sq)
         return out.reshape(B, Hq, Sq, D)
     Sk = k.shape[2]
-    tiles = _tiles_for(q.device)
-    acc, m_loc, l_loc = tiles(
+    out = _splitk_attention_for(q.device)(
         q3, k.reshape(B * Hkv, Sk, D), v.reshape(B * Hkv, Sk, D),
         None if k_scale is None else k_scale.reshape(B * Hkv, Sk),
         None if v_scale is None else v_scale.reshape(B * Hkv, Sk),
         kv_pos_mask.to(F32).contiguous(), cfg=cfg, sm_scale=scale,
         bk=_block_k(Sk, block_k), hkv=Hkv, sq=Sq)
-    return _splitk_combine(acc, m_loc, l_loc, cfg).reshape(B, Hq, Sq, D)
+    return out.reshape(B, Hq, Sq, D)
 
 
 

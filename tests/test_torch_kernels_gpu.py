@@ -37,18 +37,18 @@ def _kv(gen, Sk, cache_dtype):
 
 
 def _hold(cfg, q3, k, v, sc, mask, sq, vf):
-    """The kernel against its plain version on the same folded inputs,
-    within the bounds ``fa.tile_errors`` states; returns the kernel's
-    level-1 stats."""
+    """The one-launch kernel's output against its plain version on the same
+    folded inputs, within the ``out`` bound of ``fa.out_errors``; returns
+    the kernel's output."""
     Sk = k.shape[2]
     bk = fa._block_k(Sk, 256)
-    flat = [t.reshape(B * HKV, Sk, *t.shape[3:]) if t is not None else None
+    flat = [t.reshape(-1, Sk, *t.shape[3:]) if t is not None else None
             for t in (k, v, sc.get("k_scale"), sc.get("v_scale"))]
     kw = dict(cfg=cfg, sm_scale=D ** -0.5, bk=bk, hkv=HKV, sq=sq)
-    got = fa._splitk_tiles_cuda(q3, *flat, mask, **kw)
-    ref = fa.splitk_tiles_plain(q3, *flat, mask, **kw)
-    err = fa.tile_errors(got, ref, cfg, float(vf.abs().max()), bk)
-    assert err["m_loc"] <= 1 and err["l_loc"] <= 1 and err["out"] <= 1, err
+    got = fa._splitk_attention_cuda(q3, *flat, mask, **kw)
+    err = fa.out_errors(got, fa.splitk_tiles_plain(q3, *flat, mask, **kw), cfg,
+                        float(vf.abs().max()))
+    assert torch.isfinite(got).all() and err["out"] <= 1, err
     return got
 
 
@@ -65,7 +65,7 @@ def test_decode_kernel_matches_plain(Sk, cache_dtype, cfg):
             < torch.tensor([Sk, Sk // 3 + 1], device="cuda")[:, None]).float()
     got = _hold(cfg, q.reshape(B * HKV, HQ // HKV, D), k, v, sc, mask, None, vf)
     out = fa.flash_hyft_decode(q, k, v, cfg, kv_len_mask=mask, **sc)
-    assert torch.equal(out, fa._splitk_combine(*got, cfg).reshape(out.shape))
+    assert torch.equal(out, got.reshape(out.shape))
     one = fa.flash_hyft_verify(q, k, v, mask[:, None], cfg, **sc)
     assert torch.equal(one, out)
 
@@ -92,8 +92,13 @@ def test_kernel_rejects_bad_input():
     k3 = torch.zeros(4, 10, 64, device="cuda")
     mask = torch.ones(2, 10, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
-        fa._splitk_tiles_cuda(q3, k3, k3, None, None, mask, cfg=HYFT16,
-                              sm_scale=0.125, bk=128, hkv=2, sq=None)
+        fa._splitk_attention_cuda(q3, k3, k3, None, None, mask, cfg=HYFT16,
+                                  sm_scale=0.125, bk=128, hkv=2, sq=None)
+    q3 = torch.zeros(4, 6, D, device="cuda")
+    k3 = torch.zeros(4, 10, D, device="cuda")
+    with pytest.raises(ValueError, match="bk=512"):            # split size not built
+        fa._splitk_attention_cuda(q3, k3, k3, None, None, mask, cfg=HYFT16,
+                                  sm_scale=0.125, bk=512, hkv=2, sq=None)
 
 
 # --------------------------------------------------------------------------
@@ -215,12 +220,13 @@ def test_paged_kernel_layout_invariances(cache_dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("cache_dtype", ["float32", "fp2fx8"])
 @pytest.mark.parametrize("Sq", [1, 7])
-def test_paged_verify_sequential_pages_bitwise_contiguous(Sq, cache_dtype):
-    """Kernel 9 over a sequential table equals the contiguous chunk kernel
-    (8) at bk = 64 followed by the torch ``_splitk_combine``, bit for bit:
-    the pages are merged on chip in the torch combine's order and ops."""
+@pytest.mark.parametrize("ps", [64, 256])
+def test_paged_verify_sequential_pages_bitwise_contiguous(ps, Sq, cache_dtype):
+    """Over a sequential table of pages of ``ps`` the paged kernels (7 and
+    9) equal the contiguous ones (6 and 8) at bk = ps, bit for bit: both
+    merge the splits on chip in the torch combine's order and ops."""
     gen = _card()
-    ps, Sk = 64, NB * 64
+    Sk = NB * ps
     kc, vc, scc, _ = _kv(gen, Sk, cache_dtype)
     q = torch.randn(B, HQ, Sq, D, generator=gen, device="cuda")
     start = torch.tensor([Sk - Sq, 70], device="cuda")
@@ -232,10 +238,17 @@ def test_paged_verify_sequential_pages_bitwise_contiguous(Sq, cache_dtype):
         x = x.reshape(B, HKV, NB, ps, *x.shape[3:]).transpose(1, 2)
         return x.reshape(B * NB, HKV, ps, *x.shape[4:]).contiguous()
     seq = torch.arange(B * NB, dtype=torch.int32, device="cuda").reshape(B, NB)
-    dense = fa.flash_hyft_verify(q, kc, vc, pm, HYFT16, block_k=64, **scc)
-    paged = fa.flash_hyft_verify(q, pages(kc), pages(vc), pm, HYFT16, block_tables=seq,
-                                 **{n: pages(t) for n, t in scc.items()})
+    pool = (pages(kc), pages(vc), {n: pages(t) for n, t in scc.items()})
+    dense = fa.flash_hyft_verify(q, kc, vc, pm, HYFT16, block_k=ps, **scc)
+    paged = fa.flash_hyft_verify(q, pool[0], pool[1], pm, HYFT16, block_tables=seq,
+                                 **pool[2])
     assert torch.equal(dense, paged)
+    if Sq == 1:
+        mask = pm[:, 0]
+        dense = fa.flash_hyft_decode(q, kc, vc, HYFT16, block_k=ps, kv_len_mask=mask, **scc)
+        paged = fa.flash_hyft_decode_paged(q, pool[0], pool[1], seq, HYFT16,
+                                           kv_len_mask=mask, **pool[2])
+        assert torch.equal(dense, paged)
 
 
 @pytest.mark.gpu
@@ -253,13 +266,11 @@ def test_paged_kernel_rejects_bad_input():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows, nb", [(17, NB), (6, 8 * 60)],
-                         ids=["group-of-17", "60-pages-per-rank"])
+@pytest.mark.parametrize("rows, nb", [(17, NB)], ids=["group-of-17"])
 def test_paged_decode_kernel_refuses_shapes_it_does_not_take(rows, nb):
-    """Kernel 7 computes at most 16 rows, and each cluster rank keeps every
-    page's terms of its 16 output columns in shared memory: a larger GQA
-    group, or 480 pages of 16 per sequence at 6 rows, is refused by the
-    launch."""
+    """Kernel 7 computes at most 16 rows: a larger GQA group is refused by
+    the launch.  Any number of pages is served (``test_decode_kernels_serve_
+    long_sequences``)."""
     gen = _card()
     P = nb + 1
     k = torch.randn(P, HKV, 16, D, generator=gen, device="cuda")
@@ -269,6 +280,33 @@ def test_paged_decode_kernel_refuses_shapes_it_does_not_take(rows, nb):
     with pytest.raises(RuntimeError, match="hyft_paged_decode failed"):
         fa._paged_attention_cuda(q3, k, k, None, None, bt.contiguous(), mask,
                                  cfg=HYFT16, sm_scale=D ** -0.5, hkv=HKV, sq=None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", ["float32", "fp2fx8"])
+@pytest.mark.parametrize("batch, nb", [(B, 480), (1, 8192)], ids=["480-pages", "131072-keys"])
+def test_decode_kernels_serve_long_sequences(batch, nb, cache_dtype):
+    """Kernels 7 (pages of 16) and 6 (splits of 256) at 480 pages of 16 per
+    sequence, and at 8192 pages (131,072 keys, B 1): within the ``out``
+    bound of their plain versions, nothing refused.  Past the shared memory
+    of one round the decode kernels take the splits in rounds."""
+    gen = _card()
+    ps, Sk = 16, nb * 16
+    g = HQ // HKV
+    k, v, sc, vf = _kv_pool(gen, (batch * nb + 1, HKV, ps, D), cache_dtype)
+    bt = (torch.randperm(batch * nb, generator=gen, device="cuda") + 1).int().reshape(batch, nb)
+    lengths = torch.tensor([Sk, Sk - 1000][:batch], device="cuda")
+    mask = (torch.arange(Sk, device="cuda")[None] < lengths[:, None]).float()
+    q3 = torch.randn(batch * HKV, g, D, generator=gen, device="cuda")
+    _hold_paged(HYFT16, q3, k, v, sc, bt, mask, None, vf)
+    kc, vc, scc, vfc = _kv_pool(gen, (batch, HKV, Sk, D), cache_dtype)
+    kw = dict(cfg=HYFT16, sm_scale=D ** -0.5, bk=256, hkv=HKV, sq=None)
+    flat = [t.reshape(batch * HKV, Sk, *t.shape[3:]) if t is not None else None
+            for t in (kc, vc, scc.get("k_scale"), scc.get("v_scale"))]
+    got = fa._splitk_attention_cuda(q3, *flat, mask, **kw)
+    err = fa.out_errors(got, fa.splitk_tiles_plain(q3, *flat, mask, **kw), HYFT16,
+                        float(vfc.abs().max()))
+    assert torch.isfinite(got).all() and err["out"] <= 1, err
 
 
 # --------------------------------------------------------------------------

@@ -133,12 +133,13 @@ def test_strided_max_counts_from_split_start(step):
 
 
 def test_wrapper_dispatches_on_device_only():
-    """The plain version is taken for a CPU tensor and nothing else: a CUDA
-    tensor launches the kernel, any other device raises."""
-    assert tfa._tiles_for(torch.device("cpu")) is tfa.splitk_tiles_plain
-    assert tfa._tiles_for(torch.device("cuda")) is tfa._splitk_tiles_cuda
+    """The plain version (both levels) is taken for a CPU tensor and nothing
+    else: a CUDA tensor launches the one-launch kernel, any other device
+    raises."""
+    assert tfa._splitk_attention_for(torch.device("cpu")) is tfa.splitk_attention_plain
+    assert tfa._splitk_attention_for(torch.device("cuda")) is tfa._splitk_attention_cuda
     with pytest.raises(ValueError):
-        tfa._tiles_for(torch.device("meta"))
+        tfa._splitk_attention_for(torch.device("meta"))
 
 
 def test_paged_verify_is_not_ported():
@@ -157,9 +158,10 @@ def test_paged_verify_is_not_ported():
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_tile_errors_flags_a_percent_error(name):
-    """The bounds that hold the CUDA kernel to its plain version: scores
-    summed in another order stay inside them, a 2% error in ``acc`` or a
-    1% error in ``l_loc`` does not."""
+    """The bound that holds a CUDA kernel's output to its plain version
+    (``out_errors``; the kernels merge their splits on chip and show no
+    per-split stats): scores summed in another order stay inside it, a 2%
+    error in ``acc`` or a 1% error in ``l_loc`` does not."""
     cfg = CONFIGS[name][1]
     q, k, v = (torch.from_numpy(a) for a in _inputs(600, 3))
     q3 = q.reshape(B * HKV, 3, D)
@@ -168,12 +170,59 @@ def test_tile_errors_flags_a_percent_error(name):
     mask = torch.from_numpy(_ragged_mask(600))
     ref = tfa.splitk_tiles_plain(q3, k3, v3, None, None, mask, **kw)
     vmax = float(v.abs().max())
-    assert tfa.tile_errors(ref, ref, cfg, vmax, 256)["out"] == 0
+    assert tfa.out_errors(tfa._splitk_combine(*ref, cfg), ref, cfg, vmax)["out"] == 0
     # one ulp on every query element: the scores round another way
-    got = tfa.splitk_tiles_plain(q3 * (1 + 2 ** -23), k3, v3, None, None, mask, **kw)
-    err = tfa.tile_errors(got, ref, cfg, vmax, 256)
-    assert err["m_loc"] <= 1 and err["l_loc"] <= 1 and err["out"] <= 1, err
+    got = tfa.splitk_attention_plain(q3 * (1 + 2 ** -23), k3, v3, None, None, mask, **kw)
+    assert tfa.out_errors(got, ref, cfg, vmax)["out"] <= 1
     acc, m_loc, l_loc = ref
-    assert tfa.tile_errors((acc * 1.02, m_loc, l_loc), ref, cfg, vmax, 256)["out"] > 1
-    err = tfa.tile_errors((acc, m_loc, l_loc * 1.01), ref, cfg, vmax, 256)
-    assert err["l_loc"] > 1 and err["out"] > 1
+    assert tfa.out_errors(tfa._splitk_combine(acc * 1.02, m_loc, l_loc, cfg),
+                          ref, cfg, vmax)["out"] > 1
+    assert tfa.out_errors(tfa._splitk_combine(acc, m_loc, l_loc * 1.01, cfg),
+                          ref, cfg, vmax)["out"] > 1
+
+
+def test_splitk_attention_plain_is_tiles_then_combine():
+    """The contiguous plain version is level 1 then the torch combine, bit
+    for bit: what the one-launch kernel is held to."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(300, 2, seed=4))
+    q3 = q.reshape(B * HKV, 2, D)
+    k3, v3 = k.reshape(B * HKV, 300, D), v.reshape(B * HKV, 300, D)
+    kw = dict(cfg=thyft.HYFT16, sm_scale=D ** -0.5, bk=128, hkv=HKV, sq=None)
+    mask = torch.from_numpy(_ragged_mask(300))
+    out = tfa.splitk_attention_plain(q3, k3, v3, None, None, mask, **kw)
+    ref = tfa._splitk_combine(*tfa.splitk_tiles_plain(q3, k3, v3, None, None, mask, **kw),
+                              thyft.HYFT16)
+    assert out.shape == (B * HKV, 2, D) and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "fp2fx8"])
+@pytest.mark.parametrize("ps", [64, 128, 256])
+def test_contiguous_is_sequential_pages_bitwise(ps, quantized, kind):
+    """``flash_hyft_decode`` / ``flash_hyft_verify`` at ``block_k = p`` equal
+    the paged wrappers over a sequential table of pages of ``p``, bit for
+    bit: a page is a split, the arithmetic is shared."""
+    nb, g, Sq = 3, 2, (1 if kind == "decode" else 5)
+    Sk = nb * ps
+    q, k, v = _inputs(Sk, g, Sq=Sq, seed=5)
+    _, (tk, tv, tsc) = _kv(k, v, quantized)
+
+    def pages(x):   # (B, Hkv, Sk[, ...]) -> (B * nb, Hkv, ps[, ...]), in order
+        x = x.reshape(B, HKV, nb, ps, *x.shape[3:]).transpose(1, 2)
+        return x.reshape(B * nb, HKV, ps, *x.shape[4:]).contiguous()
+    seq = torch.arange(B * nb, dtype=torch.int32).reshape(B, nb)
+    psc = {n: pages(t) for n, t in tsc.items()}
+    qt = torch.from_numpy(q)
+    if kind == "decode":
+        mask = torch.from_numpy(_ragged_mask(Sk))
+        dense = tfa.flash_hyft_decode(qt, tk, tv, thyft.HYFT16, block_k=ps,
+                                      kv_len_mask=mask, **tsc)
+        paged = tfa.flash_hyft_decode_paged(qt, pages(tk), pages(tv), seq, thyft.HYFT16,
+                                            kv_len_mask=mask, **psc)
+    else:
+        pm = torch.from_numpy(_lane_mask(Sk, Sq))
+        dense = tfa.flash_hyft_verify(qt, tk, tv, pm, thyft.HYFT16, block_k=ps, **tsc)
+        paged = tfa.flash_hyft_verify(qt, pages(tk), pages(tv), pm, thyft.HYFT16,
+                                      block_tables=seq, **psc)
+    assert dense.shape == (B, HKV * g, Sq, D)
+    assert torch.equal(dense, paged)
