@@ -25,8 +25,12 @@ script exits non-zero without its last line:
               (B 4, Hq 12, Hkv 2, S 1024, D 128, causal, bf16 and fp32
               inputs, HYFT16, HYFT32, HYFT16 with step 2) and on small
               masked cases (ragged mask, keys padded to the block, a causal
-              q_offset): the forward's (o, m, l) within ``flash_errors``,
-              the gradients within ``grad_errors``;
+              q_offset, rows that see no valid key): the forward's (o, m, l)
+              within ``flash_errors``, the gradients within
+              ``grad_errors``; at the training shape (HYFT16, HYFT32) the
+              kernels' causal skip against the full walk
+              (``skip_masked=False``): the forward bit for bit, dk/dv
+              within ``grad_errors``, the differing elements counted;
   4. serve    greedy ``generate`` of qwen2-1.5b at full width (28 layers,
               random weights from a seed), hyft16, attn_mode="kernel", bf16
               compute, batch 4, prompt 1024, 32 new tokens, once per KV
@@ -317,22 +321,29 @@ def long_decode_check(torch, gen):
     torch.cuda.synchronize()
 
 
-# the flash kernels' small masked cases: (name, causal, Sq, Sk, q_offset),
-# with a ragged (B, Sk) mask; 200 keys pad to 256 (two blocks of 128)
-FLASH_SMALL = [("masked-padded", False, 72, 200, 0),
-               ("causal-offset-masked", True, 144, 200, 56)]
+# the flash kernels' small masked cases: (name, causal, Sq, Sk, q_offset,
+# mask); 200 keys pad to 256 (two blocks of 128).  "ragged" gives the batch
+# entries lengths Sk, 3 Sk / 4, Sk / 3 and 5; "dead" masks keys 0-99 of
+# entry 1, whose first 100 rows then see no valid key, so that the kernels'
+# causal skip must keep every block for them
+FLASH_SMALL = [("masked-padded", False, 72, 200, 0, "ragged"),
+               ("causal-offset-masked", True, 144, 200, 56, "ragged"),
+               ("causal-dead-rows", True, 256, 256, 0, "dead")]
 
 
-def _flash_case(torch, gen, dtype, Sq, Sk, ragged):
+def _flash_case(torch, gen, dtype, Sq, Sk, mask_kind):
     """Padded 3D operands of ``flash_hyft_attention`` and an fp32 do."""
     from repro_torch.kernels import flash_attention as fa
     q = torch.randn(B, HQ, Sq, D, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, HKV, Sk, D, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, HKV, Sk, D, generator=gen, device="cuda").to(dtype)
     mask = None
-    if ragged:
+    if mask_kind == "ragged":
         valid = torch.tensor([Sk, Sk * 3 // 4, Sk // 3, 5], device="cuda")
         mask = (torch.arange(Sk, device="cuda")[None] < valid[:, None]).float()
+    elif mask_kind == "dead":
+        mask = torch.ones(B, Sk, device="cuda")
+        mask[1, :100] = 0
     q, k, v, maskf, bk = fa.flash_operands(q, k, v, mask)
     q3, k3, v3 = fa._h3(q), fa._h3(k), fa._h3(v)
     do3 = torch.randn(q3.shape, generator=gen, device="cuda")
@@ -343,17 +354,18 @@ def flash_check_phase(torch):
     """The flash forward, dq and dk/dv kernels against their plain versions,
     each pair called by name on the same inputs (the backward pair on the
     plain forward's o, m, l): the forward within ``fa.flash_errors`` (m
-    exact or off by one raw), the gradients within ``fa.grad_errors``."""
+    exact or off by one raw), the gradients within ``fa.grad_errors``.  At
+    the main shape (HYFT16, HYFT32) also the kernels' causal skip against
+    the full walk: the forward bit for bit, dk/dv within ``grad_errors``."""
     from repro_torch.core.hyft import HYFT16, HYFT32
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     errors = {}
-    cases = [("main", True, SEQ, SEQ, 0)] + FLASH_SMALL
+    cases = [("main", True, SEQ, SEQ, 0, None)] + FLASH_SMALL
     for dtype in (torch.bfloat16, torch.float32):
-        for name, causal, Sq, Sk, q_offset in cases:
-            q3, k3, v3, maskf, bk, do3 = _flash_case(torch, gen, dtype, Sq, Sk,
-                                                     ragged=name != "main")
+        for name, causal, Sq, Sk, q_offset, mask_kind in cases:
+            q3, k3, v3, maskf, bk, do3 = _flash_case(torch, gen, dtype, Sq, Sk, mask_kind)
             cfgs = [HYFT16, HYFT32] + ([dataclasses.replace(HYFT16, step=2)]
                                        if name == "main" else [])
             for cfg in cfgs:
@@ -377,6 +389,9 @@ def flash_check_phase(torch):
                     "flash forward disagrees with its plain version"
                 assert max(gerr["dq"], gerr["dk"], gerr["dv"]) <= 1, \
                     "flash backward disagrees with its plain version"
+                if name == "main" and cfg in (HYFT16, HYFT32):
+                    flash_skip_check(torch, fa, (q3, k3, v3, maskf, do3), kw, got,
+                                     dtype, cfg)
                 if name == "main" and cfg is HYFT16 and dtype == torch.float32:
                     errors["hyft_flash_fwd"] = err["max_abs_err"]
                     errors["hyft_flash_bwd_dq"] = gerr["dq_max_abs_err"]
@@ -384,6 +399,27 @@ def flash_check_phase(torch):
                                                        gerr["dv_max_abs_err"])
             torch.cuda.synchronize()
     return errors
+
+
+def flash_skip_check(torch, fa, operands, kw, got, dtype, cfg):
+    """The forward that skips the causally masked work against the one that
+    walks it (``skip_masked=False``), bit for bit; dk/dv likewise within
+    ``grad_errors``, with the count of elements that differ."""
+    q3, k3, v3, maskf, do3 = operands
+    full = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw, skip_masked=False)
+    args = (q3, k3, v3, maskf, do3, fa._flash_delta(do3, got[0]).contiguous(), *got[1:])
+    dq = fa._flash_bwd_dq_cuda(*args, **kw)
+    dkv = fa._flash_bwd_dkv_cuda(*args, **kw)
+    dkv_full = fa._flash_bwd_dkv_cuda(*args, **kw, skip_masked=False)
+    gerr = fa.grad_errors((dq, *dkv), (dq, *dkv_full), cfg)
+    rec = {"phase": "check", "kernel": "flash_skip", "dtype": str(dtype).split(".")[1],
+           "cfg": cfg.io_dtype, "fwd_bitwise": all(map(torch.equal, got, full)),
+           "dk_differing": int((dkv[0] != dkv_full[0]).sum()),
+           "dv_differing": int((dkv[1] != dkv_full[1]).sum()),
+           "dk": gerr["dk"], "dv": gerr["dv"]}
+    emit(rec)
+    assert rec["fwd_bitwise"], "flash forward: skipping the masked work moved a bit"
+    assert max(gerr["dk"], gerr["dv"]) <= 1, "flash dk/dv: the skip moved them too far"
 
 
 def _timed(torch, fn):
@@ -1101,7 +1137,7 @@ def flash_kernels_phase(torch, errors, launches):
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    q3, k3, v3, _, bk, do3 = _flash_case(torch, gen, torch.float32, SEQ, SEQ, False)
+    q3, k3, v3, _, bk, do3 = _flash_case(torch, gen, torch.float32, SEQ, SEQ, None)
     kw = dict(cfg=HYFT16, sm_scale=D ** -0.5, causal=True, bk=bk, group=HQ // HKV,
               q_offset=0)
     o, m, l = fa._flash_fwd_cuda(q3, k3, v3, None, **kw)

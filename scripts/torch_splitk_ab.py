@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's split-K attention of one source tree on the card.
+"""Time the PyTorch port's split-K or flash attention of one source tree on the card.
 
     python3 scripts/torch_splitk_ab.py [--tree DIR] [--label NAME] [--kernels-only]
+    python3 scripts/torch_splitk_ab.py --flash [--tree DIR] [--label NAME] [--save DIR]
+    python3 scripts/torch_splitk_ab.py --compare A.pt B.pt
 
 ``--tree`` is the root of a checkout of this repository (default: the one
 holding this script); its ``src/repro_torch`` is imported and its kernels
@@ -27,10 +29,28 @@ name and power limit):
   fp2fx8 cache, batch 4, prompt 1024) under torch.profiler: the prompt
   alone, then the prompt and 3 decode steps; wall ms, device busy ms and
   launches of each, the decode step's as the difference over 3.
+
+With ``--flash`` it times the training path's flash kernels instead:
+
+* ``flash_kernels``: the forward, dq and dk/dv kernels at the training shape
+  (B 4, Hq 12, Hkv 2, S 1024, D 128, causal, fp32 q/k/v, HYFT16),
+  ``event_ms`` and ``device_ms`` as above;
+* ``flash_bits``: on fixed seeded inputs (fp32 and bf16, HYFT16, the
+  training shape) a sha256 of the bytes of o, m, l, dq, dk and dv, so that
+  two trees can be compared bit for bit, and dk/dv against the plain
+  versions on the kernel's own stats (``grad_errors``); with ``--save`` the
+  tensors go to ``DIR/<label>_<dtype>.pt``, and ``--compare`` counts the
+  elements of two saved files that differ;
+* ``train_step``: qwen2-1.5b at full width through the launcher's functions
+  (hyft16, kernel mode, bf16 compute, remat "full", AdamW, 4 x 1024
+  tokens): one warm-up step, 3 timed steps (wall ms), then one step under
+  torch.profiler: wall, device busy time, and each flash kernel's device
+  time and launches.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -166,6 +186,108 @@ def generate_profile(torch, card):
           "prefill_idle_share": 1.0 - a["device_busy_ms"] / a["wall_ms"]})
 
 
+FLASH_S = 1024
+
+
+def _flash_operands(torch, gen, dtype):
+    q3 = torch.randn(B * HQ, FLASH_S, D, generator=gen, device="cuda").to(dtype)
+    k3 = torch.randn(B * HKV, FLASH_S, D, generator=gen, device="cuda").to(dtype)
+    v3 = torch.randn(B * HKV, FLASH_S, D, generator=gen, device="cuda").to(dtype)
+    do3 = torch.randn(B * HQ, FLASH_S, D, generator=gen, device="cuda")
+    return q3, k3, v3, do3
+
+
+def flash_kernels(torch, card):
+    from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q3, k3, v3, do3 = _flash_operands(torch, gen, torch.float32)
+    kw = dict(cfg=HYFT16, sm_scale=D ** -0.5, causal=True, bk=128, group=HQ // HKV,
+              q_offset=0)
+    o, m, l = fa._flash_fwd_cuda(q3, k3, v3, None, **kw)
+    args = (q3, k3, v3, None, do3, fa._flash_delta(do3, o).contiguous(), m, l)
+    for name, fn in (("hyft_flash_fwd", lambda i: fa._flash_fwd_cuda(q3, k3, v3, None, **kw)),
+                     ("hyft_flash_bwd_dq", lambda i: fa._flash_bwd_dq_cuda(*args, **kw)),
+                     ("hyft_flash_bwd_dkv", lambda i: fa._flash_bwd_dkv_cuda(*args, **kw))):
+        ms, launches = _device_ms(torch, fn, 20)
+        emit({"part": "flash_kernels", "card": card, "kernel": name,
+              "event_ms": _event_ms(torch, fn, 20), "device_ms": ms,
+              "launches_per_call": launches})
+
+
+def flash_bits(torch, card):
+    from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import flash_attention as fa
+
+    kw = dict(cfg=HYFT16, sm_scale=D ** -0.5, causal=True, bk=128, group=HQ // HKV,
+              q_offset=0)
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        q3, k3, v3, do3 = _flash_operands(torch, gen, dtype)
+        o, m, l = fa._flash_fwd_cuda(q3, k3, v3, None, **kw)
+        args = (q3, k3, v3, None, do3, fa._flash_delta(do3, o).contiguous(), m, l)
+        dq = fa._flash_bwd_dq_cuda(*args, **kw)
+        dk, dv = fa._flash_bwd_dkv_cuda(*args, **kw)
+        out = {"o": o, "m": m, "l": l, "dq": dq, "dk": dk, "dv": dv}
+        gerr = fa.grad_errors((dq, dk, dv), (dq, *fa._flash_bwd_dkv_plain(*args, **kw)),
+                              HYFT16)
+        emit({"part": "flash_bits", "card": card, "dtype": str(dtype).split(".")[1],
+              "sha256": {k: hashlib.sha256(t.contiguous().cpu().numpy().tobytes())
+                         .hexdigest()[:16] for k, t in out.items()},
+              "dkv_vs_plain": {k: gerr[k] for k in ("dk", "dv", "dk_max_abs_err",
+                                                      "dv_max_abs_err")}})
+        if ARGS.save:
+            ARGS.save.mkdir(parents=True, exist_ok=True)
+            torch.save({k: t.cpu() for k, t in out.items()},
+                       ARGS.save / f"{ARGS.label.replace('/', '_')}_{dtype}.pt")
+
+
+def train_step(torch, card):
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train as launch
+
+    run = launch.build(launch.parse_args([
+        "--arch", "qwen2-1.5b", "--softmax", "hyft16", "--attn-mode", "kernel",
+        "--global-batch", str(B), "--seq", str(FLASH_S), "--steps", "8",
+        "--remat", "full", "--optimizer", "adamw", "--lr", "1e-3", "--seed", "0"]))
+    state, walls = run["state"], []
+    for i in range(4):
+        batch = run["batch_fn"](i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = run["step"](state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    batch = run["batch_fn"](4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = run["step"](state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
+    emit({"part": "train_step", "card": card, "warmup_ms": walls[0], "step_ms": walls[1:],
+          "profiled_wall_ms": wall * 1e3, "device_busy_ms": sum(map(us, dev)) / 1e3,
+          "launches": sum(e.count for e in dev),
+          "flash": {e.key[:40]: {"device_ms": us(e) / 1e3, "count": e.count}
+                    for e in dev if "flash_" in e.key}})
+
+
+def compare(torch, a, b):
+    """Per tensor of two ``--save`` files: how many elements differ."""
+    ta, tb = torch.load(a), torch.load(b)
+    for k in ta:
+        x, y = ta[k], tb[k]
+        diff = (x.double() - y.double()).abs()
+        print(json.dumps({"part": "compare", "a": str(a), "b": str(b), "tensor": k,
+                          "elements": x.numel(), "differing": int((x != y).sum()),
+                          "max_abs_diff": float(diff.max()),
+                          "max_abs": float(y.double().abs().max())}), flush=True)
+
+
 def emit(obj):
     obj["label"] = ARGS.label
     print(json.dumps(obj), flush=True)
@@ -173,6 +295,9 @@ def emit(obj):
 
 def main():
     import torch
+    if ARGS.compare:
+        compare(torch, *ARGS.compare)
+        return
     if not torch.cuda.is_available():
         raise SystemExit("torch_splitk_ab: no CUDA device")
     sys.path.insert(0, str(ARGS.tree / "src"))
@@ -185,6 +310,12 @@ def main():
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     emit({"part": "build", "card": card, "seconds": build.build()["seconds"]})
+    if ARGS.flash:
+        flash_kernels(torch, card)
+        flash_bits(torch, card)
+        if not ARGS.kernels_only:
+            train_step(torch, card)
+        return
     kernels(torch, card)
     if not ARGS.kernels_only:
         generate_profile(torch, card)
@@ -195,7 +326,13 @@ if __name__ == "__main__":
     parser.add_argument("--tree", type=Path, default=Path(__file__).resolve().parents[1])
     parser.add_argument("--label", default="")
     parser.add_argument("--kernels-only", action="store_true",
-                        help="time the kernels, skip the profiled generate")
+                        help="time the kernels, skip the profiled generate or train step")
+    parser.add_argument("--flash", action="store_true",
+                        help="the training path's flash kernels instead of split-K")
+    parser.add_argument("--save", type=Path, default=None,
+                        help="with --flash: save the hashed tensors under this directory")
+    parser.add_argument("--compare", type=Path, nargs=2, default=None,
+                        help="count the differing elements of two --save files")
     ARGS = parser.parse_args()
     ARGS.tree = ARGS.tree.resolve()
     main()

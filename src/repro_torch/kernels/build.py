@@ -37,9 +37,9 @@ ENTRY_ARGS = {
     "hyft_splitk_verify": _SPLITK_ARGS,
     "hyft_paged_decode": _PAGED_ARGS,
     "hyft_paged_verify": _PAGED_ARGS,
-    "hyft_flash_fwd": [_P] * 7 + [_I] * 10 + [_F] + _HYFT_ARGS,
+    "hyft_flash_fwd": [_P] * 7 + [_I] * 11 + [_F] + _HYFT_ARGS,
     "hyft_flash_bwd_dq": [_P] * 9 + [_I] * 9 + [_F] + _HYFT_ARGS,
-    "hyft_flash_bwd_dkv": [_P] * 10 + [_I] * 9 + [_F] + _HYFT_ARGS,
+    "hyft_flash_bwd_dkv": [_P] * 10 + [_I] * 10 + [_F] + _HYFT_ARGS,
     "hyft_softmax_fwd": [_P] * 2 + [_I] * 4 + _HYFT_ARGS,
     "hyft_softmax_bwd": [_P] * 3 + [_I] * 6 + [_P],
 }

@@ -86,6 +86,7 @@
 #include <type_traits>
 
 #include "hyft_numerics.cuh"
+#include "hyft_smem.cuh"
 
 namespace hyft_attend {
 namespace {  // internal linkage: each source that includes this has its own
@@ -100,6 +101,12 @@ using hyft::hyft_alpha;
 using hyft::hyft_finalize;
 using hyft::kNegBig;
 using HyftParams = hyft::Params;
+using hyft::cp_async16;
+using hyft::cp_async4;
+using hyft::cp_async_commit;
+using hyft::cp_async_wait;
+using hyft::fma4;
+using hyft::ld4;
 
 constexpr int kD = 128;            // head width
 constexpr int kThreads = 256;
@@ -217,18 +224,6 @@ __device__ __forceinline__ float page_probs(int* z, int pitch, int m_loc, const 
     }
   }
   return l_loc;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// dot = fmaf(a[d], b[d], dot) for d = 0..3 of one float4 pair, in order
-__device__ __forceinline__ float fma4(float4 a, float4 b, float dot) {
-  dot = fmaf(a.x, b.x, dot);
-  dot = fmaf(a.y, b.y, dot);
-  dot = fmaf(a.z, b.z, dot);
-  return fmaf(a.w, b.w, dot);
 }
 
 // ------------------------------------------------------------------------
@@ -512,25 +507,6 @@ __global__ void __launch_bounds__(kThreads, PS > 128 ? 1 : 2) verify_kernel(
 // ------------------------------------------------------------------------
 // decode: Sq = 1, rows = the GQA group, a cluster per (b, kv head)
 // ------------------------------------------------------------------------
-
-// 16-byte asynchronous copy, global -> shared; src_size 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // A K or V tile of kTile keys as stored (raw, before dequantization) in a
 // ring of kStages shared-memory slots: rows padded by 16 bytes, so that 8

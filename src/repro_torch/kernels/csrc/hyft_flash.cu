@@ -24,21 +24,62 @@
 // the kernels, as in JAX.  dq sums over all keys; dk/dv sum over every
 // member of the GQA group and every query row.
 //
-// What bounds it on an H100: fp32 FMAs.  qwen2-1.5b at B 4, S 1024 (causal):
-// 12.9 / 19.3 / 25.8 GFLOP over the unmasked half for forward / dq / dk-dv,
-// against a few tens of MB of operands.  This first version is plain: one
-// block per (16 query rows, head) or (16 keys, kv head), operands staged
-// through shared memory in 64-row sub-tiles and converted to fp32 on load
-// (fp32 or bf16 inputs, no cast copies), every dot product one fmaf chain
-// in a fixed order, no tensor cores and no TF32.  Fully masked blocks are
-// computed as the TPU computes them (under HYFT16 a masked key keeps a
-// probability of about 2^-105).  wgmma, TMA, pipelining and skipping masked
-// blocks are later work; skipping must first be shown to give the same bits.
+// What bounds them on an H100: fp32 FMAs (qwen2-1.5b at B 4, S 1024,
+// causal: 12.9 / 19.3 / 25.8 GFLOP over the attended half for forward / dq
+// / dk-dv, against a few tens of MB of operands), and, before the FMAs,
+// shared-memory loads: an SM moves 32 words of shared memory a clock
+// against 128 FMA lanes.  No tensor cores and no TF32: every score q.k (and
+// do.v) is one fmaf chain over d = 0..D-1 in order, then __fmul_rn(dot,
+// scale), in all three kernels, so that the backward recomputes the
+// forward's score bits.
+//
+// The forward and dk/dv kernels are register-tiled: a thread holds a few
+// rows x a few keys of scores (and rows x columns or keys x columns of
+// sums) and reads its operands from shared memory as float4, each output's
+// chain kept in its order.  The forward takes 64 query rows per block, two
+// blocks per SM: 4 rows x 8 keys of scores and 4 rows x 8 columns of PV a
+// thread (32 FMAs per 3 float4 loads).  K is staged in slices of 32 d and V
+// in slices of 32 keys through a two-slot cp.async ring, the next slice
+// loading during the math.  Its exponent units run over all threads, and
+// the block sum lb is an integer count of 2^-acc reduced by warp shuffles:
+// equal to the ordered fp32 sum while the count stays below 2^24 (every
+// partial sum exact; always under HYFT16, whose block of 128 keys counts at
+// most 2^21), else the ordered sum.  dk/dv takes 32 keys per block (K, V in
+// shared memory), one block per SM, and walks the query rows of every group
+// member in order, in sub-tiles of 64 through the ring; half the threads
+// run the q.k chains, the other half the do.v chains (4 rows x 4 keys a
+// thread), then the first half sums dv and the second dk (4 keys x 8
+// columns).  One fixed-order chain per output over (group member, row), the
+// parent design's order; the longest causal key tiles first.  On an H100
+// at the training shape both run at about 37% of the fp32 peak; 128-row
+// forward tiles of 8 x 8 (one block per SM) and dk/dv sub-tiles of 32 rows
+// (two blocks per SM) measured slower (PERF.md).
+//
+// The causally masked work.  A masked score saturates to FX's lowest raw
+// lo = -(2^(total-1)) whatever q.k, so in a row whose max is m score units
+// every masked key has the same term, about e^-(32 + m) under HYFT16
+// (1.4e-14 at m = 0; never 0, as FP2FX saturates at -32) and e^-(128 + m)
+// under HYFT32, which flushes to exactly 0 for m above about -51.  A row
+// that sees no valid key keeps m at lo and weighs every key 1.
+//  * The forward computes no score of a KV block that lies wholly past the
+//    tile's last query position: m stays, alpha is 1, and every key takes
+//    its row's masked probability, so only the PV chain over V runs, in
+//    the same order; the result is the full computation's, bit for bit,
+//    for any m.  Where that probability is 0 for every row of the tile
+//    (HYFT32), the blocks are dropped altogether, also bit for bit.
+//  * dk/dv skips each row sub-tile that lies wholly before its key tile
+//    while every row in it has a masked term whose adder-tree count is 0
+//    (m above about -22 under HYFT16), so that each skipped term is below
+//    2^-acc of the row's largest.  Those terms come
+//    first in each dk/dv chain, so dk/dv may differ from the full
+//    computation in the last bits; they are held to grad_errors.
 //
 // Arithmetic rules that keep it equal to the reference:
 //  * each score q.k (and each do.v) is one fmaf chain over d = 0..D-1, the
 //    same in all three kernels, so the forward and both backward kernels see
 //    the same score bits, and a row's result does not depend on its tile;
+//  * each PV output is one fmaf chain over the block's keys in order from
+//    0, then acc = acc * alpha + pv;
 //  * masking (causal: q_offset + row >= key; the (B, Sk) mask > 0) happens
 //    on the float score before FP2FX, with NEG_BIG for both;
 //  * the Hyft arithmetic is hyft_numerics.cuh's, shared with hyft_splitk.cu.
@@ -49,15 +90,17 @@
 #include <climits>
 
 #include "hyft_numerics.cuh"
+#include "hyft_smem.cuh"
 
 namespace {
 
 using namespace hyft;
 
 constexpr int kThreads = 256;
-constexpr int kRows = 16;  // query rows (forward, dq) or keys (dk/dv) of a block
-constexpr int kSub = 64;   // rows of one staged sub-tile of the other operand
+constexpr int kRows = 16;  // dq: query rows of a block
+constexpr int kSub = 64;   // dq: rows of one staged sub-tile of K and V
 constexpr int kScoreRows = kRows / (kThreads / kSub);  // 4 per thread
+constexpr int kStages = 2;  // slots of the cp.async ring (forward, dk/dv)
 
 // the masked, scaled score -- the where()s of _flash_fwd_kernel (:117-122)
 __device__ __forceinline__ float masked_score(float dot, float scale, int qi, int ki,
@@ -76,154 +119,335 @@ __device__ __forceinline__ float recompute_prob(float z, int m, int e_b, int m_b
   return log_div(e, mm, e_b, m_b, h.mant);
 }
 
+// A masked score saturates to FX's lowest raw lo = -(2^(total-1)), whatever
+// q.k: in a row of max m its key's Hyft exponent is that of lo - m.  Its
+// probability p (the forward's assemble) and adder-tree count.
+__device__ __forceinline__ void masked_term(int m, const Params& h, float& p, int& count) {
+  int e, mm;
+  exp_unit(-(1 << (h.total - 1)) - m, h.frac, h.mant, e, mm);
+  p = assemble(e, mm, h.mant);
+  count = expfloat_to_fx_raw(e, mm, h.mant, h.acc);
+}
+
+// rows [0, rows) of kCols elements from base + first + r * ld into a shared
+// tile of pitch kPitch, by cp.async; rows at or past nvalid become zeros
+template <typename T, int kCols, int kPitch>
+__device__ __forceinline__ void fetch_rows(T* dst, const T* __restrict__ base, long first,
+                                           int ld, int rows, int nvalid) {
+  constexpr int kPer = 16 / sizeof(T), kChunks = kCols / kPer;
+  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * kPer;
+    const bool ok = r < nvalid;
+    cp_async16(dst + r * kPitch + c, base + (ok ? first + static_cast<long>(r) * ld + c : 0),
+               ok);
+  }
+}
+
+// four consecutive elements of a global tensor as fp32
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p, long i) {
+  return make_float4(load_f32(p, i), load_f32(p, i + 1), load_f32(p, i + 2),
+                     load_f32(p, i + 3));
+}
+
+__device__ __forceinline__ float f4(const float4& a, int c) {
+  return c == 0 ? a.x : c == 1 ? a.y : c == 2 ? a.z : a.w;
+}
+
 // --------------------------------------------------------------------------
-// forward.  Grid (ceil(sq / kRows), BH).  Shared memory (dynamic):
-//   s_q  [kRows][D]       the query rows
-//   s_kv [kSub][D + 1]    one K or V sub-tile (padded: no bank conflicts)
-//   s_p  [kRows][bk]      fixed-point scores, then the probabilities p
-//   s_a  [kRows][bk]      the adder-tree addends
+// forward.  Grid (BH, ceil(sq / 64)), the tiles of the last rows first (the
+// longest under the causal mask).  Thread (ty, tx) = (tid / 16, tid % 16)
+// holds rows 4ty..4ty+3: their scores against keys tx + 16u (u < 8) of a
+// block, their PV outputs of columns 4tx..4tx+3 and 64+4tx..64+4tx+3, and
+// (all 16 threads of a row group alike) their m, l and alpha.  The ring
+// streams each KV block as 8 items: K in 4 slices of 32 d (all 128 keys),
+// then V in 4 slices of 32 keys; a block past the causal frontier as its 4
+// V items only.  Shared memory (dynamic):
+//   s_q    [64][D + 4]              the query rows, fp32
+//   ring   kStages x max(K slice [128][32 + pad], V slice [32][D + pad]), T
+//   s_p    [128][64 + 4]            the block's probabilities, key-major
 // --------------------------------------------------------------------------
+constexpr int kR = 4;              // rows of a thread (two blocks per SM)
+constexpr int kFwdRows = 16 * kR;  // query rows of a block
+constexpr int kKeys = 128;         // the largest KV block
+constexpr int kSlice = 32;         // d of a K slice, keys of a V slice
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+struct FwdSmem {
+  static constexpr int kQP = D + 4;                    // s_q pitch (fp32)
+  static constexpr int kKP = kSlice + 16 / sizeof(T);  // K slice pitch (T)
+  static constexpr int kVP = D + 16 / sizeof(T);       // V slice pitch (T)
+  static constexpr int kPP = kFwdRows + 4;             // s_p pitch (fp32)
+  static constexpr int kKBytes = kKeys * kKP * sizeof(T);
+  static constexpr int kVBytes = kSlice * kVP * sizeof(T);
+  static constexpr int kSlot = kKBytes > kVBytes ? kKBytes : kVBytes;
+  static constexpr int kQBytes = kFwdRows * kQP * 4;
+  static constexpr size_t kBytes = kQBytes + kStages * kSlot + kKeys * kPP * 4;
+};
+
+// pv[r][c] = fmaf(p[j][kR ty + r], v[j][c], pv[r][c]) over keys j0 .. j0 + nj -
+// 1 of s_p in order, columns 4tx.. and 64 + 4tx..; vs holds V rows j0 ..;
+// kMasked: every key has its row's probability of key 0
+template <bool kMasked, int kVP, int kPP, typename T>
+__device__ __forceinline__ void pv_keys(float (&pv)[kR][8], const T* vs, const float* s_p,
+                                        int j0, int nj, int tx, int ty) {
+  float4 p_row[kR / 4];
+#pragma unroll
+  for (int g = 0; g < kR / 4; ++g) p_row[g] = ld4(s_p + kR * ty + 4 * g);
+#pragma unroll 4
+  for (int j = 0; j < nj; ++j) {
+    float4 p4[kR / 4];
+#pragma unroll
+    for (int g = 0; g < kR / 4; ++g)
+      p4[g] = kMasked ? p_row[g] : ld4(s_p + (j0 + j) * kPP + kR * ty + 4 * g);
+    const float4 va = ld4(vs + j * kVP + 4 * tx);
+    const float4 vb = ld4(vs + j * kVP + 64 + 4 * tx);
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const float p = f4(p4[r / 4], r % 4);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        pv[r][c] = fmaf(p, f4(va, c), pv[r][c]);
+        pv[r][4 + c] = fmaf(p, f4(vb, c), pv[r][4 + c]);
+      }
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ mask, float* __restrict__ o, int* __restrict__ m_out,
     float* __restrict__ l_out, int sq, int sk, int bk, int group, int hq_per_b,
-    int q_offset, int causal, float scale, Params h) {
-  constexpr int kPvRows = kRows * D / kThreads;  // 8 rows per thread in PV
-  extern __shared__ float smem[];
-  float* s_q = smem;
-  float* s_kv = s_q + kRows * D;
-  float* s_p = s_kv + kSub * (D + 1);
-  int* s_zi = reinterpret_cast<int*>(s_p);
-  float* s_a = s_p + kRows * bk;
-  __shared__ int s_m[kRows];
-  __shared__ float s_l[kRows];
-  __shared__ float s_alpha[kRows];
+    int q_offset, int causal, int skip, float scale, Params h) {
+  static_assert(D == 128, "the thread layout covers 128 columns");
+  using S = FwdSmem<T, D>;
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  float* s_q = reinterpret_cast<float*>(fwd_smem);
+  unsigned char* ring = fwd_smem + S::kQBytes;
+  float* s_p = reinterpret_cast<float*>(ring + kStages * S::kSlot);
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
-  const int bh = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int tx = tid % 16, ty = tid / 16;
+  const int bh = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kFwdRows;
+  const int nvalid = min(kFwdRows, sq - row0);
   const long kv0 = static_cast<long>(bh / group) * sk;
   const float* mrow = mask ? mask + static_cast<long>(bh / hq_per_b) * sk : nullptr;
+  const int last_pos = q_offset + row0 + nvalid - 1;  // the tile's causal frontier
+  // KV blocks from kb_live on lie wholly past the frontier: every score in
+  // them is masked, whatever q.k, so they need no K and no scores (V items
+  // only); kb_end drops them altogether where their probability is 0
+  const int nkb = sk / bk;
+  const int kb_live = causal && skip ? min(nkb, last_pos / bk + 1) : nkb;
+  int kb_end = nkb;
 
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int row = row0 + i / D;
-    s_q[i] = row < sq ? load_f32(q, (static_cast<long>(bh) * sq + row) * D + i % D) : 0.0f;
-  }
-  if (tid < kRows) {
-    s_m[tid] = -(1 << (h.total - 1));  // the running max starts at fx lo (:109)
-    s_l[tid] = 0.0f;
-  }
-
-  auto stage = [&](const T* src, int j0, int nkeys) {
-    for (int i = tid; i < kSub * D; i += kThreads) {
-      const int jl = i / D, d = i % D;
-      s_kv[jl * (D + 1) + d] = jl < nkeys ? load_f32(src, (kv0 + j0 + jl) * D + d) : 0.0f;
+  // item t of the stream: a live block's 4 K slices of d, then its 4 V slices
+  // of keys; a masked block's 4 V slices
+  auto first_item = [&](int kb) {
+    return kb < kb_live ? 8 * kb : 8 * kb_live + 4 * (kb - kb_live);
+  };
+  auto issue = [&](int t) {
+    T* dst = reinterpret_cast<T*>(ring + (t % kStages) * S::kSlot);
+    int kb = t / 8, i = t % 8;
+    if (kb >= kb_live) {
+      kb = kb_live + (t - 8 * kb_live) / 4;
+      i = 4 + (t - 8 * kb_live) % 4;
     }
+    const long key0 = kv0 + static_cast<long>(kb) * bk;
+    if (i < 4)
+      fetch_rows<T, kSlice, S::kKP>(dst, k, key0 * D + i * kSlice, D, kKeys, bk);
+    else
+      fetch_rows<T, D, S::kVP>(dst, v, (key0 + (i - 4) * kSlice) * D, D, kSlice,
+                               bk - (i - 4) * kSlice);
+    cp_async_commit();
+  };
+  // wait for item t (the next one in flight) and return its slot
+  auto begin = [&](int t) -> const T* {
+    if (t + 1 < first_item(kb_end)) issue(t + 1);
+    else cp_async_commit();  // an empty group keeps the count of groups fixed
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    return reinterpret_cast<const T*>(ring + (t % kStages) * S::kSlot);
   };
 
-  const int jj = tid % kSub;                  // scores: key jj, kScoreRows rows
-  const int rq0 = (tid / kSub) * kScoreRows;
-  const int dc = tid % D;                     // PV: column dc, kPvRows rows
-  const int rp0 = (tid / D) * kPvRows;
-  const int warp = tid / 32, lane = tid % 32;
-  float acc[kPvRows];
-#pragma unroll
-  for (int rr = 0; rr < kPvRows; ++rr) acc[rr] = 0.0f;
-
-  for (int k0 = 0; k0 < sk; k0 += bk) {
-    // ---- stage 1a: scores -> FP2FX raws
-    for (int kt = 0; kt < bk; kt += kSub) {
-      const int nkeys = min(kSub, bk - kt);
-      __syncthreads();
-      stage(k, k0 + kt, nkeys);
-      __syncthreads();
-      if (jj < nkeys) {
-        float dot[kScoreRows];
-#pragma unroll
-        for (int rr = 0; rr < kScoreRows; ++rr) dot[rr] = 0.0f;
-        for (int d = 0; d < D; ++d) {
-          const float kd = s_kv[jj * (D + 1) + d];
-#pragma unroll
-          for (int rr = 0; rr < kScoreRows; ++rr)
-            dot[rr] = fmaf(s_q[(rq0 + rr) * D + d], kd, dot[rr]);
-        }
-#pragma unroll
-        for (int rr = 0; rr < kScoreRows; ++rr) {
-          const int r = rq0 + rr;
-          const float z = masked_score(dot[rr], scale, q_offset + row0 + r,
-                                       k0 + kt + jj, causal, mrow);
-          s_zi[r * bk + kt + jj] = fp2fx(z, h.frac, h.total);
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- stage 1b: strided block max, counted from the block's first key,
-    // merged with the running max; the rescale of the carried state
-    for (int r = warp; r < kRows; r += kThreads / 32) {
-      int mx = INT_MIN;
-      for (int j = lane * h.step; j < bk; j += 32 * h.step) mx = max(mx, s_zi[r * bk + j]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      if (lane == 0) {
-        const int m_old = s_m[r];
-        const int m_new = max(m_old, mx);
-        s_alpha[r] = hyft_alpha(m_old - m_new, h);
-        s_m[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // ---- stage 2: exponent unit -> probabilities and fixed-point addends
-    for (int i = tid; i < kRows * bk; i += kThreads) {
-      int e, mm;
-      exp_unit(s_zi[i] - s_m[i / bk], h.frac, h.mant, e, mm);
-      s_a[i] = expfloat_to_fx(e, mm, h.mant, h.acc);
-      s_p[i] = assemble(e, mm, h.mant);
-    }
-    __syncthreads();
-
-    // ---- carried sum: fx_quantize(l * alpha) + this block's sum, keys in order
-    if (tid < kRows) {
-      float lb = 0.0f;
-      for (int j = 0; j < bk; ++j) lb = __fadd_rn(lb, s_a[tid * bk + j]);
-      s_l[tid] = __fadd_rn(fx_quantize(__fmul_rn(s_l[tid], s_alpha[tid]), h.acc), lb);
-    }
-
-    // ---- PV over the block's keys in order, then acc = acc * alpha + pv
-    float pv[kPvRows];
-#pragma unroll
-    for (int rr = 0; rr < kPvRows; ++rr) pv[rr] = 0.0f;
-    for (int kt = 0; kt < bk; kt += kSub) {
-      const int nkeys = min(kSub, bk - kt);
-      __syncthreads();
-      stage(v, k0 + kt, nkeys);
-      __syncthreads();
-      for (int jl = 0; jl < nkeys; ++jl) {
-        const float vd = s_kv[jl * (D + 1) + dc];
-#pragma unroll
-        for (int rr = 0; rr < kPvRows; ++rr)
-          pv[rr] = fmaf(s_p[(rp0 + rr) * bk + kt + jl], vd, pv[rr]);
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < kPvRows; ++rr)
-      acc[rr] = __fadd_rn(__fmul_rn(acc[rr], s_alpha[rp0 + rr]), pv[rr]);
+  issue(0);
+  for (int i = tid; i < kFwdRows * D / 4; i += kThreads) {
+    const int r = i / (D / 4), c = i % (D / 4) * 4;
+    const float4 val = r < nvalid ? load4(q, (static_cast<long>(bh) * sq + row0 + r) * D + c)
+                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    *reinterpret_cast<float4*>(s_q + r * S::kQP + c) = val;
   }
-  __syncthreads();
+
+  int m_run[kR], cnt[kR];
+  float l_run[kR], alpha[kR], acc[kR][8];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    m_run[r] = -(1 << (h.total - 1));  // the running max starts at fx lo (:109)
+    l_run[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+  }
+
+  for (int kb = 0; kb < kb_end; ++kb) {
+    const int key_base = kb * bk, t0 = first_item(kb);
+    if (kb >= kb_live) {
+      // ---- a wholly masked block: every raw is lo, so m stays, alpha is
+      // 1, and every key has its row's probability p(lo - m) and count
+      if (kb == kb_live) {
+        __syncthreads();  // the last block's ordered sums may still read s_p
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          masked_term(m_run[r], h, alpha[r], cnt[r]);  // alpha holds p for now
+          cnt[r] *= bk;
+        }
+        // key 0 carries them; the others are read only by the ordered sums
+        for (int j = tx; j < bk; j += 16)
+#pragma unroll
+          for (int g = 0; g < kR / 4; ++g)
+            *reinterpret_cast<float4*>(s_p + j * S::kPP + kR * ty + 4 * g) = make_float4(
+                alpha[4 * g], alpha[4 * g + 1], alpha[4 * g + 2], alpha[4 * g + 3]);
+#pragma unroll
+        for (int r = 0; r < kR; ++r) alpha[r] = 1.0f;
+      }
+    } else {
+      // ---- scores of kR rows x 8 keys, each one fmaf chain over d in order
+      float dot[kR][8];
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+#pragma unroll
+        for (int u = 0; u < 8; ++u) dot[r][u] = 0.0f;
+      for (int i = 0; i < 4; ++i) {
+        const T* ks = begin(t0 + i);
+#pragma unroll
+        for (int d4 = 0; d4 < kSlice; d4 += 4) {
+          float4 qa[kR];
+#pragma unroll
+          for (int r = 0; r < kR; ++r) qa[r] = ld4(s_q + (kR * ty + r) * S::kQP + i * kSlice + d4);
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const float4 kk = ld4(ks + (tx + 16 * u) * S::kKP + d4);
+#pragma unroll
+            for (int r = 0; r < kR; ++r) dot[r][u] = fma4(qa[r], kk, dot[r][u]);
+          }
+        }
+        __syncthreads();
+      }
+
+      // ---- FP2FX raws; the strided block max over the row group's 16
+      // threads, merged with the running max; the rescale of the carried state
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        int bmax = INT_MIN;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int j = tx + 16 * u;
+          const float z = masked_score(dot[r][u], scale, q_offset + row0 + kR * ty + r,
+                                       key_base + min(j, bk - 1), causal, mrow);
+          const int raw = fp2fx(z, h.frac, h.total);
+          dot[r][u] = __int_as_float(raw);
+          if (j < bk && j % h.step == 0) bmax = max(bmax, raw);
+        }
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          bmax = max(bmax, __shfl_xor_sync(0xffffffffu, bmax, off));
+        const int m_new = max(m_run[r], bmax);
+        alpha[r] = hyft_alpha(m_run[r] - m_new, h);
+        m_run[r] = m_new;
+        cnt[r] = 0;
+      }
+      // ---- exponent units: the probabilities into s_p, the adder-tree counts
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int j = tx + 16 * u;
+        float pr[kR];
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          int e, mm;
+          exp_unit(__float_as_int(dot[r][u]) - m_run[r], h.frac, h.mant, e, mm);
+          pr[r] = j < bk ? assemble(e, mm, h.mant) : 0.0f;
+          cnt[r] += j < bk ? expfloat_to_fx_raw(e, mm, h.mant, h.acc) : 0;
+        }
+#pragma unroll
+        for (int g = 0; g < kR / 4; ++g)
+          *reinterpret_cast<float4*>(s_p + j * S::kPP + kR * ty + 4 * g) =
+              make_float4(pr[4 * g], pr[4 * g + 1], pr[4 * g + 2], pr[4 * g + 3]);
+      }
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) cnt[r] += __shfl_xor_sync(0xffffffffu, cnt[r], off);
+
+      // ---- the masked blocks go altogether where their probability is 0
+      // for every row (HYFT32 flushes it; m and l then stay as they are)
+      if (kb + 1 == kb_live && kb_live < kb_end) {
+        bool gone = true;
+#pragma unroll
+        for (int r = 0; r < kR; ++r)
+          if (kR * ty + r < nvalid) {
+            float p;
+            int count;
+            masked_term(m_run[r], h, p, count);
+            gone = gone && p == 0.0f;
+          }
+        if (__syncthreads_and(gone)) kb_end = kb_live;
+      }
+    }
+
+    // ---- PV over the block's keys in order (s_p is visible after the
+    // first V slice's barrier)
+    float pv[kR][8];
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) pv[r][c] = 0.0f;
+    for (int i = 0; i < 4; ++i) {
+      const T* vs = begin(t0 + (kb < kb_live ? 4 : 0) + i);
+      const int j0 = i * kSlice, nj = min(kSlice, bk - j0);
+      if (kb < kb_live)
+        pv_keys<false, S::kVP, S::kPP>(pv, vs, s_p, j0, nj, tx, ty);
+      else  // a masked block's probabilities are one per row, kept in registers
+        pv_keys<true, S::kVP, S::kPP>(pv, vs, s_p, j0, nj, tx, ty);
+      __syncthreads();
+    }
+
+    // ---- carried state: acc = acc * alpha + pv; l = fx_quantize(l * alpha)
+    // + lb, lb the count times 2^-acc while below 2^24, else the ordered sum
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const bool ordered = cnt[r] >= (1 << 24);
+      float lsum = 0.0f;
+      if (ordered && tx == 0) {
+        const float up = pow2_float(h.acc), down = pow2_float(-h.acc);
+        for (int j = 0; j < bk; ++j)
+          lsum = __fadd_rn(lsum, __fmul_rn(floorf(__fmul_rn(s_p[j * S::kPP + kR * ty + r], up)),
+                                           down));
+      }
+      lsum = __shfl_sync(0xffffffffu, lsum, lane & 16);
+      const float lb = ordered ? lsum : __fmul_rn(static_cast<float>(cnt[r]), pow2_float(-h.acc));
+      l_run[r] = __fadd_rn(fx_quantize(__fmul_rn(l_run[r], alpha[r]), h.acc), lb);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] = __fadd_rn(__fmul_rn(acc[r][c], alpha[r]), pv[r][c]);
+    }
+  }
+  cp_async_wait<0>();
 
   // ---- stage 3: log-subtract division; the row stats for the backward
 #pragma unroll
-  for (int rr = 0; rr < kPvRows; ++rr) {
-    const int row = row0 + rp0 + rr;
-    if (row < sq)
-      o[(static_cast<long>(bh) * sq + row) * D + dc] =
-          hyft_finalize(acc[rr], s_l[rp0 + rr], h.mant);
-  }
-  if (tid < kRows && row0 + tid < sq) {
-    m_out[static_cast<long>(bh) * sq + row0 + tid] = s_m[tid];
-    l_out[static_cast<long>(bh) * sq + row0 + tid] = s_l[tid];
+  for (int r = 0; r < kR; ++r) {
+    const int rl = kR * ty + r;
+    if (rl >= nvalid) continue;
+    const long ri = static_cast<long>(bh) * sq + row0 + rl;
+    float* orow = o + ri * D;
+    float res[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) res[c] = hyft_finalize(acc[r][c], l_run[r], h.mant);
+    *reinterpret_cast<float4*>(orow + 4 * tx) = make_float4(res[0], res[1], res[2], res[3]);
+    *reinterpret_cast<float4*>(orow + 64 + 4 * tx) = make_float4(res[4], res[5], res[6], res[7]);
+    if (tx == 0) {
+      m_out[ri] = m_run[r];
+      l_out[ri] = l_run[r];
+    }
   }
 }
 
@@ -330,121 +554,244 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 }
 
 // --------------------------------------------------------------------------
-// dk/dv.  Grid (ceil(sk / kRows), BHkv); each block walks every member of
-// the GQA group and every query row.  Shared memory (dynamic):
-//   s_k, s_v   [kRows][D]       the block's keys and values
-//   s_q, s_do  [kSub][D + 1]    one sub-tile of query rows and their do
-//   s_p, s_ds  [kRows][kSub]    p and ds = p (dp - delta)
+// dk/dv.  Grid (BHkv, ceil(sk / 32)), key tile y: the first keys first (the
+// longest under the causal mask).  A block holds its 32 keys' K and V and
+// walks the query rows of every group member in order, in sub-tiles of 64
+// rows streamed through the ring with their m, l and delta.  The two halves
+// of the block split the work: per sub-tile, half 0 runs the q.k chains and
+// the probabilities p, half 1 the do.v chains and ds = p (dp - delta), each
+// thread 4 rows (ry + 16i) x 4 keys (kx + 8u); then half 0 sums dv += p^T do
+// and half 1 dk += ds^T q, each thread 4 keys (4kq..) x 8 columns (4cx..,
+// 64 + 4cx..).  Shared memory (dynamic):
+//   s_k, s_v   [32][D + 4]                      the block's keys and values, fp32
+//   ring       kStages x (q [64][D + pad] of T, do [64][D + 4], m, l, delta [64])
+//   s_p, s_ds  [64][32 + 8]                     p and ds
 // --------------------------------------------------------------------------
+constexpr int kDkvKeys = 32;              // keys of a dk/dv block
+constexpr int kDkvRows = 64;              // query rows of one staged sub-tile
+constexpr int kDkvRT = kDkvRows / 16;     // rows of a score thread
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
+struct DkvSmem {
+  static constexpr int kKP = D + 4;                  // s_k, s_v pitch (fp32)
+  static constexpr int kQP = D + 16 / sizeof(T);     // q pitch (T)
+  static constexpr int kOP = D + 4;                  // do pitch (fp32)
+  static constexpr int kPP = kDkvKeys + 8;           // s_p, s_ds pitch
+  static constexpr int kQBytes = kDkvRows * kQP * sizeof(T);
+  static constexpr int kOBytes = kDkvRows * kOP * 4;
+  static constexpr int kStage = kQBytes + kOBytes + 3 * kDkvRows * 4;
+  static constexpr int kKVBytes = 2 * kDkvKeys * kKP * 4;
+  static constexpr size_t kBytes = kKVBytes + kStages * kStage + 2 * kDkvRows * kPP * 4;
+};
+
+// acc[i][u] = one fmaf chain over d in order of a[row ry + 16i] . b[key kx +
+// 8u], rows of the pitch-aP tile a, keys of the pitch-bP tile b
+template <int D, int aP, int bP, typename TA>
+__device__ __forceinline__ void dot_tile(float (&acc)[kDkvRT][4], const TA* a, const float* b,
+                                        int ry, int kx) {
+#pragma unroll
+  for (int i = 0; i < kDkvRT; ++i)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[i][u] = 0.0f;
+#pragma unroll 2
+  for (int d4 = 0; d4 < D; d4 += 4) {
+    float4 ra[kDkvRT], rb[4];
+#pragma unroll
+    for (int i = 0; i < kDkvRT; ++i) ra[i] = ld4(a + (ry + 16 * i) * aP + d4);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) rb[u] = ld4(b + (kx + 8 * u) * bP + d4);
+#pragma unroll
+    for (int i = 0; i < kDkvRT; ++i)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][u] = fma4(ra[i], rb[u], acc[i][u]);
+  }
+}
+
+// acc[kk][c] = fmaf(w[row][4kq + kk], x[row][col c], acc) over rows 0..n-1
+// in order, columns 4cx.. and 64 + 4cx..
+template <int wP, int xP, typename TX>
+__device__ __forceinline__ void sum_rows(float (&acc)[4][8], const float* w, const TX* x,
+                                         int n, int kq, int cx) {
+#pragma unroll 2
+  for (int rl = 0; rl < n; ++rl) {
+    const float4 w4 = ld4(w + rl * wP + 4 * kq);
+    const float4 xa = ld4(x + rl * xP + 4 * cx);
+    const float4 xb = ld4(x + rl * xP + 64 + 4 * cx);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float wk = f4(w4, kk);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[kk][c] = fmaf(wk, f4(xa, c), acc[kk][c]);
+        acc[kk][4 + c] = fmaf(wk, f4(xb, c), acc[kk][4 + c]);
+      }
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ delta,
     const int* __restrict__ m_in, const float* __restrict__ l_in,
     const float* __restrict__ mask, float* __restrict__ dk, float* __restrict__ dv,
-    int sq, int sk, int group, int hq_per_b, int q_offset, int causal, float scale,
-    Params h) {
-  constexpr int kAccKeys = kRows * D / kThreads;  // 8 keys per thread in the sums
-  extern __shared__ float smem[];
-  float* s_k = smem;
-  float* s_v = s_k + kRows * D;
-  float* s_q = s_v + kRows * D;
-  float* s_do = s_q + kSub * (D + 1);
-  float* s_p = s_do + kSub * (D + 1);
-  float* s_ds = s_p + kRows * kSub;
-  __shared__ int s_m[kSub], s_eb[kSub], s_mb[kSub];
-  __shared__ float s_delta[kSub];
+    int sq, int sk, int group, int hq_per_b, int q_offset, int causal, int skip,
+    float scale, Params h) {
+  static_assert(D == 128, "the thread layout covers 128 columns");
+  using S = DkvSmem<T, D>;
+  extern __shared__ __align__(16) unsigned char dkv_smem[];
+  float* s_k = reinterpret_cast<float*>(dkv_smem);
+  float* s_v = s_k + kDkvKeys * S::kKP;
+  unsigned char* ring = dkv_smem + S::kKVBytes;
+  float* s_p = reinterpret_cast<float*>(ring + kStages * S::kStage);
+  float* s_ds = s_p + kDkvRows * S::kPP;
 
-  const int tid = threadIdx.x;
-  const int key0 = blockIdx.x * kRows;
-  const int bkv = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int half = tid / 128, hw = (tid % 128) / 32;  // half 0: p and dv; 1: ds and dk
+  const int ry = hw * 4 + lane / 8, kx = lane % 8;     // scores
+  const int kq = hw * 2 + lane / 16, cx = lane % 16;   // sums
+  const int bkv = blockIdx.x;
+  const int key0 = blockIdx.y * kDkvKeys;
+  const int nsub = (sq + kDkvRows - 1) / kDkvRows;
   const float* mrow =
       mask ? mask + static_cast<long>(bkv * group / hq_per_b) * sk : nullptr;
-
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int key = key0 + i / D;
-    const long gi = (static_cast<long>(bkv) * sk + key) * D + i % D;
-    s_k[i] = key < sk ? load_f32(k, gi) : 0.0f;
-    s_v[i] = key < sk ? load_f32(v, gi) : 0.0f;
-  }
-
-  const int jj = tid % kSub;                  // scores: query row jj, kScoreRows keys
-  const int kq0 = (tid / kSub) * kScoreRows;
-  const int dc = tid % D;                     // sums: column dc, kAccKeys keys
-  const int kp0 = (tid / D) * kAccKeys;
-  float acc_k[kAccKeys], acc_v[kAccKeys];
-#pragma unroll
-  for (int kk = 0; kk < kAccKeys; ++kk) acc_k[kk] = acc_v[kk] = 0.0f;
-
-  for (int g = 0; g < group; ++g) {
+  // the sub-tile that member g's walk starts at: past those wholly before
+  // the first key, when every row in them passes the skip guard
+  auto first_sub = [&](int g) -> int {
+    const int before = key0 - q_offset;  // rows below this see none of the keys
+    const int nskip = skip && causal && before > 0 ? min(before / kDkvRows, nsub) : 0;
+    if (nskip == 0) return 0;
+    const long base = (static_cast<long>(bkv) * group + g) * sq;
+    bool dead = true;
+    for (int r = tid; r < min(nskip * kDkvRows, sq); r += kThreads) {
+      float p;
+      int count;
+      masked_term(m_in[base + r], h, p, count);
+      dead = dead && count == 0;
+    }
+    return __syncthreads_and(dead) ? nskip : 0;
+  };
+  // advance (g, s) to the next sub-tile to walk; g == group at the end
+  auto settle = [&](int& g, int& s) {
+    while (g < group && s >= nsub)
+      if (++g < group) s = first_sub(g);
+  };
+  auto issue = [&](int g, int s, int slot) {
+    unsigned char* st = ring + slot * S::kStage;
     const long bh = static_cast<long>(bkv) * group + g;
-    for (int r0 = 0; r0 < sq; r0 += kSub) {
-      const int nrows = min(kSub, sq - r0);
-      __syncthreads();
-      for (int i = tid; i < kSub * D; i += kThreads) {
-        const int rl = i / D, d = i % D;
-        const long gi = (bh * sq + r0 + rl) * D + d;
-        s_q[rl * (D + 1) + d] = rl < nrows ? load_f32(q, gi) : 0.0f;
-        s_do[rl * (D + 1) + d] = rl < nrows ? dout[gi] : 0.0f;
-      }
-      if (tid < kSub) {
-        const long ri = bh * sq + r0 + tid;
-        int e_b = 0, m_b = 0;
-        if (tid < nrows) lod_refloat(l_in[ri], h.mant, e_b, m_b);
-        s_m[tid] = tid < nrows ? m_in[ri] : 0;
-        s_eb[tid] = e_b;
-        s_mb[tid] = m_b;
-        s_delta[tid] = tid < nrows ? delta[ri] : 0.0f;
-      }
-      __syncthreads();
-      if (jj < nrows) {
-        float dot[kScoreRows], dpv[kScoreRows];
-#pragma unroll
-        for (int kk = 0; kk < kScoreRows; ++kk) dot[kk] = dpv[kk] = 0.0f;
-        for (int d = 0; d < D; ++d) {
-          const float qd = s_q[jj * (D + 1) + d];
-          const float dd = s_do[jj * (D + 1) + d];
-#pragma unroll
-          for (int kk = 0; kk < kScoreRows; ++kk) {
-            dot[kk] = fmaf(qd, s_k[(kq0 + kk) * D + d], dot[kk]);
-            dpv[kk] = fmaf(dd, s_v[(kq0 + kk) * D + d], dpv[kk]);
-          }
-        }
-#pragma unroll
-        for (int kk = 0; kk < kScoreRows; ++kk) {
-          const int key = key0 + kq0 + kk;
-          float p = 0.0f, ds = 0.0f;
-          if (key < sk) {
-            const float z = masked_score(dot[kk], scale, q_offset + r0 + jj, key, causal,
-                                         mrow);
-            p = recompute_prob(z, s_m[jj], s_eb[jj], s_mb[jj], h);
-            ds = __fmul_rn(p, __fsub_rn(dpv[kk], s_delta[jj]));
-          }
-          s_p[(kq0 + kk) * kSub + jj] = p;
-          s_ds[(kq0 + kk) * kSub + jj] = ds;
-        }
-      }
-      __syncthreads();
-      for (int rl = 0; rl < nrows; ++rl) {
-        const float qd = s_q[rl * (D + 1) + dc];
-        const float dd = s_do[rl * (D + 1) + dc];
-#pragma unroll
-        for (int kk = 0; kk < kAccKeys; ++kk) {
-          acc_v[kk] = fmaf(s_p[(kp0 + kk) * kSub + rl], dd, acc_v[kk]);
-          acc_k[kk] = fmaf(s_ds[(kp0 + kk) * kSub + rl], qd, acc_k[kk]);
-        }
-      }
+    const int r0 = s * kDkvRows, nrows = min(kDkvRows, sq - r0);
+    fetch_rows<T, D, S::kQP>(reinterpret_cast<T*>(st), q, (bh * sq + r0) * D, D, kDkvRows,
+                             nrows);
+    fetch_rows<float, D, S::kOP>(reinterpret_cast<float*>(st + S::kQBytes), dout,
+                                 (bh * sq + r0) * D, D, kDkvRows, nrows);
+    float* stats = reinterpret_cast<float*>(st + S::kQBytes + S::kOBytes);
+    for (int i = tid; i < 3 * kDkvRows; i += kThreads) {
+      const int which = i / kDkvRows, r = i % kDkvRows;
+      const bool ok = r < nrows;
+      const long ri = ok ? bh * sq + r0 + r : 0;
+      const void* src = which == 0 ? static_cast<const void*>(m_in + ri)
+                        : which == 1 ? static_cast<const void*>(l_in + ri)
+                                     : static_cast<const void*>(delta + ri);
+      cp_async4(stats + i, src, ok);
     }
+    cp_async_commit();
+  };
+
+  int g = 0, s = first_sub(0);
+  settle(g, s);
+  if (g < group) issue(g, s, 0);
+  for (int i = tid; i < kDkvKeys * D / 4; i += kThreads) {
+    const int j = i / (D / 4), c = i % (D / 4) * 4;
+    const long gi = (static_cast<long>(bkv) * sk + key0 + j) * D + c;
+    const bool ok = key0 + j < sk;
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    *reinterpret_cast<float4*>(s_k + j * S::kKP + c) = ok ? load4(k, gi) : zero;
+    *reinterpret_cast<float4*>(s_v + j * S::kKP + c) = ok ? load4(v, gi) : zero;
   }
 
+  float acc[4][8];  // dv (half 0) or dk before its scale (half 1)
 #pragma unroll
-  for (int kk = 0; kk < kAccKeys; ++kk) {
-    const int key = key0 + kp0 + kk;
-    if (key < sk) {
-      const long gi = (static_cast<long>(bkv) * sk + key) * D + dc;
-      dk[gi] = __fmul_rn(acc_k[kk], scale);
-      dv[gi] = acc_v[kk];
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[kk][c] = 0.0f;
+
+  for (int t = 0; g < group; ++t) {
+    int gn = g, sn = s + 1;
+    settle(gn, sn);
+    if (gn < group) issue(gn, sn, (t + 1) % kStages);
+    else cp_async_commit();  // an empty group keeps the count of groups fixed
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+
+    const unsigned char* st = ring + (t % kStages) * S::kStage;
+    const T* s_q = reinterpret_cast<const T*>(st);
+    const float* s_do = reinterpret_cast<const float*>(st + S::kQBytes);
+    const int* s_m = reinterpret_cast<const int*>(st + S::kQBytes + S::kOBytes);
+    const float* s_l = reinterpret_cast<const float*>(s_m + kDkvRows);
+    const float* s_dl = s_l + kDkvRows;
+    const int r0 = s * kDkvRows, nrows = min(kDkvRows, sq - r0);
+
+    // ---- half 0: q.k -> p; half 1: do.v, then ds = p (dp - delta)
+    float dots[kDkvRT][4];
+    if (half == 0) {
+      dot_tile<D, S::kQP, S::kKP>(dots, s_q, s_k, ry, kx);
+#pragma unroll
+      for (int i = 0; i < kDkvRT; ++i) {
+        const int rl = ry + 16 * i;
+        int e_b = 0, m_b = 0;
+        if (rl < nrows) lod_refloat(s_l[rl], h.mant, e_b, m_b);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int key = key0 + kx + 8 * u;
+          float p = 0.0f;
+          if (rl < nrows && key < sk) {
+            const float z = masked_score(dots[i][u], scale, q_offset + r0 + rl, key, causal,
+                                         mrow);
+            p = recompute_prob(z, s_m[rl], e_b, m_b, h);
+          }
+          s_p[rl * S::kPP + kx + 8 * u] = p;
+        }
+      }
+    } else {
+      dot_tile<D, S::kOP, S::kKP>(dots, s_do, s_v, ry, kx);
     }
+    __syncthreads();
+    if (half == 1) {
+#pragma unroll
+      for (int i = 0; i < kDkvRT; ++i) {
+        const int rl = ry + 16 * i;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int at = rl * S::kPP + kx + 8 * u;
+          s_ds[at] = rl < nrows ? __fmul_rn(s_p[at], __fsub_rn(dots[i][u], s_dl[rl])) : 0.0f;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- dv += p^T do (half 0), dk += ds^T q (half 1), rows in order
+    if (half == 0)
+      sum_rows<S::kPP, S::kOP>(acc, s_p, s_do, nrows, kq, cx);
+    else
+      sum_rows<S::kPP, S::kQP>(acc, s_ds, s_q, nrows, kq, cx);
+    __syncthreads();
+    g = gn;
+    s = sn;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int key = key0 + 4 * kq + kk;
+    if (key >= sk) continue;
+    const long gi = (static_cast<long>(bkv) * sk + key) * D + 4 * cx;
+    float* out = half == 0 ? dv : dk;
+    const float f = half == 0 ? 1.0f : scale;
+    float r[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) r[c] = half == 0 ? acc[kk][c] : __fmul_rn(acc[kk][c], f);
+    *reinterpret_cast<float4*>(out + gi) = make_float4(r[0], r[1], r[2], r[3]);
+    *reinterpret_cast<float4*>(out + gi + 64) = make_float4(r[4], r[5], r[6], r[7]);
   }
 }
 
@@ -462,18 +809,18 @@ cudaError_t allow_smem(Kernel kern, size_t smem, size_t& allowed) {
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* mask,
                        void* o, void* m, void* l, int bh, int sq, int sk, int bk, int group,
-                       int hq_per_b, int q_offset, int causal, float scale, Params h,
+                       int hq_per_b, int q_offset, int causal, int skip, float scale, Params h,
                        cudaStream_t stream) {
   auto kern = flash_fwd_kernel<T, D>;
-  const size_t smem = sizeof(float) * (kRows * D + kSub * (D + 1) + 2 * kRows * bk);
+  const size_t smem = FwdSmem<T, D>::kBytes;
   static size_t allowed = 0;
   cudaError_t err = allow_smem(kern, smem, allowed);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kRows - 1) / kRows, bh);
+  const dim3 grid(bh, (sq + kFwdRows - 1) / kFwdRows);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(mask), static_cast<float*>(o), static_cast<int*>(m),
-      static_cast<float*>(l), sq, sk, bk, group, hq_per_b, q_offset, causal, scale, h);
+      static_cast<float*>(l), sq, sk, bk, group, hq_per_b, q_offset, causal, skip, scale, h);
   return cudaGetLastError();
 }
 
@@ -501,23 +848,25 @@ template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* delta, const void* m, const void* l, const void* mask,
                        void* dk, void* dv, int bh, int sq, int sk, int group, int hq_per_b,
-                       int q_offset, int causal, float scale, Params h,
+                       int q_offset, int causal, int skip, float scale, Params h,
                        cudaStream_t stream) {
   auto kern = flash_bwd_dkv_kernel<T, D>;
-  const size_t smem =
-      sizeof(float) * (2 * kRows * D + 2 * kSub * (D + 1) + 2 * kRows * kSub);
+  const size_t smem = DkvSmem<T, D>::kBytes;
   static size_t allowed = 0;
   cudaError_t err = allow_smem(kern, smem, allowed);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sk + kRows - 1) / kRows, bh / group);
+  const dim3 grid(bh / group, (sk + kDkvKeys - 1) / kDkvKeys);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(delta),
       static_cast<const int*>(m), static_cast<const float*>(l),
       static_cast<const float*>(mask), static_cast<float*>(dk), static_cast<float*>(dv), sq,
-      sk, group, hq_per_b, q_offset, causal, scale, h);
+      sk, group, hq_per_b, q_offset, causal, skip, scale, h);
   return cudaGetLastError();
 }
+
+// the cp.async copies read 16 bytes at a time
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 bool valid_shape(int bh, int sq, int sk, int group, int hq_per_b, int step, int frac,
                  int mant) {
@@ -531,24 +880,26 @@ extern "C" {
 
 // Forward: q (BH, sq, D), k/v (BH / group, sk, D) of in_type (0 f32, 1 bf16),
 // mask (B, sk) f32 with B = BH / hq_per_b, or null; sk a multiple of bk
-// (bk <= 128).  Writes o (BH, sq, D) f32, m (BH, sq) i32, l (BH, sq) f32.
-// Returns the cudaError_t of the launch.
+// (bk <= 128); k and v 16-byte aligned.  skip != 0 drops the causally
+// masked KV blocks under the guard of the note above.  Writes o (BH, sq, D)
+// f32, m (BH, sq) i32, l (BH, sq) f32.  Returns the cudaError_t of the
+// launch.
 int hyft_flash_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
                    void* m, void* l, int in_type, int bh, int sq, int sk, int bk, int d,
-                   int group, int hq_per_b, int q_offset, int causal, float scale, int frac,
-                   int total, int mant, int acc, int step, void* stream) {
+                   int group, int hq_per_b, int q_offset, int causal, int skip, float scale,
+                   int frac, int total, int mant, int acc, int step, void* stream) {
   if (!valid_shape(bh, sq, sk, group, hq_per_b, step, frac, mant) || bk <= 0 || bk > 128 ||
-      sk % bk != 0)
+      sk % bk != 0 || !aligned16(k) || !aligned16(v))
     return cudaErrorInvalidValue;
   const Params h{frac, total, mant, acc, step};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 128) {
     if (in_type == 0)
       return launch_fwd<float, 128>(q, k, v, mask, o, m, l, bh, sq, sk, bk, group, hq_per_b,
-                                    q_offset, causal, scale, h, s);
+                                    q_offset, causal, skip, scale, h, s);
     if (in_type == 1)
       return launch_fwd<__nv_bfloat16, 128>(q, k, v, mask, o, m, l, bh, sq, sk, bk, group,
-                                            hq_per_b, q_offset, causal, scale, h, s);
+                                            hq_per_b, q_offset, causal, skip, scale, h, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -575,24 +926,28 @@ int hyft_flash_bwd_dq(const void* q, const void* k, const void* v, const void* d
   return cudaErrorInvalidValue;
 }
 
-// dk/dv: the same inputs as dq; writes dk, dv (BH / group, sk, D) f32.
+// dk/dv: the same inputs as dq, q and do 16-byte aligned; skip != 0 drops
+// the row sub-tiles wholly before a key tile under the guard of the note
+// above.  Writes dk, dv (BH / group, sk, D) f32.
 int hyft_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* delta, const void* m, const void* l, const void* mask,
                        void* dk, void* dv, int in_type, int bh, int sq, int sk, int d,
-                       int group, int hq_per_b, int q_offset, int causal, float scale,
-                       int frac, int total, int mant, int acc, int step, void* stream) {
-  if (!valid_shape(bh, sq, sk, group, hq_per_b, step, frac, mant))
+                       int group, int hq_per_b, int q_offset, int causal, int skip,
+                       float scale, int frac, int total, int mant, int acc, int step,
+                       void* stream) {
+  if (!valid_shape(bh, sq, sk, group, hq_per_b, step, frac, mant) || !aligned16(q) ||
+      !aligned16(dout))
     return cudaErrorInvalidValue;
   const Params h{frac, total, mant, acc, step};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 128) {
     if (in_type == 0)
       return launch_dkv<float, 128>(q, k, v, dout, delta, m, l, mask, dk, dv, bh, sq, sk,
-                                    group, hq_per_b, q_offset, causal, scale, h, s);
+                                    group, hq_per_b, q_offset, causal, skip, scale, h, s);
     if (in_type == 1)
       return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, delta, m, l, mask, dk, dv, bh, sq,
-                                            sk, group, hq_per_b, q_offset, causal, scale, h,
-                                            s);
+                                            sk, group, hq_per_b, q_offset, causal, skip, scale,
+                                            h, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -697,26 +697,34 @@ def _flash_checks(q3, k3, v3, maskf, group: int):
 
 
 def _flash_fwd_cuda(q3, k3, v3, maskf, *, cfg: HyftConfig, sm_scale: float,
-                    causal: bool, bk: int, group: int, q_offset: int):
+                    causal: bool, bk: int, group: int, q_offset: int,
+                    skip_masked: bool = True):
     """The forward from the CUDA kernel ``hyft_flash_fwd``; same contract as
-    ``_flash_fwd_plain``."""
+    ``_flash_fwd_plain``.  ``skip_masked=False`` computes the scores of the
+    KV blocks past the causal frontier too; by default the kernel runs only
+    their PV chain (every score there is masked), which gives the same bits
+    (only the card checks turn it off)."""
     hq_per_b = _flash_checks(q3, k3, v3, maskf, group)
     BH, Sq, D = q3.shape
     Sk = k3.shape[1]
     _check(0 < bk <= 128 and Sk % bk == 0, f"Sk={Sk} not blocks of bk={bk} <= 128")
+    _check(k3.data_ptr() % 16 == 0 and v3.data_ptr() % 16 == 0,
+           "K/V must be 16-byte aligned")
     o = torch.empty((BH, Sq, D), dtype=F32, device=q3.device)
     m = torch.empty((BH, Sq), dtype=I32, device=q3.device)
     l = torch.empty((BH, Sq), dtype=F32, device=q3.device)
     _launch("hyft_flash_fwd", q3.device, _ptr(q3), _ptr(k3), _ptr(v3), _ptr(maskf),
             _ptr(o), _ptr(m), _ptr(l), _IN_TYPES[q3.dtype], BH, Sq, Sk, bk, D,
-            group, hq_per_b, q_offset, int(causal), ctypes.c_float(sm_scale),
-            *_hyft_args(cfg))
+            group, hq_per_b, q_offset, int(causal), int(skip_masked),
+            ctypes.c_float(sm_scale), *_hyft_args(cfg))
     return o, m, l
 
 
 def _bwd_cuda_args(q3, k3, v3, maskf, do3, delta, m2, l2, *, cfg, sm_scale,
                    causal, group, q_offset):
-    """The pointers and ints that both backward kernels take."""
+    """The pointers and ints that both backward kernels take: the pointers,
+    the ints up to ``causal``, and the scale with the Hyft parameters (dk/dv
+    takes its ``skip`` between the last two)."""
     hq_per_b = _flash_checks(q3, k3, v3, maskf, group)
     BH, Sq, D = q3.shape
     _check(do3.dtype == F32 and do3.shape == q3.shape and do3.is_contiguous()
@@ -726,8 +734,8 @@ def _bwd_cuda_args(q3, k3, v3, maskf, do3, delta, m2, l2, *, cfg, sm_scale,
            "do must be contiguous fp32 like q; delta, m, l (BH, Sq) fp32 / int32")
     inputs = tuple(map(_ptr, (q3, k3, v3, do3, delta, m2, l2, maskf)))
     ints = (_IN_TYPES[q3.dtype], BH, Sq, k3.shape[1], D, group, hq_per_b, q_offset,
-            int(causal), ctypes.c_float(sm_scale), *_hyft_args(cfg))
-    return inputs, ints
+            int(causal))
+    return inputs, ints, (ctypes.c_float(sm_scale), *_hyft_args(cfg))
 
 
 def _flash_bwd_dq_cuda(q3, k3, v3, maskf, do3, delta, m2, l2, *, cfg: HyftConfig,
@@ -736,25 +744,31 @@ def _flash_bwd_dq_cuda(q3, k3, v3, maskf, do3, delta, m2, l2, *, cfg: HyftConfig
     """dq from the CUDA kernel ``hyft_flash_bwd_dq``; same contract as
     ``_flash_bwd_dq_plain`` (``bk`` is not part of the backward's
     arithmetic)."""
-    inputs, ints = _bwd_cuda_args(q3, k3, v3, maskf, do3, delta, m2, l2, cfg=cfg,
-                                  sm_scale=sm_scale, causal=causal, group=group,
-                                  q_offset=q_offset)
+    inputs, ints, tail = _bwd_cuda_args(q3, k3, v3, maskf, do3, delta, m2, l2, cfg=cfg,
+                                        sm_scale=sm_scale, causal=causal, group=group,
+                                        q_offset=q_offset)
     dq = torch.empty(q3.shape, dtype=F32, device=q3.device)
-    _launch("hyft_flash_bwd_dq", q3.device, *inputs, _ptr(dq), *ints)
+    _launch("hyft_flash_bwd_dq", q3.device, *inputs, _ptr(dq), *ints, *tail)
     return dq
 
 
 def _flash_bwd_dkv_cuda(q3, k3, v3, maskf, do3, delta, m2, l2, *, cfg: HyftConfig,
                         sm_scale: float, causal: bool, bk: int, group: int,
-                        q_offset: int):
+                        q_offset: int, skip_masked: bool = True):
     """dk and dv from the CUDA kernel ``hyft_flash_bwd_dkv``; same contract
-    as ``_flash_bwd_dkv_plain``."""
-    inputs, ints = _bwd_cuda_args(q3, k3, v3, maskf, do3, delta, m2, l2, cfg=cfg,
-                                  sm_scale=sm_scale, causal=causal, group=group,
-                                  q_offset=q_offset)
+    as ``_flash_bwd_dkv_plain``.  ``skip_masked=False`` walks the query rows
+    wholly before a key tile too; by default the kernel skips them while
+    each one's masked term is below 2**-acc of its largest, which may move
+    the last bits of dk/dv (only the card checks turn it off)."""
+    inputs, ints, tail = _bwd_cuda_args(q3, k3, v3, maskf, do3, delta, m2, l2, cfg=cfg,
+                                        sm_scale=sm_scale, causal=causal, group=group,
+                                        q_offset=q_offset)
+    _check(q3.data_ptr() % 16 == 0 and do3.data_ptr() % 16 == 0,
+           "q and do must be 16-byte aligned")
     dk = torch.empty(k3.shape, dtype=F32, device=q3.device)
     dv = torch.empty(k3.shape, dtype=F32, device=q3.device)
-    _launch("hyft_flash_bwd_dkv", q3.device, *inputs, _ptr(dk), _ptr(dv), *ints)
+    _launch("hyft_flash_bwd_dkv", q3.device, *inputs, _ptr(dk), _ptr(dv), *ints,
+            int(skip_masked), *tail)
     return dk, dv
 
 

@@ -140,8 +140,9 @@ def test_flash_backward_matches_jax_grad(case):
     for got, want in zip((tq.grad, tk.grad, tv.grad), ref):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)
     if mask is not None:
-        # masked keys get (at most) negligible dk/dv: HYFT16's narrow fixed
-        # range leaves a ~2**-105 probability; HYFT32 flushes to zero
+        # masked keys get (at most) negligible dk/dv: FP2FX saturates a
+        # masked score at -32 under HYFT16, which leaves a probability of at
+        # most about e**-32 (1.1e-14); HYFT32 flushes it to zero
         dead = torch.from_numpy(mask == 0)[:, None, :, None]
         for g in (tk.grad, tv.grad):
             assert float(torch.where(dead, g, 0).abs().max()) < 1e-12
@@ -300,3 +301,71 @@ def test_flash_errors_flag_a_percent_error(name):
         bad = list(gref)
         bad[i] = bad[i] * 1.01
         assert tfa.grad_errors(bad, gref, ct)[name_] > 1
+
+
+SKIP_ROWS, SKIP_KEYS, SKIP_BK = 64, 512, 128   # the forward kernel's row tile
+
+
+def _skip_inputs(dtype, Sk=SKIP_KEYS, seed=9):
+    q, k, v, _ = _inputs(Sk, Sk, seed=seed)
+    q3, k3, v3 = (torch.from_numpy(a).reshape(-1, Sk, D).to(dtype) for a in (q, k, v))
+    return q3, k3, v3
+
+
+def _tile_forward(q3, k3, v3, maskf, cfg, t):
+    """The plain forward of 64-row tile ``t`` over the KV blocks up to its
+    causal frontier only, as the kernel walks it when it skips."""
+    nkeys = min(k3.shape[1], ((t + 1) * SKIP_ROWS - 1) // SKIP_BK * SKIP_BK + SKIP_BK)
+    rows = slice(t * SKIP_ROWS, (t + 1) * SKIP_ROWS)
+    return tfa._flash_fwd_plain(
+        q3[:, rows], k3[:, :nkeys], v3[:, :nkeys],
+        None if maskf is None else maskf[:, :nkeys].contiguous(), cfg=cfg,
+        sm_scale=D ** -0.5, causal=True, bk=SKIP_BK, group=HQ // HKV,
+        q_offset=t * SKIP_ROWS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_flash_forward_causal_skip_is_exact(name, dtype):
+    """Dropping the KV blocks past a 64-row tile's causal frontier changes no
+    bit of its o, m and l on these inputs, whose rows' maxima lie well above
+    FX's lowest raw: a masked key's adder-tree count is then 0, its rescale
+    exactly 1 and its PV term below the last bit of acc.  Not on every
+    input under HYFT16, whose masked probability is never 0: there the term
+    can move the last bit of a small acc (bf16 inputs on the card showed
+    it), so the forward kernel drops only those blocks' scores and keeps
+    their PV chain, and drops a block outright only where the probability
+    is 0 (HYFT32)."""
+    _, ct = CONFIGS[name]
+    q3, k3, v3 = _skip_inputs(dtype)
+    full = tfa._flash_fwd_plain(q3, k3, v3, None, cfg=ct, sm_scale=D ** -0.5,
+                                causal=True, bk=SKIP_BK, group=HQ // HKV, q_offset=0)
+    for t in range(SKIP_KEYS // SKIP_ROWS):
+        part = _tile_forward(q3, k3, v3, None, ct, t)
+        rows = slice(t * SKIP_ROWS, (t + 1) * SKIP_ROWS)
+        for got, want in zip(part, full):
+            assert torch.equal(got, want[:, rows]), (name, t)
+
+
+def test_flash_skip_needs_a_live_row_max():
+    """Why the kernels skip only under a guard: a row that sees no valid key
+    keeps FX's lowest raw as its max, so every masked key weighs 1 in its
+    sum.  Batch entry 1 masks keys 0-99, so its first 64 rows see nothing:
+    the full forward sums 256 keys for them, a walk that stops at the
+    tile's frontier block 128, and their output moves."""
+    _, ct = CONFIGS["hyft16"]
+    Sk = 256
+    q3, k3, v3 = _skip_inputs(torch.float32, Sk=Sk)
+    maskf = torch.ones(B, Sk)
+    maskf[1, :100] = 0
+    full = tfa._flash_fwd_plain(q3, k3, v3, maskf, cfg=ct, sm_scale=D ** -0.5,
+                                causal=True, bk=SKIP_BK, group=HQ // HKV, q_offset=0)
+    o, m, l = _tile_forward(q3, k3, v3, maskf, ct, 0)
+    dead = slice(HQ, 2 * HQ)                 # the heads of batch entry 1
+    lo = -(2 ** (ct.total_bits - 1))
+    assert bool((full[1][dead, :SKIP_ROWS] == lo).all())
+    assert bool((full[2][dead, :SKIP_ROWS] == 256.0).all())
+    assert bool((l[dead] == 128.0).all())
+    assert not torch.equal(o[dead], full[0][dead, :SKIP_ROWS])
+    live = slice(0, HQ)                      # entry 0 sees key 0 in every row
+    assert torch.equal(o[live], full[0][live, :SKIP_ROWS])

@@ -313,21 +313,32 @@ def test_decode_kernels_serve_long_sequences(batch, nb, cache_dtype):
 # the flash kernels (training)
 # --------------------------------------------------------------------------
 
-# (id, causal, Sq, Sk, ragged mask, q_offset): 200 keys pad to 256
-FLASH_CASES = [("causal", True, 256, 256, False, 0),
-               ("masked-padded", False, 72, 200, True, 0),
-               ("causal-offset-masked", True, 144, 200, True, 56)]
+# (id, causal, Sq, Sk, mask, q_offset): 200 keys pad to 256; "ragged"
+# gives the batch entries lengths Sk and Sk // 3 + 1, "dead" masks keys 0-99
+# of entry 1, so that its first 100 rows see no valid key (the kernels'
+# causal skip must then keep every block)
+FLASH_CASES = [("causal", True, 256, 256, None, 0),
+               ("masked-padded", False, 72, 200, "ragged", 0),
+               ("causal-offset-masked", True, 144, 200, "ragged", 56),
+               ("causal-dead-rows", True, 256, 256, "dead", 0)]
 
 
-def _flash_inputs(gen, Sq, Sk, dtype, ragged):
-    q = torch.randn(B, HQ, Sq, D, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(B, HKV, Sk, D, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(B, HKV, Sk, D, generator=gen, device="cuda").to(dtype)
-    mask = None
-    if ragged:
-        mask = (torch.arange(Sk, device="cuda")[None]
-                < torch.tensor([Sk, Sk // 3 + 1], device="cuda")[:, None]).float()
-    return fa.flash_operands(q, k, v, mask)
+def _flash_mask(kind, Sk, batch=B):
+    if kind is None:
+        return None
+    keys = torch.arange(Sk, device="cuda")[None]
+    if kind == "ragged":
+        return (keys < torch.tensor([Sk, Sk // 3 + 1], device="cuda")[:, None]).float()
+    mask = torch.ones(batch, Sk, device="cuda")
+    mask[1, :100] = 0
+    return mask
+
+
+def _flash_inputs(gen, Sq, Sk, dtype, mask_kind, batch=B, hq=HQ):
+    q = torch.randn(batch, hq, Sq, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(batch, HKV, Sk, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(batch, HKV, Sk, D, generator=gen, device="cuda").to(dtype)
+    return fa.flash_operands(q, k, v, _flash_mask(mask_kind, Sk, batch))
 
 
 @pytest.mark.gpu
@@ -340,8 +351,8 @@ def test_flash_kernels_match_plain(case, dtype, cfg):
     name on the same padded inputs, within the bounds of ``flash_errors``
     and ``grad_errors``."""
     gen = _card()
-    _, causal, Sq, Sk, ragged, q_offset = case
-    q, k, v, maskf, bk = _flash_inputs(gen, Sq, Sk, dtype, ragged)
+    _, causal, Sq, Sk, mask_kind, q_offset = case
+    q, k, v, maskf, bk = _flash_inputs(gen, Sq, Sk, dtype, mask_kind)
     q3, k3, v3 = fa._h3(q), fa._h3(k), fa._h3(v)
     kw = dict(cfg=cfg, sm_scale=D ** -0.5, causal=causal, bk=bk, group=HQ // HKV,
               q_offset=q_offset)
@@ -356,6 +367,34 @@ def test_flash_kernels_match_plain(case, dtype, cfg):
         (fa._flash_bwd_dq_plain(*args, **kw), *fa._flash_bwd_dkv_plain(*args, **kw)),
         cfg)
     assert max(gerr["dq"], gerr["dk"], gerr["dv"]) <= 1, gerr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [HYFT16, HYFT32], ids=["hyft16", "hyft32"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_skip_matches_full(dtype, cfg):
+    """At the training shape (B 4, Hq 12, Hkv 2, S 1024, causal) the forward
+    that skips the causally masked KV blocks equals the one that walks them
+    bit for bit; dk/dv, whose chains lose their first (negligible) terms,
+    stay within ``grad_errors`` of the unskipped kernel."""
+    gen = _card()
+    batch, hq, S = 4, 12, 1024
+    q, k, v, maskf, bk = _flash_inputs(gen, S, S, dtype, None, batch=batch, hq=hq)
+    q3, k3, v3 = fa._h3(q), fa._h3(k), fa._h3(v)
+    kw = dict(cfg=cfg, sm_scale=D ** -0.5, causal=True, bk=bk, group=hq // HKV,
+              q_offset=0)
+    got = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw)
+    full = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw, skip_masked=False)
+    for a, b in zip(got, full):
+        assert torch.equal(a, b)
+    do3 = torch.randn(q3.shape, generator=gen, device="cuda")
+    args = (q3, k3, v3, maskf, do3, fa._flash_delta(do3, got[0]).contiguous(), *got[1:])
+    dq = fa._flash_bwd_dq_cuda(*args, **kw)
+    dkv = fa._flash_bwd_dkv_cuda(*args, **kw)
+    dkv_full = fa._flash_bwd_dkv_cuda(*args, **kw, skip_masked=False)
+    gerr = fa.grad_errors((dq, *dkv), (dq, *dkv_full), cfg)
+    print({"differing": [int((a != b).sum()) for a, b in zip(dkv, dkv_full)], **gerr})
+    assert max(gerr["dk"], gerr["dv"]) <= 1, gerr
 
 
 @pytest.mark.gpu
