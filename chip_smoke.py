@@ -27,10 +27,12 @@ script exits non-zero without its last line:
               masked cases (ragged mask, keys padded to the block, a causal
               q_offset, rows that see no valid key): the forward's (o, m, l)
               within ``flash_errors``, the gradients within
-              ``grad_errors``; at the training shape (HYFT16, HYFT32) the
-              kernels' causal skip against the full walk
-              (``skip_masked=False``): the forward bit for bit, dk/dv
-              within ``grad_errors``, the differing elements counted;
+              ``grad_errors``; at the training shape and on the dead rows
+              (HYFT16, HYFT32) the kernels' causal skip against the full
+              walk (``skip_masked=False``): the forward bit for bit, dq bit
+              for bit under HYFT32 and in the row tiles that keep their
+              masked sub-tiles, dq and dk/dv within ``grad_errors``, the
+              differing elements counted;
   4. serve    greedy ``generate`` of qwen2-1.5b at full width (28 layers,
               random weights from a seed), hyft16, attn_mode="kernel", bf16
               compute, batch 4, prompt 1024, 32 new tokens, once per KV
@@ -94,8 +96,12 @@ script exits non-zero without its last line:
               against their plain versions at the unfused path's shapes:
               training rows (4 x 12 x 1024, 1024) causal, prompt rows
               (4 x 12 x 1024, 1057), decode rows (48, 1057) ragged and
-              nearly flat, and small odd shapes (37 x 200, 3 x 5 x 64, one
-              column, 65536 columns); HYFT16, HYFT32, HYFT16B, HYFT32 with
+              nearly flat, small odd shapes (37 x 200, 3 x 5 x 64, one
+              column, 65536 columns), and the edges of the forward's
+              warp-per-row path (2113 x 1280 at its column cap, 2112 x
+              1281 past it, 2115 x 1001 with unaligned rows, 2111 rows
+              below its row floor, rows of 256, 500 and 3 columns on its
+              narrower width and shorter than one 16-byte chunk); HYFT16, HYFT32, HYFT16B, HYFT32 with
               step 2 and 4; fp32, fp16 and bf16 scores; the backward on the
               forward's output and a seeded dy.  Bitwise in every row within
               the sum precondition of ``kernels/hyft_softmax.py``, within
@@ -355,8 +361,8 @@ def flash_check_phase(torch):
     each pair called by name on the same inputs (the backward pair on the
     plain forward's o, m, l): the forward within ``fa.flash_errors`` (m
     exact or off by one raw), the gradients within ``fa.grad_errors``.  At
-    the main shape (HYFT16, HYFT32) also the kernels' causal skip against
-    the full walk: the forward bit for bit, dk/dv within ``grad_errors``."""
+    the main shape and on the dead rows (HYFT16, HYFT32) also the kernels'
+    causal skip against the full walk (``flash_skip_check``)."""
     from repro_torch.core.hyft import HYFT16, HYFT32
     from repro_torch.kernels import flash_attention as fa
 
@@ -389,9 +395,9 @@ def flash_check_phase(torch):
                     "flash forward disagrees with its plain version"
                 assert max(gerr["dq"], gerr["dk"], gerr["dv"]) <= 1, \
                     "flash backward disagrees with its plain version"
-                if name == "main" and cfg in (HYFT16, HYFT32):
+                if name in ("main", "causal-dead-rows") and cfg in (HYFT16, HYFT32):
                     flash_skip_check(torch, fa, (q3, k3, v3, maskf, do3), kw, got,
-                                     dtype, cfg)
+                                     dtype, cfg, name)
                 if name == "main" and cfg is HYFT16 and dtype == torch.float32:
                     errors["hyft_flash_fwd"] = err["max_abs_err"]
                     errors["hyft_flash_bwd_dq"] = gerr["dq_max_abs_err"]
@@ -401,25 +407,37 @@ def flash_check_phase(torch):
     return errors
 
 
-def flash_skip_check(torch, fa, operands, kw, got, dtype, cfg):
-    """The forward that skips the causally masked work against the one that
-    walks it (``skip_masked=False``), bit for bit; dk/dv likewise within
-    ``grad_errors``, with the count of elements that differ."""
+def flash_skip_check(torch, fa, operands, kw, got, dtype, cfg, case):
+    """The kernels that skip the causally masked work against the ones that
+    walk it (``skip_masked=False``): the forward bit for bit; dq bit for bit
+    under HYFT32 and in every row tile that keeps its masked sub-tiles (the
+    dead rows of "causal-dead-rows"), else within ``grad_errors``; dk/dv
+    within ``grad_errors``; with the count of elements that differ."""
+    from repro_torch.core.hyft import HYFT32
     q3, k3, v3, maskf, do3 = operands
     full = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw, skip_masked=False)
     args = (q3, k3, v3, maskf, do3, fa._flash_delta(do3, got[0]).contiguous(), *got[1:])
     dq = fa._flash_bwd_dq_cuda(*args, **kw)
+    dq_full = fa._flash_bwd_dq_cuda(*args, **kw, skip_masked=False)
     dkv = fa._flash_bwd_dkv_cuda(*args, **kw)
     dkv_full = fa._flash_bwd_dkv_cuda(*args, **kw, skip_masked=False)
-    gerr = fa.grad_errors((dq, *dkv), (dq, *dkv_full), cfg)
-    rec = {"phase": "check", "kernel": "flash_skip", "dtype": str(dtype).split(".")[1],
-           "cfg": cfg.io_dtype, "fwd_bitwise": all(map(torch.equal, got, full)),
+    gerr = fa.grad_errors((dq, *dkv), (dq_full, *dkv_full), cfg)
+    kept = fa.dq_kept_rows(got[1], cfg)
+    rec = {"phase": "check", "kernel": "flash_skip", "case": case,
+           "dtype": str(dtype).split(".")[1], "cfg": cfg.io_dtype,
+           "fwd_bitwise": all(map(torch.equal, got, full)),
+           "dq_differing": int((dq != dq_full).sum()),
            "dk_differing": int((dkv[0] != dkv_full[0]).sum()),
            "dv_differing": int((dkv[1] != dkv_full[1]).sum()),
-           "dk": gerr["dk"], "dv": gerr["dv"]}
+           "dq_rows_kept": int(kept.sum()),
+           "dq_kept_rows_bitwise": bool(torch.equal(dq[kept], dq_full[kept])),
+           "dq": gerr["dq"], "dk": gerr["dk"], "dv": gerr["dv"]}
     emit(rec)
     assert rec["fwd_bitwise"], "flash forward: skipping the masked work moved a bit"
-    assert max(gerr["dk"], gerr["dv"]) <= 1, "flash dk/dv: the skip moved them too far"
+    assert rec["dq_kept_rows_bitwise"], "flash dq: the masked sub-tiles it kept moved a bit"
+    assert case != "causal-dead-rows" or rec["dq_rows_kept"] > 0, "no dead row tile"
+    assert cfg is not HYFT32 or rec["dq_differing"] == 0, "flash dq: the HYFT32 skip moved a bit"
+    assert max(gerr["dq"], gerr["dk"], gerr["dv"]) <= 1, "flash dq/dk/dv: the skip moved them too far"
 
 
 def _timed(torch, fn):
@@ -1215,6 +1233,19 @@ def _softmax_shapes(torch):
         ("3x5x64", (3, 5, 64), torch.full((15,), 64, device="cuda"), 3.0),
         ("one_column", (5, 1), torch.ones(5, device="cuda"), 3.0),
         ("65536", (4, 65536), torch.tensor([65536, 40000, 1000, 1], device="cuda"), 3.0),
+        # the warp-per-row path's edges (it takes 2112 rows or more of at most
+        # 1280 columns): the column cap, 2113 rows (not a multiple of the 4
+        # rows a block), 1001 columns (rows not 16-byte aligned), rows of its
+        # narrower width (32 a lane) far shorter than it, and rows of 3
+        # columns (less than one 16-byte chunk); cap + 1 columns and 2111
+        # rows take the block path
+        ("2113x1280", (2113, 1280), ar(2113) % 1280 + 1, 3.0),
+        ("2112x1281", (2112, 1281), ar(2112) % 1281 + 1, 3.0),
+        ("2112x256", (2112, 256), ar(2112) % 256 + 1, 3.0),
+        ("2113x500", (2113, 500), ar(2113) * 3 % 500 + 1, 3.0),
+        ("2112x3", (2112, 3), ar(2112) % 3 + 1, 3.0),
+        ("2115x1001", (2115, 1001), ar(2115) * 7 % 1001 + 1, 3.0),
+        ("2111x1024", (2111, 1024), ar(2111) % 1024 + 1, 3.0),
     ]
 
 
@@ -1488,8 +1519,10 @@ def softmax_kernels_phase(torch, errors, serve_launches, train_launches):
         big = rows > 1024
         reps = 20 if big else 2 * nbuf
         event_ms = _event_ms(torch, kernel, reps)
+        # "softmax_fwd" names both forward kernels: the warp per row
+        # (softmax_fwd_warp_kernel) and the block per row (softmax_fwd_kernel)
         timing = _kernel_ms(torch, kernel, reps,
-                            "softmax_bwd_kernel" if bwd else "softmax_fwd_kernel", event_ms)
+                            "softmax_bwd_kernel" if bwd else "softmax_fwd", event_ms)
         plain_ms = _event_ms(torch, plain, 5 if big else 50)
         ops = SOFTMAX_OPS[entry] * rows * cols
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3

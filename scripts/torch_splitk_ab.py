@@ -3,6 +3,7 @@
 
     python3 scripts/torch_splitk_ab.py [--tree DIR] [--label NAME] [--kernels-only]
     python3 scripts/torch_splitk_ab.py --flash [--tree DIR] [--label NAME] [--save DIR]
+    python3 scripts/torch_splitk_ab.py --softmax [--tree DIR] [--label NAME]
     python3 scripts/torch_splitk_ab.py --compare A.pt B.pt
 
 ``--tree`` is the root of a checkout of this repository (default: the one
@@ -36,21 +37,35 @@ With ``--flash`` it times the training path's flash kernels instead:
   (B 4, Hq 12, Hkv 2, S 1024, D 128, causal, fp32 q/k/v, HYFT16),
   ``event_ms`` and ``device_ms`` as above;
 * ``flash_bits``: on fixed seeded inputs (fp32 and bf16, HYFT16, the
-  training shape) a sha256 of the bytes of o, m, l, dq, dk and dv, so that
-  two trees can be compared bit for bit, and dk/dv against the plain
-  versions on the kernel's own stats (``grad_errors``); with ``--save`` the
-  tensors go to ``DIR/<label>_<dtype>.pt``, and ``--compare`` counts the
-  elements of two saved files that differ;
+  training shape) a sha256 of the bytes of o, m, l, dq, dk and dv, and of
+  ``dq_full``, dq with the causal skip turned off where the tree's wrapper
+  has ``skip_masked`` (else its dq, which walks every key), so that two
+  trees can be compared bit for bit; the elements of dq that the skip
+  moves; dk/dv against the plain versions on the kernel's own stats
+  (``grad_errors``); with ``--save`` the tensors go to
+  ``DIR/<label>_<dtype>.pt``, and ``--compare`` counts the elements of two
+  saved files that differ;
 * ``train_step``: qwen2-1.5b at full width through the launcher's functions
   (hyft16, kernel mode, bf16 compute, remat "full", AdamW, 4 x 1024
   tokens): one warm-up step, 3 timed steps (wall ms), then one step under
   torch.profiler: wall, device busy time, and each flash kernel's device
   time and launches.
+
+With ``--softmax`` it times the standalone softmax forward instead:
+
+* ``softmax_kernels``: ``hyft_softmax_fwd`` under HYFT16 (fp32 scores in,
+  fp16 out) at the unfused path's three shapes, training (49,152 x 1024),
+  prompt (49,152 x 1057) and decode (48 x 1057), each over as many input
+  buffers as it takes to exceed twice the L2, ``event_ms`` and
+  ``device_ms`` as above, and a sha256 of the output on a seeded input;
+* ``train_step``: the training step above with ``hyft16_kernel`` in the
+  unfused mode, each softmax kernel's device time and launches.
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import subprocess
 import sys
@@ -229,12 +244,18 @@ def flash_bits(torch, card):
         args = (q3, k3, v3, None, do3, fa._flash_delta(do3, o).contiguous(), m, l)
         dq = fa._flash_bwd_dq_cuda(*args, **kw)
         dk, dv = fa._flash_bwd_dkv_cuda(*args, **kw)
-        out = {"o": o, "m": m, "l": l, "dq": dq, "dk": dk, "dv": dv}
+        if "skip_masked" in inspect.signature(fa._flash_bwd_dq_cuda).parameters:
+            dq_full = fa._flash_bwd_dq_cuda(*args, **kw, skip_masked=False)
+        else:   # a dq kernel that walks every key
+            dq_full = dq
+        out = {"o": o, "m": m, "l": l, "dq": dq, "dk": dk, "dv": dv, "dq_full": dq_full}
         gerr = fa.grad_errors((dq, dk, dv), (dq, *fa._flash_bwd_dkv_plain(*args, **kw)),
                               HYFT16)
         emit({"part": "flash_bits", "card": card, "dtype": str(dtype).split(".")[1],
               "sha256": {k: hashlib.sha256(t.contiguous().cpu().numpy().tobytes())
                          .hexdigest()[:16] for k, t in out.items()},
+              "dq_skip_differing": int((dq != dq_full).sum()),
+              "dq_skip_vs_full": fa.grad_errors((dq,), (dq_full,), HYFT16)["dq"],
               "dkv_vs_plain": {k: gerr[k] for k in ("dk", "dv", "dk_max_abs_err",
                                                       "dv_max_abs_err")}})
         if ARGS.save:
@@ -243,12 +264,12 @@ def flash_bits(torch, card):
                        ARGS.save / f"{ARGS.label.replace('/', '_')}_{dtype}.pt")
 
 
-def train_step(torch, card):
+def train_step(torch, card, softmax="hyft16", attn_mode="kernel", kernels="flash_"):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import train as launch
 
     run = launch.build(launch.parse_args([
-        "--arch", "qwen2-1.5b", "--softmax", "hyft16", "--attn-mode", "kernel",
+        "--arch", "qwen2-1.5b", "--softmax", softmax, "--attn-mode", attn_mode,
         "--global-batch", str(B), "--seq", str(FLASH_S), "--steps", "8",
         "--remat", "full", "--optimizer", "adamw", "--lr", "1e-3", "--seed", "0"]))
     state, walls = run["state"], []
@@ -269,11 +290,44 @@ def train_step(torch, card):
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     us = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
-    emit({"part": "train_step", "card": card, "warmup_ms": walls[0], "step_ms": walls[1:],
+    emit({"part": "train_step", "card": card, "softmax": softmax, "attn_mode": attn_mode,
+          "warmup_ms": walls[0], "step_ms": walls[1:],
           "profiled_wall_ms": wall * 1e3, "device_busy_ms": sum(map(us, dev)) / 1e3,
           "launches": sum(e.count for e in dev),
-          "flash": {e.key[:40]: {"device_ms": us(e) / 1e3, "count": e.count}
-                    for e in dev if "flash_" in e.key}})
+          "kernels": {e.key[:40]: {"device_ms": us(e) / 1e3, "count": e.count}
+                      for e in dev if kernels in e.key}})
+
+
+L2_BYTES = 50 * 2 ** 20
+SOFTMAX_SHAPES = {"train": (B * HQ * FLASH_S, FLASH_S), "prompt": (B * HQ * PROMPT, MAX_LEN),
+                  "decode": (B * HQ, MAX_LEN)}
+
+
+def softmax_kernels(torch, card):
+    """Kernel 1 at the unfused path's shapes: rows of causal scores (row r
+    keeps its first r % cols + 1 keys, the rest masked), fp32 in, fp16
+    out."""
+    from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.kernels.flash_attention import NEG_BIG
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for name, (rows, cols) in SOFTMAX_SHAPES.items():
+        nbuf = max(1, -(-2 * L2_BYTES // (rows * cols * 6)))
+        keep = torch.arange(rows, device="cuda") % min(cols, PROMPT) + 1
+        live = torch.arange(cols, device="cuda")[None] < keep[:, None]
+        bufs = [torch.where(live, torch.randn(rows, cols, generator=gen, device="cuda") * 3,
+                            NEG_BIG) for _ in range(nbuf)]
+
+        def fn(i):
+            return hs.hyft_softmax_fwd_kernel(bufs[i % nbuf], HYFT16)
+        calls = 20 if rows > 1024 else 2 * nbuf
+        ms, launches = _device_ms(torch, fn, calls)
+        emit({"part": "softmax_kernels", "card": card, "kernel": "hyft_softmax_fwd",
+              "shape": [rows, cols], "buffers": nbuf, "event_ms": _event_ms(torch, fn, calls),
+              "device_ms": ms, "launches_per_call": launches,
+              "sha256": hashlib.sha256(fn(0).cpu().numpy().tobytes()).hexdigest()[:16]})
+        del bufs
 
 
 def compare(torch, a, b):
@@ -310,6 +364,11 @@ def main():
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     emit({"part": "build", "card": card, "seconds": build.build()["seconds"]})
+    if ARGS.softmax:
+        softmax_kernels(torch, card)
+        if not ARGS.kernels_only:
+            train_step(torch, card, "hyft16_kernel", "unfused", "softmax_")
+        return
     if ARGS.flash:
         flash_kernels(torch, card)
         flash_bits(torch, card)
@@ -329,6 +388,8 @@ if __name__ == "__main__":
                         help="time the kernels, skip the profiled generate or train step")
     parser.add_argument("--flash", action="store_true",
                         help="the training path's flash kernels instead of split-K")
+    parser.add_argument("--softmax", action="store_true",
+                        help="the standalone softmax forward and an unfused training step")
     parser.add_argument("--save", type=Path, default=None,
                         help="with --flash: save the hashed tensors under this directory")
     parser.add_argument("--compare", type=Path, nargs=2, default=None,

@@ -38,11 +38,12 @@ ENTRY_ARGS = {
     "hyft_paged_decode": _PAGED_ARGS,
     "hyft_paged_verify": _PAGED_ARGS,
     "hyft_flash_fwd": [_P] * 7 + [_I] * 11 + [_F] + _HYFT_ARGS,
-    "hyft_flash_bwd_dq": [_P] * 9 + [_I] * 9 + [_F] + _HYFT_ARGS,
+    "hyft_flash_bwd_dq": [_P] * 9 + [_I] * 10 + [_F] + _HYFT_ARGS,
     "hyft_flash_bwd_dkv": [_P] * 10 + [_I] * 10 + [_F] + _HYFT_ARGS,
     "hyft_softmax_fwd": [_P] * 2 + [_I] * 4 + _HYFT_ARGS,
     "hyft_softmax_bwd": [_P] * 3 + [_I] * 6 + [_P],
 }
+ERROR_ARGS = [_I]                             # hyft_error_string(err) -> char*
 _lib: ctypes.CDLL | None = None
 
 
@@ -121,7 +122,7 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.hyft_error_string.argtypes = [ctypes.c_int]
+        lib.hyft_error_string.argtypes = ERROR_ARGS
         lib.hyft_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib

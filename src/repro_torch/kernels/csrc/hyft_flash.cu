@@ -33,27 +33,32 @@
 // scale), in all three kernels, so that the backward recomputes the
 // forward's score bits.
 //
-// The forward and dk/dv kernels are register-tiled: a thread holds a few
-// rows x a few keys of scores (and rows x columns or keys x columns of
-// sums) and reads its operands from shared memory as float4, each output's
-// chain kept in its order.  The forward takes 64 query rows per block, two
-// blocks per SM: 4 rows x 8 keys of scores and 4 rows x 8 columns of PV a
-// thread (32 FMAs per 3 float4 loads).  K is staged in slices of 32 d and V
-// in slices of 32 keys through a two-slot cp.async ring, the next slice
-// loading during the math.  Its exponent units run over all threads, and
-// the block sum lb is an integer count of 2^-acc reduced by warp shuffles:
-// equal to the ordered fp32 sum while the count stays below 2^24 (every
-// partial sum exact; always under HYFT16, whose block of 128 keys counts at
-// most 2^21), else the ordered sum.  dk/dv takes 32 keys per block (K, V in
-// shared memory), one block per SM, and walks the query rows of every group
-// member in order, in sub-tiles of 64 through the ring; half the threads
-// run the q.k chains, the other half the do.v chains (4 rows x 4 keys a
-// thread), then the first half sums dv and the second dk (4 keys x 8
-// columns).  One fixed-order chain per output over (group member, row), the
-// parent design's order; the longest causal key tiles first.  On an H100
-// at the training shape both run at about 37% of the fp32 peak; 128-row
-// forward tiles of 8 x 8 (one block per SM) and dk/dv sub-tiles of 32 rows
-// (two blocks per SM) measured slower (PERF.md).
+// All three are register-tiled: a thread holds a few rows x a few keys of
+// scores (and rows x columns or keys x columns of sums) and reads its
+// operands from shared memory as float4, each output's chain kept in its
+// order.  The forward takes 64 query rows per block, two blocks per SM: 4
+// rows x 8 keys of scores and 4 rows x 8 columns of PV a thread (32 FMAs per
+// 3 float4 loads).  K is staged in slices of 32 d and V in slices of 32 keys
+// through a two-slot cp.async ring, the next slice loading during the math.
+// Its exponent units run over all threads, and the block sum lb is an
+// integer count of 2^-acc reduced by warp shuffles: equal to the ordered
+// fp32 sum while the count stays below 2^24 (every partial sum exact; always
+// under HYFT16, whose block of 128 keys counts at most 2^21), else the
+// ordered sum.  dk/dv takes 32 keys per block (K, V in shared memory), one
+// block per SM, and walks the query rows of every group member in order, in
+// sub-tiles of 64 through the ring; half the threads run the q.k chains, the
+// other half the do.v chains (4 rows x 4 keys a thread), then the first half
+// sums dv and the second dk (4 keys x 8 columns).  One fixed-order chain per
+// output over (group member, row), the parent design's order; the longest
+// causal key tiles first.  dq mirrors it over the other axis: 64 query rows
+// per block (q and do staged once), two blocks per SM, K and V in sub-tiles
+// of 32 keys, the q.k and do.v chains on the two halves (4 rows x 4 keys a
+// thread), then dq summed by every thread (4 rows x 8 columns), keys in
+// order; the longest causal row tiles first.  On an H100 at the training
+// shape the three run at about 36-41% of the fp32 peak; 128-row forward
+// tiles of 8 x 8 (one block per SM) and dk/dv sub-tiles of 32 rows (two
+// blocks per SM) measured slower, dq with a two-slot ring (one block per
+// SM) too (PERF.md).
 //
 // The causally masked work.  A masked score saturates to FX's lowest raw
 // lo = -(2^(total-1)) whatever q.k, so in a row whose max is m score units
@@ -73,6 +78,13 @@
 //    2^-acc of the row's largest.  Those terms come
 //    first in each dk/dv chain, so dk/dv may differ from the full
 //    computation in the last bits; they are held to grad_errors.
+//  * dq takes a key sub-tile wholly past the tile's last query position
+//    off the end of every chain of the tile when every row in it passes the
+//    same guard (under HYFT32 its probability is then 0 on every input the
+//    checks use, and dq is the full walk's, bit for bit; under HYFT16 it is
+//    held to grad_errors).  Otherwise (a row that sees no valid key, or a
+//    max near lo) the sub-tile runs its do.v chains and its dq terms on
+//    each row's masked probability, with no q.k: bit for bit the full walk.
 //
 // Arithmetic rules that keep it equal to the reference:
 //  * each score q.k (and each do.v) is one fmaf chain over d = 0..D-1, the
@@ -80,6 +92,9 @@
 //    the same score bits, and a row's result does not depend on its tile;
 //  * each PV output is one fmaf chain over the block's keys in order from
 //    0, then acc = acc * alpha + pv;
+//  * each dq output is one fmaf chain over the keys in order, each dk and
+//    dv output one over (group member, row) in order, then one
+//    __fmul_rn(acc, scale) for dq and dk;
 //  * masking (causal: q_offset + row >= key; the (B, Sk) mask > 0) happens
 //    on the float score before FP2FX, with NEG_BIG for both;
 //  * the Hyft arithmetic is hyft_numerics.cuh's, shared with hyft_splitk.cu.
@@ -97,10 +112,7 @@ namespace {
 using namespace hyft;
 
 constexpr int kThreads = 256;
-constexpr int kRows = 16;  // dq: query rows of a block
-constexpr int kSub = 64;   // dq: rows of one staged sub-tile of K and V
-constexpr int kScoreRows = kRows / (kThreads / kSub);  // 4 per thread
-constexpr int kStages = 2;  // slots of the cp.async ring (forward, dk/dv)
+constexpr int kStages = 2;  // slots of the cp.async ring
 
 // the masked, scaled score -- the where()s of _flash_fwd_kernel (:117-122)
 __device__ __forceinline__ float masked_score(float dot, float scale, int qi, int ki,
@@ -452,108 +464,6 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
 }
 
 // --------------------------------------------------------------------------
-// dq.  Grid (ceil(sq / kRows), BH).  Shared memory (dynamic):
-//   s_q, s_do [kRows][D]          the query rows and their output gradient
-//   s_k, s_v  [kSub][D + 1]       one K and one V sub-tile
-//   s_ds      [kRows][kSub]       ds = p (dp - delta)
-// --------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ delta,
-    const int* __restrict__ m_in, const float* __restrict__ l_in,
-    const float* __restrict__ mask, float* __restrict__ dq, int sq, int sk, int group,
-    int hq_per_b, int q_offset, int causal, float scale, Params h) {
-  constexpr int kAccRows = kRows * D / kThreads;  // 8 rows per thread in ds.k
-  extern __shared__ float smem[];
-  float* s_q = smem;
-  float* s_do = s_q + kRows * D;
-  float* s_k = s_do + kRows * D;
-  float* s_v = s_k + kSub * (D + 1);
-  float* s_ds = s_v + kSub * (D + 1);
-  __shared__ int s_m[kRows], s_eb[kRows], s_mb[kRows];
-  __shared__ float s_delta[kRows];
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
-  const int bh = blockIdx.y;
-  const long kv0 = static_cast<long>(bh / group) * sk;
-  const float* mrow = mask ? mask + static_cast<long>(bh / hq_per_b) * sk : nullptr;
-
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int row = row0 + i / D;
-    const long gi = (static_cast<long>(bh) * sq + row) * D + i % D;
-    s_q[i] = row < sq ? load_f32(q, gi) : 0.0f;
-    s_do[i] = row < sq ? dout[gi] : 0.0f;
-  }
-  if (tid < kRows) {
-    const int row = row0 + tid;
-    const long ri = static_cast<long>(bh) * sq + row;
-    int e_b = 0, m_b = 0;
-    if (row < sq) lod_refloat(l_in[ri], h.mant, e_b, m_b);
-    s_m[tid] = row < sq ? m_in[ri] : 0;
-    s_eb[tid] = e_b;
-    s_mb[tid] = m_b;
-    s_delta[tid] = row < sq ? delta[ri] : 0.0f;
-  }
-
-  const int jj = tid % kSub;
-  const int rq0 = (tid / kSub) * kScoreRows;
-  const int dc = tid % D;
-  const int rp0 = (tid / D) * kAccRows;
-  float acc[kAccRows];
-#pragma unroll
-  for (int rr = 0; rr < kAccRows; ++rr) acc[rr] = 0.0f;
-
-  for (int j0 = 0; j0 < sk; j0 += kSub) {
-    const int nkeys = min(kSub, sk - j0);
-    __syncthreads();
-    for (int i = tid; i < kSub * D; i += kThreads) {
-      const int jl = i / D, d = i % D;
-      const long gi = (kv0 + j0 + jl) * D + d;
-      s_k[jl * (D + 1) + d] = jl < nkeys ? load_f32(k, gi) : 0.0f;
-      s_v[jl * (D + 1) + d] = jl < nkeys ? load_f32(v, gi) : 0.0f;
-    }
-    __syncthreads();
-    if (jj < nkeys) {
-      float dot[kScoreRows], dpv[kScoreRows];
-#pragma unroll
-      for (int rr = 0; rr < kScoreRows; ++rr) dot[rr] = dpv[rr] = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        const float kd = s_k[jj * (D + 1) + d];
-        const float vd = s_v[jj * (D + 1) + d];
-#pragma unroll
-        for (int rr = 0; rr < kScoreRows; ++rr) {
-          dot[rr] = fmaf(s_q[(rq0 + rr) * D + d], kd, dot[rr]);
-          dpv[rr] = fmaf(s_do[(rq0 + rr) * D + d], vd, dpv[rr]);
-        }
-      }
-#pragma unroll
-      for (int rr = 0; rr < kScoreRows; ++rr) {
-        const int r = rq0 + rr;
-        const float z = masked_score(dot[rr], scale, q_offset + row0 + r, j0 + jj,
-                                     causal, mrow);
-        const float p = recompute_prob(z, s_m[r], s_eb[r], s_mb[r], h);
-        s_ds[r * kSub + jj] = __fmul_rn(p, __fsub_rn(dpv[rr], s_delta[r]));
-      }
-    }
-    __syncthreads();
-    for (int jl = 0; jl < nkeys; ++jl) {
-      const float kd = s_k[jl * (D + 1) + dc];
-#pragma unroll
-      for (int rr = 0; rr < kAccRows; ++rr)
-        acc[rr] = fmaf(s_ds[(rp0 + rr) * kSub + jl], kd, acc[rr]);
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < kAccRows; ++rr) {
-    const int row = row0 + rp0 + rr;
-    if (row < sq) dq[(static_cast<long>(bh) * sq + row) * D + dc] = __fmul_rn(acc[rr], scale);
-  }
-}
-
-// --------------------------------------------------------------------------
 // dk/dv.  Grid (BHkv, ceil(sk / 32)), key tile y: the first keys first (the
 // longest under the causal mask).  A block holds its 32 keys' K and V and
 // walks the query rows of every group member in order, in sub-tiles of 64
@@ -586,8 +496,8 @@ struct DkvSmem {
 
 // acc[i][u] = one fmaf chain over d in order of a[row ry + 16i] . b[key kx +
 // 8u], rows of the pitch-aP tile a, keys of the pitch-bP tile b
-template <int D, int aP, int bP, typename TA>
-__device__ __forceinline__ void dot_tile(float (&acc)[kDkvRT][4], const TA* a, const float* b,
+template <int D, int aP, int bP, typename TA, typename TB>
+__device__ __forceinline__ void dot_tile(float (&acc)[kDkvRT][4], const TA* a, const TB* b,
                                         int ry, int kx) {
 #pragma unroll
   for (int i = 0; i < kDkvRT; ++i)
@@ -795,6 +705,189 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
   }
 }
 
+// --------------------------------------------------------------------------
+// dq.  Grid (BH, ceil(sq / 64)), the tiles of the last rows first (the
+// longest under the causal mask), two blocks per SM.  A block stages its 64
+// query rows' q and do once and walks K and V in sub-tiles of 32 keys, one
+// staged at a time by cp.async: the next one loads after the math, while
+// the SM's other block computes (a second slot would leave room for one
+// block an SM only, and measured slower: PERF.md).  The two halves of the
+// block split the score work: half 0 runs the q.k chains and the
+// probabilities p, half 1 the do.v chains and then ds = p (dp - delta),
+// each thread 4 rows (ry + 16i) x 4 keys (kx + 8u); then every thread sums
+// dq += ds k for 4 rows (4rq..) x 8 columns (4cx.., 64 + 4cx..), keys in
+// order.  Shared memory (dynamic):
+//   s_q    [64][D + pad]          the query rows, T
+//   s_do   [64][D + 4]            their output gradient, fp32
+//   s_k    [32][D + pad]          the sub-tile's keys, T
+//   s_v    [32][D + pad]          its values, T
+//   s_ds   [32][64 + 4]           p, then ds, key-major
+//   stats  [5][64]                m, e_b, m_b, delta, the masked probability
+// --------------------------------------------------------------------------
+constexpr int kDqRows = 64;  // query rows of a dq block
+constexpr int kDqKeys = 32;  // keys of one staged sub-tile
+
+template <typename T, int D>
+struct DqSmem {
+  static constexpr int kQP = D + 16 / sizeof(T);  // s_q pitch (T)
+  static constexpr int kOP = D + 4;               // s_do pitch (fp32)
+  static constexpr int kKP = D + 16 / sizeof(T);  // K, V pitch (T)
+  static constexpr int kSP = kDqRows + 4;         // s_ds pitch (fp32)
+  static constexpr int kQBytes = kDqRows * kQP * sizeof(T);
+  static constexpr int kOBytes = kDqRows * kOP * 4;
+  static constexpr int kTile = kDqKeys * kKP * sizeof(T);
+  static constexpr int kSBytes = kDqKeys * kSP * 4;
+  static constexpr size_t kBytes = kQBytes + kOBytes + 2 * kTile + kSBytes + 5 * kDqRows * 4;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ delta,
+    const int* __restrict__ m_in, const float* __restrict__ l_in,
+    const float* __restrict__ mask, float* __restrict__ dq, int sq, int sk, int group,
+    int hq_per_b, int q_offset, int causal, int skip, float scale, Params h) {
+  static_assert(D == 128, "the thread layout covers 128 columns");
+  using S = DqSmem<T, D>;
+  extern __shared__ __align__(16) unsigned char dq_smem[];
+  T* s_q = reinterpret_cast<T*>(dq_smem);
+  float* s_do = reinterpret_cast<float*>(dq_smem + S::kQBytes);
+  T* s_k = reinterpret_cast<T*>(dq_smem + S::kQBytes + S::kOBytes);
+  const T* s_v = s_k + kDqKeys * S::kKP;
+  float* s_ds = reinterpret_cast<float*>(dq_smem + S::kQBytes + S::kOBytes + 2 * S::kTile);
+  int* s_m = reinterpret_cast<int*>(s_ds + kDqKeys * S::kSP);
+  int* s_eb = s_m + kDqRows;
+  int* s_mb = s_eb + kDqRows;
+  float* s_dl = reinterpret_cast<float*>(s_mb + kDqRows);
+  float* s_pm = s_dl + kDqRows;
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int half = tid / 128, hw = (tid % 128) / 32;  // half 0: p; 1: do.v and ds
+  const int ry = hw * 4 + lane / 8, kx = lane % 8;     // scores
+  const int rq = tid / 16, cx = tid % 16;              // sums
+  const int bh = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;
+  const int nvalid = min(kDqRows, sq - row0);
+  const long kv0 = static_cast<long>(bh / group) * sk;
+  const float* mrow = mask ? mask + static_cast<long>(bh / hq_per_b) * sk : nullptr;
+  // sub-tiles from n_live on lie wholly past the tile's causal frontier:
+  // every score in them is masked, whatever q.k
+  const int nsub = (sk + kDqKeys - 1) / kDqKeys;
+  const int last_pos = q_offset + row0 + nvalid - 1;
+  const int n_live =
+      causal && skip ? (last_pos < 0 ? 0 : min(nsub, last_pos / kDqKeys + 1)) : nsub;
+
+  auto issue = [&](int t) {
+    const long first = (kv0 + static_cast<long>(t) * kDqKeys) * D;
+    const int nk = min(kDqKeys, sk - t * kDqKeys);
+    fetch_rows<T, D, S::kKP>(s_k, k, first, D, kDqKeys, nk);
+    fetch_rows<T, D, S::kKP>(s_k + kDqKeys * S::kKP, v, first, D, kDqKeys, nk);
+    cp_async_commit();
+  };
+
+  // q and do go with the first sub-tile's group
+  const long qbase = (static_cast<long>(bh) * sq + row0) * D;
+  fetch_rows<T, D, S::kQP>(s_q, q, qbase, D, kDqRows, nvalid);
+  fetch_rows<float, D, S::kOP>(s_do, dout, qbase, D, kDqRows, nvalid);
+  // the row stats, each row's masked probability, and the guard of the skip:
+  // a row whose masked term counts 0 in the adder tree
+  bool faint = true;
+  if (tid < kDqRows) {
+    int m = 0, e_b = 0, m_b = 0;
+    float dl = 0.0f, pm = 0.0f;
+    if (tid < nvalid) {
+      const long ri = static_cast<long>(bh) * sq + row0 + tid;
+      m = m_in[ri];
+      lod_refloat(l_in[ri], h.mant, e_b, m_b);
+      dl = delta[ri];
+      pm = recompute_prob(kNegBig, m, e_b, m_b, h);
+      float p;
+      int count;
+      masked_term(m, h, p, count);
+      faint = count == 0;
+    }
+    s_m[tid] = m;
+    s_eb[tid] = e_b;
+    s_mb[tid] = m_b;
+    s_dl[tid] = dl;
+    s_pm[tid] = pm;
+  }
+  // (i) every row faint: the masked sub-tiles are the trailing terms of each
+  // dq chain, below 2^-acc of the row's largest, and go; (ii) else they run
+  // on each row's masked probability, with no q.k, bit for bit the full walk
+  int n_end = nsub;
+  if (n_live < nsub && __syncthreads_and(faint)) n_end = n_live;
+  if (n_end > 0) issue(0);
+  else cp_async_commit();
+
+  float acc[4][8];  // dq before its scale
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+
+  for (int t = 0; t < n_end; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();
+    const int j0 = t * kDqKeys, nk = min(kDqKeys, sk - j0);
+
+    // ---- half 0: q.k -> p (a masked sub-tile: the row's constant); half 1: do.v
+    float dots[kDkvRT][4];
+    if (half == 0) {
+      const bool live = t < n_live;
+      if (live) dot_tile<D, S::kQP, S::kKP>(dots, s_q, s_k, ry, kx);
+#pragma unroll
+      for (int i = 0; i < kDkvRT; ++i) {
+        const int rl = ry + 16 * i;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int jl = kx + 8 * u;
+          float p = 0.0f;
+          if (rl < nvalid && jl < nk)
+            p = live ? recompute_prob(masked_score(dots[i][u], scale, q_offset + row0 + rl,
+                                                   j0 + jl, causal, mrow),
+                                      s_m[rl], s_eb[rl], s_mb[rl], h)
+                     : s_pm[rl];
+          s_ds[jl * S::kSP + rl] = p;
+        }
+      }
+    } else {
+      dot_tile<D, S::kOP, S::kKP>(dots, s_do, s_v, ry, kx);
+    }
+    __syncthreads();
+    if (half == 1) {
+#pragma unroll
+      for (int i = 0; i < kDkvRT; ++i) {
+        const int rl = ry + 16 * i;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int at = (kx + 8 * u) * S::kSP + rl;
+          s_ds[at] = __fmul_rn(s_ds[at], __fsub_rn(dots[i][u], s_dl[rl]));
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- dq += ds k over the sub-tile's keys in order
+    sum_rows<S::kSP, S::kKP>(acc, s_ds, s_k, nk, rq, cx);
+    __syncthreads();
+    if (t + 1 < n_end) issue(t + 1);  // the other block of the SM computes meanwhile
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int rl = 4 * rq + r;
+    if (rl >= nvalid) continue;
+    float* out = dq + qbase + static_cast<long>(rl) * D + 4 * cx;
+    float o[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) o[c] = __fmul_rn(acc[r][c], scale);
+    *reinterpret_cast<float4*>(out) = make_float4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<float4*>(out + 64) = make_float4(o[4], o[5], o[6], o[7]);
+  }
+}
+
 // raise the dynamic shared memory limit of a kernel once per instantiation
 // and size (one device per process, as the wrappers use it)
 template <typename Kernel>
@@ -828,19 +921,20 @@ template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* delta, const void* m, const void* l, const void* mask,
                       void* dq, int bh, int sq, int sk, int group, int hq_per_b,
-                      int q_offset, int causal, float scale, Params h, cudaStream_t stream) {
+                      int q_offset, int causal, int skip, float scale, Params h,
+                      cudaStream_t stream) {
   auto kern = flash_bwd_dq_kernel<T, D>;
-  const size_t smem = sizeof(float) * (2 * kRows * D + 2 * kSub * (D + 1) + kRows * kSub);
+  const size_t smem = DqSmem<T, D>::kBytes;
   static size_t allowed = 0;
   cudaError_t err = allow_smem(kern, smem, allowed);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kRows - 1) / kRows, bh);
+  const dim3 grid(bh, (sq + kDqRows - 1) / kDqRows);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(delta),
       static_cast<const int*>(m), static_cast<const float*>(l),
       static_cast<const float*>(mask), static_cast<float*>(dq), sq, sk, group, hq_per_b,
-      q_offset, causal, scale, h);
+      q_offset, causal, skip, scale, h);
   return cudaGetLastError();
 }
 
@@ -905,23 +999,27 @@ int hyft_flash_fwd(const void* q, const void* k, const void* v, const void* mask
 }
 
 // dq: the forward's operands plus do (BH, sq, D) f32, delta (BH, sq) f32 and
-// the row stats m, l; writes dq (BH, sq, D) f32.
+// the row stats m, l; q, k, v and do 16-byte aligned.  skip != 0 drops the
+// causally masked key sub-tiles under the guard of the note above, or runs
+// them without their scores.  Writes dq (BH, sq, D) f32.
 int hyft_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* delta, const void* m, const void* l, const void* mask,
                       void* dq, int in_type, int bh, int sq, int sk, int d, int group,
-                      int hq_per_b, int q_offset, int causal, float scale, int frac,
-                      int total, int mant, int acc, int step, void* stream) {
-  if (!valid_shape(bh, sq, sk, group, hq_per_b, step, frac, mant))
+                      int hq_per_b, int q_offset, int causal, int skip, float scale,
+                      int frac, int total, int mant, int acc, int step, void* stream) {
+  if (!valid_shape(bh, sq, sk, group, hq_per_b, step, frac, mant) || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(dout))
     return cudaErrorInvalidValue;
   const Params h{frac, total, mant, acc, step};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 128) {
     if (in_type == 0)
       return launch_dq<float, 128>(q, k, v, dout, delta, m, l, mask, dq, bh, sq, sk, group,
-                                   hq_per_b, q_offset, causal, scale, h, s);
+                                   hq_per_b, q_offset, causal, skip, scale, h, s);
     if (in_type == 1)
       return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, delta, m, l, mask, dq, bh, sq, sk,
-                                           group, hq_per_b, q_offset, causal, scale, h, s);
+                                           group, hq_per_b, q_offset, causal, skip, scale, h,
+                                           s);
   }
   return cudaErrorInvalidValue;
 }

@@ -721,10 +721,9 @@ def _flash_fwd_cuda(q3, k3, v3, maskf, *, cfg: HyftConfig, sm_scale: float,
 
 
 def _bwd_cuda_args(q3, k3, v3, maskf, do3, delta, m2, l2, *, cfg, sm_scale,
-                   causal, group, q_offset):
+                   causal, group, q_offset, skip_masked):
     """The pointers and ints that both backward kernels take: the pointers,
-    the ints up to ``causal``, and the scale with the Hyft parameters (dk/dv
-    takes its ``skip`` between the last two)."""
+    the ints up to ``skip``, and the scale with the Hyft parameters."""
     hq_per_b = _flash_checks(q3, k3, v3, maskf, group)
     BH, Sq, D = q3.shape
     _check(do3.dtype == F32 and do3.shape == q3.shape and do3.is_contiguous()
@@ -732,21 +731,27 @@ def _bwd_cuda_args(q3, k3, v3, maskf, do3, delta, m2, l2, *, cfg, sm_scale,
            and m2.dtype == I32 and l2.dtype == F32 and m2.shape == (BH, Sq)
            and l2.shape == (BH, Sq) and m2.is_contiguous() and l2.is_contiguous(),
            "do must be contiguous fp32 like q; delta, m, l (BH, Sq) fp32 / int32")
+    _check(all(t.data_ptr() % 16 == 0 for t in (q3, k3, v3, do3)),
+           "q, k, v and do must be 16-byte aligned")
     inputs = tuple(map(_ptr, (q3, k3, v3, do3, delta, m2, l2, maskf)))
     ints = (_IN_TYPES[q3.dtype], BH, Sq, k3.shape[1], D, group, hq_per_b, q_offset,
-            int(causal))
+            int(causal), int(skip_masked))
     return inputs, ints, (ctypes.c_float(sm_scale), *_hyft_args(cfg))
 
 
 def _flash_bwd_dq_cuda(q3, k3, v3, maskf, do3, delta, m2, l2, *, cfg: HyftConfig,
                        sm_scale: float, causal: bool, bk: int, group: int,
-                       q_offset: int):
+                       q_offset: int, skip_masked: bool = True):
     """dq from the CUDA kernel ``hyft_flash_bwd_dq``; same contract as
     ``_flash_bwd_dq_plain`` (``bk`` is not part of the backward's
-    arithmetic)."""
+    arithmetic).  ``skip_masked=False`` walks the key sub-tiles past a row
+    tile's causal frontier too; by default the kernel drops them while each
+    row's masked term is below 2**-acc of its largest, which may move the
+    last bits of dq, and otherwise runs them without their scores, which
+    gives the same bits (only the card checks turn it off)."""
     inputs, ints, tail = _bwd_cuda_args(q3, k3, v3, maskf, do3, delta, m2, l2, cfg=cfg,
                                         sm_scale=sm_scale, causal=causal, group=group,
-                                        q_offset=q_offset)
+                                        q_offset=q_offset, skip_masked=skip_masked)
     dq = torch.empty(q3.shape, dtype=F32, device=q3.device)
     _launch("hyft_flash_bwd_dq", q3.device, *inputs, _ptr(dq), *ints, *tail)
     return dq
@@ -762,13 +767,10 @@ def _flash_bwd_dkv_cuda(q3, k3, v3, maskf, do3, delta, m2, l2, *, cfg: HyftConfi
     the last bits of dk/dv (only the card checks turn it off)."""
     inputs, ints, tail = _bwd_cuda_args(q3, k3, v3, maskf, do3, delta, m2, l2, cfg=cfg,
                                         sm_scale=sm_scale, causal=causal, group=group,
-                                        q_offset=q_offset)
-    _check(q3.data_ptr() % 16 == 0 and do3.data_ptr() % 16 == 0,
-           "q and do must be 16-byte aligned")
+                                        q_offset=q_offset, skip_masked=skip_masked)
     dk = torch.empty(k3.shape, dtype=F32, device=q3.device)
     dv = torch.empty(k3.shape, dtype=F32, device=q3.device)
-    _launch("hyft_flash_bwd_dkv", q3.device, *inputs, _ptr(dk), _ptr(dv), *ints,
-            int(skip_masked), *tail)
+    _launch("hyft_flash_bwd_dkv", q3.device, *inputs, _ptr(dk), _ptr(dv), *ints, *tail)
     return dk, dv
 
 
@@ -831,6 +833,30 @@ def grad_errors(got, ref, cfg: HyftConfig) -> dict:
         out[name] = float((g - r).abs().max() / (2 * eps * r.abs().max()))
         out[f"{name}_max_abs_err"] = float((g - r).abs().max())
     return out
+
+
+DQ_ROWS = 64   # the query rows of a dq kernel block (its causal-skip tile)
+
+
+def masked_counts(m, cfg: HyftConfig):
+    """Per row of max ``m`` (FX raws): the adder-tree count, in units of
+    2**-acc, of one causally masked key's term.  The dq kernel's guard
+    drops a row tile's masked key sub-tiles only where every row's is 0."""
+    lo = -(2 ** (cfg.total_bits - 1))
+    e, mm = nm.exp_unit(torch.full_like(m, lo) - m, cfg.frac_bits, cfg.mant_bits)
+    return nm.expfloat_to_fx(e, mm, cfg.mant_bits, cfg.acc_bits) * 2.0 ** cfg.acc_bits
+
+
+def dq_kept_rows(m, cfg: HyftConfig):
+    """(BH, Sq) bool for the maxes ``m`` (BH, Sq): the rows of the dq
+    kernel's DQ_ROWS-row tiles that keep their causally masked key
+    sub-tiles (some row of the tile has a nonzero ``masked_counts``: a row
+    that sees no valid key, or a max near FX's lowest raw), where the
+    kernel's skip must be bit for bit."""
+    BH, Sq = m.shape
+    counts = F.pad(masked_counts(m, cfg) > 0, (0, (-Sq) % DQ_ROWS))
+    tiles = counts.reshape(BH, -1, DQ_ROWS).any(-1)
+    return tiles.repeat_interleave(DQ_ROWS, dim=1)[:, :Sq]
 
 
 def _h3(x):

@@ -13,7 +13,8 @@ runs the plain version, which is the core's ``hyft_softmax_fwd`` /
 kernels); a CUDA tensor launches ``csrc/hyft_softmax.cu`` or raises; any
 other device raises.  The output is in ``cfg.dtype``.  ``block_rows``, the
 TPU kernel's tile of rows in VMEM, is checked and then ignored: the kernel
-gives every row its own block of threads.
+gives every row its own warp (a launch of many rows of at most 1280
+columns) or its own block of threads.
 
 When kernel and plain version agree bit for bit.  Both compute the same
 integer and fp32 steps; only the adder trees' sums differ in how they are

@@ -347,6 +347,89 @@ def test_flash_forward_causal_skip_is_exact(name, dtype):
             assert torch.equal(got, want[:, rows]), (name, t)
 
 
+DQ_SUB = 32   # the dq kernel's key sub-tile (its row tile is SKIP_ROWS)
+
+
+def _dq_stats(q3, k3, v3, maskf, cfg):
+    """The full walk's forward stats and a seeded do: the backward operands
+    that the dq kernel and its skip share."""
+    kw = dict(cfg=cfg, sm_scale=D ** -0.5, causal=True, bk=SKIP_BK, group=HQ // HKV,
+              q_offset=0)
+    o, m, l = tfa._flash_fwd_plain(q3, k3, v3, maskf, **kw)
+    do3 = torch.from_numpy(np.random.default_rng(10).standard_normal(q3.shape)
+                           .astype(np.float32))
+    return do3, tfa._flash_delta(do3, o), m, l
+
+
+def _dq_to(q3, k3, v3, maskf, stats, cfg, nkeys):
+    """The plain dq of every row over keys [0, nkeys) in sub-tiles of 32."""
+    do3, delta, m, l = stats
+    return tfa._flash_bwd_dq_plain(
+        q3, k3[:, :nkeys], v3[:, :nkeys], None if maskf is None else
+        maskf[:, :nkeys].contiguous(), do3, delta, m, l, cfg=cfg, sm_scale=D ** -0.5,
+        causal=True, bk=DQ_SUB, group=HQ // HKV, q_offset=0)
+
+
+def _dq_skipped(q3, k3, v3, maskf, stats, cfg):
+    """dq as the kernel computes it when it drops the key sub-tiles past each
+    64-row tile's causal frontier: each tile's rows over keys up to its
+    frontier's sub-tile only."""
+    Sk = k3.shape[1]
+    out = torch.empty(q3.shape)
+    for t in range(q3.shape[1] // SKIP_ROWS):
+        nkeys = min(Sk, ((t + 1) * SKIP_ROWS - 1) // DQ_SUB * DQ_SUB + DQ_SUB)
+        rows = slice(t * SKIP_ROWS, (t + 1) * SKIP_ROWS)
+        out[:, rows] = _dq_to(q3, k3, v3, maskf, stats, cfg, nkeys)[:, rows]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_flash_dq_causal_skip_bounds(name, dtype):
+    """The dq kernel's skip: dropping the key sub-tiles past a 64-row
+    tile's causal frontier takes the last terms off each of its dq chains.
+    On these inputs every row's masked term counts 0 (the kernel's guard),
+    so the skip is allowed; under HYFT32 the masked probability is then
+    exactly 0 and dq keeps every bit, under HYFT16 it stays within
+    ``grad_errors`` of the full walk."""
+    _, ct = CONFIGS[name]
+    q3, k3, v3 = _skip_inputs(dtype)
+    stats = _dq_stats(q3, k3, v3, None, ct)
+    assert bool((tfa.masked_counts(stats[2], ct) == 0).all())
+    full = _dq_to(q3, k3, v3, None, stats, ct, SKIP_KEYS)
+    got = _dq_skipped(q3, k3, v3, None, stats, ct)
+    if ct.total_bits == 24:
+        assert torch.equal(got, full), name
+    else:
+        assert tfa.grad_errors((got,), (full,), ct)["dq"] <= 1
+
+
+def test_flash_dq_skip_needs_the_guard():
+    """Why dq drops the masked sub-tiles only under its guard: batch entry 1
+    masks keys 0-99, so its first 100 rows see no valid key, keep FX's
+    lowest raw as their max and weigh every masked key 1.  Their masked term
+    counts, the guard fails, and dropping the sub-tiles past the frontier
+    would move their dq: the kernel runs those sub-tiles instead, on each
+    row's masked probability."""
+    _, ct = CONFIGS["hyft16"]
+    Sk = 256
+    q3, k3, v3 = _skip_inputs(torch.float32, Sk=Sk)
+    maskf = torch.ones(B, Sk)
+    maskf[1, :100] = 0
+    stats = _dq_stats(q3, k3, v3, maskf, ct)
+    dead = slice(HQ, 2 * HQ)                 # the heads of batch entry 1
+    m = stats[2]
+    assert bool((m[dead, :SKIP_ROWS] == -(2 ** (ct.total_bits - 1))).all())
+    assert bool((tfa.masked_counts(m[dead, :SKIP_ROWS], ct) > 0).all())
+    full = _dq_to(q3, k3, v3, maskf, stats, ct, Sk)
+    got = _dq_skipped(q3, k3, v3, maskf, stats, ct)
+    assert not torch.equal(got[dead, :SKIP_ROWS], full[dead, :SKIP_ROWS])
+    assert tfa.grad_errors((got,), (full,), ct)["dq"] > 1
+    live = slice(0, HQ)                      # entry 0's rows pass the guard
+    assert bool((tfa.masked_counts(m[live], ct) == 0).all())
+    assert tfa.grad_errors((got[live],), (full[live],), ct)["dq"] <= 1
+
+
 def test_flash_skip_needs_a_live_row_max():
     """Why the kernels skip only under a guard: a row that sees no valid key
     keeps FX's lowest raw as its max, so every masked key weighs 1 in its

@@ -375,26 +375,37 @@ def test_flash_kernels_match_plain(case, dtype, cfg):
 def test_flash_skip_matches_full(dtype, cfg):
     """At the training shape (B 4, Hq 12, Hkv 2, S 1024, causal) the forward
     that skips the causally masked KV blocks equals the one that walks them
-    bit for bit; dk/dv, whose chains lose their first (negligible) terms,
-    stay within ``grad_errors`` of the unskipped kernel."""
+    bit for bit; dq, whose chains lose their last (negligible) terms, is bit
+    for bit under HYFT32 and within ``grad_errors`` under HYFT16, as dk/dv,
+    whose chains lose their first.  On rows that see no valid key (keys
+    0-99 of one batch entry masked) dq keeps the masked sub-tiles of their
+    row tiles, without their scores, and is bit for bit there."""
     gen = _card()
-    batch, hq, S = 4, 12, 1024
-    q, k, v, maskf, bk = _flash_inputs(gen, S, S, dtype, None, batch=batch, hq=hq)
-    q3, k3, v3 = fa._h3(q), fa._h3(k), fa._h3(v)
-    kw = dict(cfg=cfg, sm_scale=D ** -0.5, causal=True, bk=bk, group=hq // HKV,
-              q_offset=0)
-    got = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw)
-    full = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw, skip_masked=False)
-    for a, b in zip(got, full):
-        assert torch.equal(a, b)
-    do3 = torch.randn(q3.shape, generator=gen, device="cuda")
-    args = (q3, k3, v3, maskf, do3, fa._flash_delta(do3, got[0]).contiguous(), *got[1:])
-    dq = fa._flash_bwd_dq_cuda(*args, **kw)
-    dkv = fa._flash_bwd_dkv_cuda(*args, **kw)
-    dkv_full = fa._flash_bwd_dkv_cuda(*args, **kw, skip_masked=False)
-    gerr = fa.grad_errors((dq, *dkv), (dq, *dkv_full), cfg)
-    print({"differing": [int((a != b).sum()) for a, b in zip(dkv, dkv_full)], **gerr})
-    assert max(gerr["dk"], gerr["dv"]) <= 1, gerr
+    for batch, hq, S, mask_kind in ((4, 12, 1024, None), (B, HQ, 256, "dead")):
+        q, k, v, maskf, bk = _flash_inputs(gen, S, S, dtype, mask_kind, batch=batch, hq=hq)
+        q3, k3, v3 = fa._h3(q), fa._h3(k), fa._h3(v)
+        kw = dict(cfg=cfg, sm_scale=D ** -0.5, causal=True, bk=bk, group=hq // HKV,
+                  q_offset=0)
+        got = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw)
+        full = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw, skip_masked=False)
+        for a, b in zip(got, full):
+            assert torch.equal(a, b)
+        do3 = torch.randn(q3.shape, generator=gen, device="cuda")
+        args = (q3, k3, v3, maskf, do3, fa._flash_delta(do3, got[0]).contiguous(), *got[1:])
+        dq = fa._flash_bwd_dq_cuda(*args, **kw)
+        dq_full = fa._flash_bwd_dq_cuda(*args, **kw, skip_masked=False)
+        dkv = fa._flash_bwd_dkv_cuda(*args, **kw)
+        dkv_full = fa._flash_bwd_dkv_cuda(*args, **kw, skip_masked=False)
+        gerr = fa.grad_errors((dq, *dkv), (dq_full, *dkv_full), cfg)
+        kept = fa.dq_kept_rows(got[1], cfg)
+        print({"case": mask_kind, "kept_rows": int(kept.sum()),
+               "differing": [int((a != b).sum()) for a, b in
+                             zip((dq, *dkv), (dq_full, *dkv_full))], **gerr})
+        assert max(gerr["dq"], gerr["dk"], gerr["dv"]) <= 1, gerr
+        assert torch.equal(dq[kept], dq_full[kept])
+        assert mask_kind != "dead" or int(kept.sum()) > 0
+        if cfg is HYFT32:
+            assert torch.equal(dq, dq_full)
 
 
 @pytest.mark.gpu
@@ -470,12 +481,19 @@ def _softmax_case(gen, shape, scale, dtype):
 @pytest.mark.parametrize("cfg", [HYFT16, HYFT32, dataclasses.replace(HYFT16, io_dtype="bfloat16"),
                                  dataclasses.replace(HYFT32, step=4)],
                          ids=["hyft16", "hyft32", "hyft16b", "hyft32-step4"])
-@pytest.mark.parametrize("shape", [(37, 200), (3, 5, 64), (7, 1), (2, 9000), (64, 1056)])
+@pytest.mark.parametrize("shape", [(37, 200), (3, 5, 64), (7, 1), (2, 9000), (64, 1056),
+                                   (2113, 1280), (2112, 1281), (2115, 1001), (2111, 1024),
+                                   (2112, 256), (2113, 500), (2112, 3)])
 def test_softmax_kernels_match_plain(shape, cfg, dtype):
     """Both kernels against their plain versions on the same inputs: bit for
     bit in every row within the sum precondition, within the stated bound
     past it (forward); block_rows changes nothing.  9000 columns do not fit
-    the shared-memory stage, so they take the passes over device memory."""
+    the shared-memory stage, so they take the passes over device memory.
+    The forward's warp-per-row path (2112 rows or more, at most 1280
+    columns) at its edges: the column cap with a row count that is not a
+    multiple of a block's 4 rows, unaligned rows of 1001 columns, rows far
+    shorter than its narrower width (256, 500) and shorter than one 16-byte
+    chunk (3); 1281 columns and 2111 rows take the block path."""
     from repro_torch.kernels import hyft_softmax as hs
     gen = _card()
     z, dy = _softmax_case(gen, shape, 3.0, dtype)
