@@ -97,15 +97,18 @@ script exits non-zero without its last line:
               training rows (4 x 12 x 1024, 1024) causal, prompt rows
               (4 x 12 x 1024, 1057), decode rows (48, 1057) ragged and
               nearly flat, small odd shapes (37 x 200, 3 x 5 x 64, one
-              column, 65536 columns), and the edges of the forward's
+              column, 65536 columns), and the edges of both kernels'
               warp-per-row path (2113 x 1280 at its column cap, 2112 x
               1281 past it, 2115 x 1001 with unaligned rows, 2111 rows
               below its row floor, rows of 256, 500 and 3 columns on its
-              narrower width and shorter than one 16-byte chunk); HYFT16, HYFT32, HYFT16B, HYFT32 with
-              step 2 and 4; fp32, fp16 and bf16 scores; the backward on the
-              forward's output and a seeded dy.  Bitwise in every row within
-              the sum precondition of ``kernels/hyft_softmax.py``, within
-              its stated bound past it (``softmax_errors``);
+              narrower width and shorter than one 16-byte chunk); HYFT16,
+              HYFT32, HYFT16B, HYFT32 with step 2 and 4; fp32, fp16 and
+              bf16 scores; the backward on the forward's output and a
+              seeded dy, its dz in the config's type and as fp32
+              (``out_dtype``, as the unfused training stores it).  Bitwise
+              in every row within the sum precondition of
+              ``kernels/hyft_softmax.py``, within its stated bound past it
+              (``softmax_errors``);
  13. unfused serve  greedy ``generate`` at full width with
               ``softmax_impl="hyft16_kernel"``, ``attn_mode="unfused"``,
               bf16 compute, fp2fx8 cache, batch 4, prompt 1024, 32 new
@@ -136,7 +139,9 @@ script exits non-zero without its last line:
               each input read and each output written once, FLOPs counted
               over the keys the mask admits to each row);
               the softmax kernels timed over input buffers that together
-              exceed the 50 MB L2;
+              exceed the 50 MB L2, and bound by bytes or by the
+              function's operations (``SOFTMAX_OPS``), one a lane a clock
+              over all lanes (33.5 T/s), the integer ones at half that;
 
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -194,11 +199,20 @@ UNFUSED_STEPS = 2                     # timed steps of the unfused training
 # softmax on the same weights and batch: the same arithmetic (bitwise while
 # every row's sum stays within the precondition of kernels/hyft_softmax.py)
 UNFUSED_TRAIN_GATE = {"loss": 1e-6, "grad": 1e-5}
-# 32-bit scalar operations per element of the softmax kernels, counted from
-# csrc/hyft_softmax.cu (forward: FP2FX and max, exponent unit and adder,
-# exponent unit again and the divide; backward: two log_mul and two
-# fx_quantize), at the fp32 rate outside the tensor cores
-SOFTMAX_OPS = {"hyft_softmax_fwd": 62, "hyft_softmax_bwd": 50}
+# operations per element of the Hyft softmax as the paper's datapath
+# defines it, one for each block an element passes through, whatever
+# instructions carry it: forward FP2FX (a conversion), then the max, the
+# exponent unit, the adder tree and the log-subtract divide (integer);
+# backward the two fx_quantize (conversions to fixed point), then the two
+# log-domain multiplies, the adder tree and the fixed-point subtract
+# (integer)
+SOFTMAX_OPS = {"hyft_softmax_fwd": {"int": 4, "other": 1},
+               "hyft_softmax_bwd": {"int": 4, "other": 2}}
+# instruction issue of an H100 SXM: one instruction a lane a clock, the
+# fp32 peak over its two FLOPs of an FMA; 32-bit integer operations run on
+# half the lanes
+LANE_INSTR_PER_S = FP32_FLOPS_PER_S / 2
+INT_INSTR_PER_S = LANE_INSTR_PER_S / 2
 L2_BYTES = 50e6
 PROFILED_LAUNCHES = 200               # the least launches of one profiled window
 
@@ -1271,7 +1285,7 @@ def softmax_check_phase(torch):
             rec = {"phase": "softmax_check", "shape": name, "cfg": cfg.io_dtype,
                    "step": cfg.step, "rows": 0, "fwd_rows_past_precondition": 0,
                    "fwd_mismatches": 0, "fwd_past_ratio": 0.0, "fwd_max_abs_err": 0.0,
-                   "bwd_mismatches": 0, "bwd_max_abs_err": 0.0}
+                   "bwd_mismatches": 0, "bwd_max_abs_err": 0.0, "bwd_f32_mismatches": 0}
             for dtype in (torch.float32, torch.float16, torch.bfloat16):
                 z = z32.to(dtype)
                 s = hs.hyft_softmax_fwd_kernel(z, cfg)
@@ -1283,7 +1297,11 @@ def softmax_check_phase(torch):
                 assert int(bunits.max()) <= hs.EXACT_UNITS, \
                     f"{name}: backward data past the sum precondition"
                 dz = hs.hyft_softmax_bwd_kernel(s, dy, cfg)
-                berr = hs.softmax_errors(dz, hs.hyft_softmax_bwd(s, dy, cfg), bunits, cfg)
+                plain = hs.hyft_softmax_bwd(s, dy, cfg)
+                berr = hs.softmax_errors(dz, plain, bunits, cfg)
+                dz32 = hs.hyft_softmax_bwd_kernel(s, dy, cfg, out_dtype=torch.float32)
+                b32 = hs.softmax_errors(dz32, plain.float(), bunits, cfg)
+                rec["bwd_f32_mismatches"] += b32["mismatches"] + int((dz32 != dz.float()).sum())
                 rec["rows"] = err["rows"]
                 rec["fwd_rows_past_precondition"] += err["rows_past_precondition"]
                 rec["fwd_mismatches"] += err["mismatches"]
@@ -1294,12 +1312,14 @@ def softmax_check_phase(torch):
                 if name == "train" and cfg is HYFT16 and dtype == torch.float32:
                     errors["hyft_softmax_fwd"] = err["max_abs_err"]
                     errors["hyft_softmax_bwd"] = berr["max_abs_err"]
-                del z, s, dy, dz
+                    errors["hyft_softmax_bwd_f32"] = b32["max_abs_err"]
+                del z, s, dy, dz, dz32, plain
             emit(rec)
             past_rows += rec["fwd_rows_past_precondition"]
             assert rec["fwd_mismatches"] == 0, f"{name}: forward not bitwise its plain version"
             assert rec["fwd_past_ratio"] <= 1, f"{name}: forward past its bound"
             assert rec["bwd_mismatches"] == 0, f"{name}: backward not bitwise its plain version"
+            assert rec["bwd_f32_mismatches"] == 0, f"{name}: fp32 dz not the rounded dz widened"
         del z32, dy32
         torch.cuda.synchronize()
     assert past_rows > 0, "no case past the sum precondition"
@@ -1474,33 +1494,44 @@ def unfused_train_phase(torch):
 
 def softmax_kernels_phase(torch, errors, serve_launches, train_launches):
     """Kernels 1 and 2 at the unfused path's shapes under HYFT16 (fp32
-    scores in, fp16 out; the backward reads fp16 s and dy), against their
-    plain versions and their bounds.  Every timing rotates over as many
-    input buffers as it takes to exceed twice the L2: ``ms`` is the
-    kernel's device time per launch (torch.profiler), ``kernel_ms`` the
-    CUDA-event time per launch from Python (the wrapper's host time
-    included: it sets decode's, whose kernel is a few microseconds)."""
+    scores in, fp16 out; the backward reads fp16 s and dy and stores dz as
+    fp32, as the training step calls it, and, in a row of its own, as
+    fp16), against their plain versions and their bounds.  Every timing
+    rotates over as many input buffers as it takes to exceed twice the L2:
+    ``ms`` is the kernel's device time per launch (torch.profiler),
+    ``kernel_ms`` the CUDA-event time per launch from Python (the wrapper's
+    host time included: it sets decode's, whose kernel is a few
+    microseconds).  ``bound_ms`` is the larger of the bytes over 3.35 TB/s
+    and the function's SOFTMAX_OPS over every element, at one operation a
+    lane a clock and the integer ones at half that.  The fp16-dz row is a
+    side timing: the training step makes no such launch."""
     from repro_torch.core.hyft import HYFT16
     from repro_torch.kernels import hyft_softmax as hs
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     shapes = {s[0]: s for s in _softmax_shapes(torch)}
     total = serve_launches["generate"]
-    specs = [  # entry, shape name, launches, what they count
-        ("hyft_softmax_fwd", "train", train_launches["hyft_softmax_fwd"], "per training step"),
-        ("hyft_softmax_fwd", "prompt", serve_launches["prompt"],
+    n_bwd = train_launches["hyft_softmax_bwd"]
+    specs = [  # entry, row, shape name, dz type, launches, what they count
+        ("hyft_softmax_fwd", "train", "train", None, train_launches["hyft_softmax_fwd"],
+         "per training step"),
+        ("hyft_softmax_fwd", "prompt", "prompt", None, serve_launches["prompt"],
          f"per generate (of its {total}: the prompt alone, max_new=1)"),
-        ("hyft_softmax_fwd", "decode", serve_launches["decode"],
+        ("hyft_softmax_fwd", "decode", "decode", None, serve_launches["decode"],
          f"per generate (of its {total}: the rest, the decode steps)"),
-        ("hyft_softmax_bwd", "train", train_launches["hyft_softmax_bwd"], "per training step"),
+        ("hyft_softmax_bwd", "train", "train", torch.float32,
+         train_launches["hyft_softmax_bwd"],
+         "per training step (dz stored as fp32, as the step asks)"),
+        ("hyft_softmax_bwd", "train_f16_out", "train", torch.float16, 0,
+         "none: a side timing of the [train] rows with fp16 dz, which the "
+         "training step does not launch"),
     ]
     kernels = []
-    for entry, name, n_launch, launches_are in specs:
+    for entry, row, name, out_dtype, n_launch, launches_are in specs:
         _, shape, keep, _ = shapes[name]
         rows, cols = math.prod(shape[:-1]), shape[-1]
         bwd = entry == "hyft_softmax_bwd"
-        in_bytes = 2 if bwd else 4
-        nbytes = rows * cols * ((2 * in_bytes if bwd else in_bytes) + 2)
+        nbytes = rows * cols * ((2 + 2 + out_dtype.itemsize) if bwd else (4 + 2))
         nbuf = max(1, math.ceil(2 * L2_BYTES / nbytes))
         bufs = []
         for _ in range(nbuf):
@@ -1511,35 +1542,40 @@ def softmax_kernels_phase(torch, errors, serve_launches, train_launches):
             else:
                 bufs.append((z,))
         if bwd:
-            kernel = lambda i: hs.hyft_softmax_bwd_kernel(*bufs[i % nbuf], HYFT16)  # noqa: E731
-            plain = lambda i: hs.hyft_softmax_bwd(*bufs[i % nbuf], HYFT16)  # noqa: E731
+            kernel = lambda i: hs.hyft_softmax_bwd_kernel(  # noqa: E731
+                *bufs[i % nbuf], HYFT16, out_dtype=out_dtype)
+            plain = lambda i: hs.hyft_softmax_bwd(  # noqa: E731
+                *bufs[i % nbuf], HYFT16).to(out_dtype)
         else:
             kernel = lambda i: hs.hyft_softmax_fwd_kernel(*bufs[i % nbuf], HYFT16)  # noqa: E731
             plain = lambda i: hs.hyft_softmax_fwd(*bufs[i % nbuf], HYFT16)  # noqa: E731
         big = rows > 1024
         reps = 20 if big else 2 * nbuf
         event_ms = _event_ms(torch, kernel, reps)
-        # "softmax_fwd" names both forward kernels: the warp per row
-        # (softmax_fwd_warp_kernel) and the block per row (softmax_fwd_kernel)
-        timing = _kernel_ms(torch, kernel, reps,
-                            "softmax_bwd_kernel" if bwd else "softmax_fwd", event_ms)
+        # "softmax_fwd" / "softmax_bwd" name both paths of each kernel: the
+        # warp per row (softmax_*_warp_kernel) and the block per row
+        timing = _kernel_ms(torch, kernel, reps, "softmax_bwd" if bwd else "softmax_fwd",
+                            event_ms)
         plain_ms = _event_ms(torch, plain, 5 if big else 50)
-        ops = SOFTMAX_OPS[entry] * rows * cols
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_FLOPS_PER_S * 1e3
+        per = SOFTMAX_OPS[entry]
+        ops = (per["int"] + per["other"]) * rows * cols
+        t_ops = max(ops / LANE_INSTR_PER_S, per["int"] * rows * cols / INT_INSTR_PER_S) * 1e3
+        err_key = entry + ("_f32" if out_dtype == torch.float32 else "")
         kernels.append({
-            "name": f"{entry}[{name}]", "route": "cuda",
+            "name": f"{entry}[{row}]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/hyft_softmax.cu",
             "replaces": ("src/repro/kernels/hyft_softmax.py:44" if bwd
                          else "src/repro/kernels/hyft_softmax.py:28"),
             "tpu_kernel": "_bwd_kernel" if bwd else "_fwd_kernel",
             "shape": [rows, cols], "launches": n_launch, "launches_are": launches_are,
-            "max_abs_err": errors[entry],
+            "max_abs_err": errors[err_key],
             **timing,
             "kernel_ms": event_ms, "kernel_ms_buffers": nbuf, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops, "library_ms": None})
+            "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+            "bytes": nbytes, "ops": ops, "ops_per_element": per, "library_ms": None})
         del bufs
         torch.cuda.empty_cache()
     return kernels

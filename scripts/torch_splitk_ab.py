@@ -51,13 +51,19 @@ With ``--flash`` it times the training path's flash kernels instead:
   torch.profiler: wall, device busy time, and each flash kernel's device
   time and launches.
 
-With ``--softmax`` it times the standalone softmax forward instead:
+With ``--softmax`` it times the standalone softmax kernels instead:
 
 * ``softmax_kernels``: ``hyft_softmax_fwd`` under HYFT16 (fp32 scores in,
   fp16 out) at the unfused path's three shapes, training (49,152 x 1024),
   prompt (49,152 x 1057) and decode (48 x 1057), each over as many input
   buffers as it takes to exceed twice the L2, ``event_ms`` and
   ``device_ms`` as above, and a sha256 of the output on a seeded input;
+* ``softmax_bwd_kernels``: ``hyft_softmax_bwd`` at the training shape
+  (HYFT16, fp16 s from the forward and a seeded fp16 dy) with dz as the
+  training step takes it, fp32 (one launch where the tree's wrapper has
+  ``out_dtype``, else the kernel's fp16 dz and a cast, as the step ran it
+  before), and with fp16 dz; ``device_ms`` counts every kernel of the call,
+  the cast included; a sha256 of each dz on a seeded input;
 * ``train_step``: the training step above with ``hyft16_kernel`` in the
   unfused mode, each softmax kernel's device time and launches.
 """
@@ -330,6 +336,43 @@ def softmax_kernels(torch, card):
         del bufs
 
 
+def softmax_bwd_kernels(torch, card):
+    """Kernel 2 at the training shape, dz as fp32 and as fp16."""
+    from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.kernels.flash_attention import NEG_BIG
+
+    widen = "out_dtype" in inspect.signature(hs.hyft_softmax_bwd_kernel).parameters
+    rows, cols = SOFTMAX_SHAPES["train"]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    nbuf = max(1, -(-2 * L2_BYTES // (rows * cols * 8)))
+    live = torch.arange(cols, device="cuda")[None] < (torch.arange(rows, device="cuda")
+                                                      % cols + 1)[:, None]
+    bufs = []
+    for _ in range(nbuf):
+        z = torch.where(live, torch.randn(rows, cols, generator=gen, device="cuda") * 3,
+                        NEG_BIG)
+        bufs.append((hs.hyft_softmax_fwd_kernel(z, HYFT16),
+                     torch.randn(rows, cols, generator=gen, device="cuda").half()))
+        del z
+
+    def f32(i):
+        if widen:
+            return hs.hyft_softmax_bwd_kernel(*bufs[i % nbuf], HYFT16, out_dtype=torch.float32)
+        return hs.hyft_softmax_bwd_kernel(*bufs[i % nbuf], HYFT16).to(torch.float32)
+
+    def f16(i):
+        return hs.hyft_softmax_bwd_kernel(*bufs[i % nbuf], HYFT16)
+    for out, fn in (("float32", f32), ("float16", f16)):
+        ms, launches = _device_ms(torch, fn, 20)
+        emit({"part": "softmax_bwd_kernels", "card": card, "kernel": "hyft_softmax_bwd",
+              "shape": [rows, cols], "dz": out, "one_launch": widen or out == "float16",
+              "buffers": nbuf, "event_ms": _event_ms(torch, fn, 20), "device_ms": ms,
+              "launches_per_call": launches,
+              "sha256": hashlib.sha256(fn(0).cpu().numpy().tobytes()).hexdigest()[:16]})
+    del bufs
+
+
 def compare(torch, a, b):
     """Per tensor of two ``--save`` files: how many elements differ."""
     ta, tb = torch.load(a), torch.load(b)
@@ -366,6 +409,7 @@ def main():
     emit({"part": "build", "card": card, "seconds": build.build()["seconds"]})
     if ARGS.softmax:
         softmax_kernels(torch, card)
+        softmax_bwd_kernels(torch, card)
         if not ARGS.kernels_only:
             train_step(torch, card, "hyft16_kernel", "unfused", "softmax_")
         return
@@ -389,7 +433,7 @@ if __name__ == "__main__":
     parser.add_argument("--flash", action="store_true",
                         help="the training path's flash kernels instead of split-K")
     parser.add_argument("--softmax", action="store_true",
-                        help="the standalone softmax forward and an unfused training step")
+                        help="the standalone softmax kernels and an unfused training step")
     parser.add_argument("--save", type=Path, default=None,
                         help="with --flash: save the hashed tensors under this directory")
     parser.add_argument("--compare", type=Path, nargs=2, default=None,

@@ -11,9 +11,11 @@ Each wrapper picks by the tensor's device and nothing else: a CPU tensor
 runs the plain version, which is the core's ``hyft_softmax_fwd`` /
 ``hyft_softmax_bwd`` (the oracles that JAX's ``ref.py`` names for these
 kernels); a CUDA tensor launches ``csrc/hyft_softmax.cu`` or raises; any
-other device raises.  The output is in ``cfg.dtype``.  ``block_rows``, the
-TPU kernel's tile of rows in VMEM, is checked and then ignored: the kernel
-gives every row its own warp (a launch of many rows of at most 1280
+other device raises.  The output is in ``cfg.dtype``; the backward's may be
+stored as fp32 instead (``out_dtype``: the ``cfg.dtype`` values, widened
+exactly, which the kernel writes in one launch).  ``block_rows``, the TPU
+kernel's tile of rows in VMEM, is checked and then ignored: the kernels
+give every row its own warp (a launch of many rows of at most 1280
 columns) or its own block of threads.
 
 When kernel and plain version agree bit for bit.  Both compute the same
@@ -85,9 +87,16 @@ def hyft_softmax_fwd_kernel(z: torch.Tensor, cfg: HyftConfig,
 
 
 def hyft_softmax_bwd_kernel(s: torch.Tensor, dy: torch.Tensor, cfg: HyftConfig,
-                            block_rows: int | None = None) -> torch.Tensor:
+                            block_rows: int | None = None,
+                            out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The Hyft softmax VJP ``dz = s * (dy - <dy, s>)`` in Hyft arithmetic,
-    over the last axis of ``s`` and ``dy`` (the same shape), in ``cfg.dtype``."""
+    over the last axis of ``s`` and ``dy`` (the same shape), rounded to
+    ``cfg.dtype`` and returned in ``out_dtype``: ``cfg.dtype`` (the default)
+    or float32, which holds those values exactly."""
+    out_dtype = cfg.dtype if out_dtype is None else out_dtype
+    if out_dtype not in (cfg.dtype, F32):
+        raise ValueError(f"out_dtype {out_dtype} is neither cfg.dtype ({cfg.dtype}) "
+                         "nor torch.float32")
     _check_rows(s, "s")
     _check_rows(dy, "dy")
     if s.shape != dy.shape:
@@ -96,9 +105,9 @@ def hyft_softmax_bwd_kernel(s: torch.Tensor, dy: torch.Tensor, cfg: HyftConfig,
         raise ValueError(f"s on {s.device} and dy on {dy.device}")
     _check_block_rows(block_rows)
     if s.device.type == "cpu":
-        return hyft_softmax_bwd(s, dy, cfg)
+        return hyft_softmax_bwd(s, dy, cfg).to(out_dtype)
     if s.device.type == "cuda":
-        return _bwd_cuda(s, dy, cfg)
+        return _bwd_cuda(s, dy, cfg, out_dtype)
     raise ValueError(f"no Hyft softmax kernel for device {s.device}")
 
 
@@ -113,17 +122,17 @@ def _fwd_cuda(z, cfg: HyftConfig):
     return out
 
 
-def _bwd_cuda(s, dy, cfg: HyftConfig):
+def _bwd_cuda(s, dy, cfg: HyftConfig, out_dtype: torch.dtype):
     if s.dtype != dy.dtype:   # the kernel reads one type; fp32 holds both exactly
         s, dy = s.to(F32), dy.to(F32)
     cols = s.shape[-1]
     s, dy = s.contiguous(), dy.contiguous()
-    dz = torch.empty(s.shape, dtype=cfg.dtype, device=s.device)
+    dz = torch.empty(s.shape, dtype=out_dtype, device=s.device)
     rows = s.numel() // cols
     if rows:
         _launch("hyft_softmax_bwd", s.device, _ptr(s), _ptr(dy), _ptr(dz),
-                _TYPES[s.dtype], _TYPES[cfg.dtype], rows, cols, cfg.mant_bits,
-                cfg.bwd_acc_bits, counts=LAUNCHES)
+                _TYPES[s.dtype], _TYPES[cfg.dtype], _TYPES[out_dtype], rows, cols,
+                cfg.mant_bits, cfg.bwd_acc_bits, counts=LAUNCHES)
     return dz
 
 

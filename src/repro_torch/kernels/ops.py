@@ -37,8 +37,10 @@ def as_mask_f(kv_len_mask) -> torch.Tensor | None:
 
 class _HyftSoftmaxKernel(torch.autograd.Function):
     """Forward: the softmax kernel, output in ``cfg.dtype``.  Backward: the
-    backward kernel, rounded to ``cfg.dtype`` and then cast to the input's
-    dtype (JAX's ``dt_marker``)."""
+    backward kernel, rounded to ``cfg.dtype`` and returned in the input's
+    dtype (JAX's ``dt_marker``): the kernel stores it so where that is
+    ``cfg.dtype`` or float32 (the unfused attention's fp32 scores), and a
+    cast follows only for another input dtype."""
 
     @staticmethod
     def forward(ctx, z, cfg):
@@ -50,7 +52,9 @@ class _HyftSoftmaxKernel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         (s,) = ctx.saved_tensors
-        return hyft_softmax_bwd_kernel(s, dy, ctx.cfg).to(ctx.z_dtype), None
+        cfg, z_dtype = ctx.cfg, ctx.z_dtype
+        out = z_dtype if z_dtype in (cfg.dtype, F32) else cfg.dtype
+        return hyft_softmax_bwd_kernel(s, dy, cfg, out_dtype=out).to(z_dtype), None
 
 
 def hyft_softmax(z: torch.Tensor, cfg: HyftConfig) -> torch.Tensor:

@@ -68,3 +68,16 @@ def test_the_prototype_reader_sees_a_changed_signature():
     assert _prototypes()["hyft_flash_bwd_dq"][-1] == "pointer"
     changed = proto.replace("int skip,", "")
     assert [_kind(a) for a in changed.split(",")] != _bound()["hyft_flash_bwd_dq"]
+
+
+def test_softmax_bwd_prototype_takes_round_and_out_types():
+    """The backward's entry rounds to one type and stores another: its
+    prototype carries ``round_type`` and ``out_type`` after ``in_type``, and
+    the binding has the int for each."""
+    src = (build.CSRC / "hyft_softmax.cu").read_text()
+    proto = re.search(r"int hyft_softmax_bwd\(([^)]*)\)", src).group(1)
+    names = [a.split()[-1].lstrip("*") for a in proto.split(",")]
+    at = names.index("in_type")
+    assert names[at:at + 3] == ["in_type", "round_type", "out_type"]
+    assert _bound()["hyft_softmax_bwd"] == _prototypes()["hyft_softmax_bwd"]
+    assert _bound()["hyft_softmax_bwd"].count("int") == 7

@@ -487,13 +487,15 @@ def _softmax_case(gen, shape, scale, dtype):
 def test_softmax_kernels_match_plain(shape, cfg, dtype):
     """Both kernels against their plain versions on the same inputs: bit for
     bit in every row within the sum precondition, within the stated bound
-    past it (forward); block_rows changes nothing.  9000 columns do not fit
-    the shared-memory stage, so they take the passes over device memory.
-    The forward's warp-per-row path (2112 rows or more, at most 1280
-    columns) at its edges: the column cap with a row count that is not a
-    multiple of a block's 4 rows, unaligned rows of 1001 columns, rows far
-    shorter than its narrower width (256, 500) and shorter than one 16-byte
-    chunk (3); 1281 columns and 2111 rows take the block path."""
+    past it (forward); block_rows changes nothing; the backward's fp32 dz
+    (``out_dtype``) is its ``cfg.dtype`` dz widened, bit for bit.  9000
+    columns do not fit the shared-memory stage, so they take the passes
+    over device memory.  The warp-per-row path of both kernels (2112 rows
+    or more, at most 1280 columns) at its edges: the column cap with a row
+    count that is not a multiple of a block's 4 rows, unaligned rows of
+    1001 columns, rows far shorter than its narrower width (256, 500) and
+    shorter than one 16-byte chunk (3); 1281 columns and 2111 rows take the
+    block path."""
     from repro_torch.kernels import hyft_softmax as hs
     gen = _card()
     z, dy = _softmax_case(gen, shape, 3.0, dtype)
@@ -507,9 +509,97 @@ def test_softmax_kernels_match_plain(shape, cfg, dtype):
     units = hs.bwd_sum_units(s, dy, cfg)
     assert int(units.max()) <= hs.EXACT_UNITS
     dz = hs.hyft_softmax_bwd_kernel(s, dy, cfg)
-    berr = hs.softmax_errors(dz, hs.hyft_softmax_bwd(s, dy, cfg), units, cfg)
+    plain = hs.hyft_softmax_bwd(s, dy, cfg)
+    berr = hs.softmax_errors(dz, plain, units, cfg)
     assert berr["mismatches"] == 0, berr
     assert torch.equal(hs.hyft_softmax_bwd_kernel(s, dy, cfg, block_rows=4), dz)
+    dz32 = hs.hyft_softmax_bwd_kernel(s, dy, cfg, out_dtype=torch.float32)
+    assert dz32.dtype == torch.float32 and torch.equal(dz32, dz.float())
+    berr = hs.softmax_errors(dz32, plain.float(), units, cfg)
+    assert berr["mismatches"] == 0, berr
+
+
+def _bwd_exact_sum(s, dy, cfg):
+    """The backward with its dot taken as the exact int64 sum of the
+    elements' counts, rounded to fp32 once: the kernel's arithmetic on
+    every row, also past the sum precondition, where the plain version's
+    fp32 sum depends on its order."""
+    from repro_torch.core import numerics as nm
+    s32, dy32 = s.float(), dy.float()
+    p = nm.log_mul(dy32, s32, cfg.mant_bits, half_range=True)
+    units = torch.floor(p * 2.0 ** cfg.bwd_acc_bits).to(torch.int64).sum(-1, keepdim=True)
+    dot = units.to(torch.float32) * 2.0 ** -cfg.bwd_acc_bits
+    diff = nm.fx_quantize(dy32, cfg.bwd_acc_bits) - dot
+    return nm.log_mul(diff, s32, cfg.mant_bits, half_range=True).to(cfg.dtype)
+
+
+def _off_fast_rows(s, dy, cfg):
+    """Rows the backward's warp kernel sends to its exact int64 route by the
+    range checks its docstring in csrc/hyft_softmax.cu states: dy's and s's
+    largest exponents together past 277 - bwd_acc, s or |dy| out of range,
+    a nonzero s or dy below 2**-53, or |dot| at 2**(mant - 1) or more."""
+    from repro_torch.core import numerics as nm
+    mant = cfg.mant_bits
+    a = dy.float().abs().view(torch.int32)
+    b = s.float().view(torch.int32)
+    ea, eb = (a >> 23).amax(-1), (b >> 23).amax(-1)
+    tiny = (((a > 0) & (a < 74 << 23)) | ((b > 0) & (b < 74 << 23))).any(-1)
+    p = nm.log_mul(dy.float(), s.float(), mant, half_range=True)
+    units = torch.floor(p * 2.0 ** cfg.bwd_acc_bits).to(torch.int64).sum(-1)
+    big_dot = units.abs().to(torch.float32) * 2.0 ** -cfg.bwd_acc_bits >= 2.0 ** (mant - 1)
+    return ((ea + eb > 277 - cfg.bwd_acc_bits) | (ea > 126 + mant) | (eb > 127 + mant)
+            | (b < 0).any(-1) | tiny | big_dot)
+
+
+_OFF_RANGE = [(case, dtype) for case in ("dy1e4_hyft32", "count_2p24_hyft32",
+                                         "dot_past_cap_hyft16", "tiny_hyft16")
+              for dtype in (torch.float32, torch.float16, torch.bfloat16)
+              if not (case == "tiny_hyft16" and dtype == torch.float16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,dtype", _OFF_RANGE,
+                         ids=[f"{c}-{str(d)[6:]}" for c, d in _OFF_RANGE])
+@pytest.mark.parametrize("shape", [(2112, 1024), (2113, 1057)])
+def test_softmax_bwd_rows_off_the_fast_range_stay_exact(shape, case, dtype):
+    """Rows the backward's warp path cannot take on its fast route go through
+    its exact int64 route and stay bitwise: dy scaled by 1e4 under HYFT32
+    (counts up to 2**30, rows past the sum precondition, held to the
+    exact-sum reference); rows of one key with dy = 256 under HYFT32 (a
+    count of exactly 2**24, within the precondition, held to the plain
+    version); dy near 900 under HYFT16 (|dot| past 2**9); and every seventh
+    dy scaled by 2**-60 (fp32 and bf16 hold it; fp16 rounds it to 0).  Both
+    dz types.  A row within EXACT_UNITS cannot overflow an int32 lane sum
+    (its every partial sum is at most 2**24), so the 1e4 rows lie past
+    it."""
+    from repro_torch.core.hyft import HYFT16, HYFT32
+    from repro_torch.kernels import hyft_softmax as hs
+    gen = _card()
+    cfg = HYFT16 if case.endswith("hyft16") else HYFT32
+    z, dy = _softmax_case(gen, shape, 3.0, dtype)
+    s = hs.hyft_softmax_fwd_kernel(z, cfg).to(dtype)
+    if case == "dy1e4_hyft32":
+        dy = (dy * 1e4).clamp(-6e4, 6e4)
+    elif case == "count_2p24_hyft32":
+        s = torch.zeros_like(s)
+        s[:, 0] = 1.0
+        dy = torch.full_like(dy, 256.0)
+    elif case == "dot_past_cap_hyft16":
+        dy = 900.0 + dy
+    else:
+        dy[:, ::7] *= 2.0 ** -60
+    dy = dy.to(dtype)
+    assert bool(_off_fast_rows(s, dy, cfg).float().mean() > 0.5)
+    dz = hs.hyft_softmax_bwd_kernel(s, dy, cfg)
+    assert torch.equal(dz, _bwd_exact_sum(s, dy, cfg))
+    units = hs.bwd_sum_units(s, dy, cfg)
+    if case != "dy1e4_hyft32":
+        assert int(units.max()) <= hs.EXACT_UNITS
+        assert torch.equal(dz, hs.hyft_softmax_bwd(s, dy, cfg))
+    else:
+        assert bool((units > hs.EXACT_UNITS).float().mean() > 0.5)
+    dz32 = hs.hyft_softmax_bwd_kernel(s, dy, cfg, out_dtype=torch.float32)
+    assert torch.equal(dz32, dz.float())
 
 
 @pytest.mark.gpu

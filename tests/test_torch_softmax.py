@@ -151,6 +151,39 @@ def test_bwd_kernel_matches_jax(name, dtype):
     _same(jax_bwd(js, jdy, cj, interpret=True), got)
 
 
+@pytest.mark.parametrize("out", ["default", "cfg", "float32"])
+@pytest.mark.parametrize("name", sorted(CFGS))
+def test_bwd_kernel_out_dtype_matches_jax(name, out):
+    """``out_dtype`` stores the ``cfg.dtype`` values: bitwise the plain
+    version cast to it, and JAX's kernel output cast alike (fp32 holds
+    fp16 and bf16 exactly)."""
+    cj, ct = CFGS[name]
+    rng = np.random.default_rng(11)
+    z = _scores(11, (9, 70), scale=2.0)
+    s = np.asarray(jhyft.hyft_softmax_fwd(jnp.asarray(z), cj).astype(jnp.float32))
+    dy = rng.standard_normal((9, 70)).astype(np.float32)
+    (js, ts), (jdy, tdy) = _pair(s, "f16"), _pair(dy, "f16")
+    _within_precondition(ths.bwd_sum_units(ts, tdy, ct))
+    kw = {"default": {}, "cfg": {"out_dtype": ct.dtype},
+          "float32": {"out_dtype": torch.float32}}[out]
+    got = ths.hyft_softmax_bwd_kernel(ts, tdy, ct, **kw)
+    want = ct.dtype if out != "float32" else torch.float32
+    assert got.dtype == want
+    _same(thyft.hyft_softmax_bwd(ts, tdy, ct).to(want), got)
+    _same(jax_bwd(js, jdy, cj, interpret=True).astype(
+        jnp.float32 if out == "float32" else cj.dtype), got)
+
+
+@pytest.mark.parametrize("name,bad", [("hyft16", torch.bfloat16), ("hyft16", torch.float64),
+                                      ("hyft32", torch.float16), ("hyft16b", torch.float16)])
+def test_bwd_kernel_rejects_other_out_dtypes(name, bad):
+    """Only ``cfg.dtype`` and float32 hold the rounded values as they are."""
+    ct = CFGS[name][1]
+    s = torch.full((2, 8), 0.125, dtype=ct.dtype)
+    with pytest.raises(ValueError, match="out_dtype"):
+        ths.hyft_softmax_bwd_kernel(s, s, ct, out_dtype=bad)
+
+
 @pytest.mark.parametrize("grad", ["hyft", "exact"])
 @pytest.mark.parametrize("name", ["hyft16", "hyft32"])
 def test_kernel_op_grad_matches_jax(name, grad):
