@@ -18,11 +18,13 @@ name and power limit):
 * ``kernels``: at the main path's shapes (qwen2-1.5b, B 4, Hq 12, Hkv 2,
   D 128, HYFT16, splits of 256), the contiguous decode (Sk 1057, rotating
   over 28 caches as a decode step does) and the causal prompt (Sq 1024
-  over 1057 keys), fp32 and fp2fx8; and the paged decode at the
-  continuous-serving shape (8 slots, 128 pages of 16).  Per variant:
-  ``event_ms``, CUDA events per call over many calls (the wrapper's host
-  time included), and ``device_ms``, the device time per call of every
-  kernel the call launched (torch.profiler): on a tree whose contiguous
+  over 1057 keys), fp32 and fp2fx8; and the paged decode and the paged
+  chunk of 256 lanes from key 768 at the continuous-serving shape (8
+  slots, 128 pages of 16).  Per variant: ``event_ms``, CUDA events per
+  call over many calls (the wrapper's host time included), ``device_ms``,
+  the device time per call of every kernel the call launched
+  (torch.profiler), and a sha256 of the output of the first call, so that
+  two trees can be compared bit for bit: on a tree whose contiguous
   kernels return per-split stats, the call is that kernel followed by the
   torch ``_splitk_combine``, as its wrappers ran them;
 * ``generate``: greedy ``generate`` of qwen2-1.5b at full width (28
@@ -80,7 +82,7 @@ from pathlib import Path
 
 B, HQ, HKV, D = 4, 12, 2, 128
 PROMPT, MAX_LEN = 1024, 1057
-SLOTS, SERVE_LEN, PAGE = 8, 2048, 16
+SLOTS, SERVE_LEN, PAGE, CHUNK = 8, 2048, 16, 256
 
 
 def _device_ms(torch, fn, calls):
@@ -109,6 +111,10 @@ def _event_ms(torch, fn, calls):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / calls
+
+
+def _sha(t):
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def _kv(torch, gen, fp2fx8, shape):
@@ -152,25 +158,34 @@ def kernels(torch, card):
             ms, launches = _device_ms(torch, fn, calls)
             emit({"part": "kernels", "card": card, "kernel": f"hyft_splitk_{kind}",
                   "kv": dtype, "event_ms": _event_ms(torch, fn, calls), "device_ms": ms,
-                  "launches_per_call": launches})
+                  "launches_per_call": launches, "sha256": _sha(fn(0))})
             del bufs
     nb = SERVE_LEN // PAGE
-    for dtype in ("float32", "fp2fx8"):
-        pools = []
-        for _ in range(28):
-            k, v, ks, vs = _kv(torch, gen, dtype == "fp2fx8", (SLOTS * nb + 1, HKV, PAGE, D))
-            bt = (torch.randperm(SLOTS * nb, generator=gen, device="cuda") + 1).int()
-            pools.append((k, v, ks, vs, bt.reshape(SLOTS, nb)))
-        q3 = torch.randn(SLOTS * HKV, g, D, generator=gen, device="cuda")
-        mask = torch.ones(SLOTS, SERVE_LEN, device="cuda")
+    start = 768     # the paged chunk: 256 lanes from key 768 of each slot
+    lanes = (torch.arange(SERVE_LEN, device="cuda")[None, None]
+             <= start + torch.arange(CHUNK, device="cuda")[None, :, None])
+    lanes = lanes.float().expand(SLOTS, CHUNK, SERVE_LEN).contiguous()
+    for kind, sq in (("decode", None), ("verify", CHUNK)):
+        for dtype in ("float32", "fp2fx8"):
+            nbuf = 28 if sq is None else 1
+            pools = []
+            for _ in range(nbuf):
+                k, v, ks, vs = _kv(torch, gen, dtype == "fp2fx8",
+                                   (SLOTS * nb + 1, HKV, PAGE, D))
+                bt = (torch.randperm(SLOTS * nb, generator=gen, device="cuda") + 1).int()
+                pools.append((k, v, ks, vs, bt.reshape(SLOTS, nb)))
+            rows = g if sq is None else g * sq
+            q3 = torch.randn(SLOTS * HKV, rows, D, generator=gen, device="cuda")
+            mask = torch.ones(SLOTS, SERVE_LEN, device="cuda") if sq is None else lanes
 
-        def fn(i):
-            return fa._paged_attention_cuda(q3, *pools[i % 28], mask, **kw, sq=None)
-        ms, launches = _device_ms(torch, fn, 200)
-        emit({"part": "kernels", "card": card, "kernel": "hyft_paged_decode", "kv": dtype,
-              "event_ms": _event_ms(torch, fn, 200), "device_ms": ms,
-              "launches_per_call": launches})
-        del pools
+            def fn(i):
+                return fa._paged_attention_cuda(q3, *pools[i % nbuf], mask, **kw, sq=sq)
+            calls = 200 if sq is None else 10
+            ms, launches = _device_ms(torch, fn, calls)
+            emit({"part": "kernels", "card": card, "kernel": f"hyft_paged_{kind}",
+                  "kv": dtype, "event_ms": _event_ms(torch, fn, calls), "device_ms": ms,
+                  "launches_per_call": launches, "sha256": _sha(fn(0))})
+            del pools
 
 
 def generate_profile(torch, card):
@@ -258,8 +273,7 @@ def flash_bits(torch, card):
         gerr = fa.grad_errors((dq, dk, dv), (dq, *fa._flash_bwd_dkv_plain(*args, **kw)),
                               HYFT16)
         emit({"part": "flash_bits", "card": card, "dtype": str(dtype).split(".")[1],
-              "sha256": {k: hashlib.sha256(t.contiguous().cpu().numpy().tobytes())
-                         .hexdigest()[:16] for k, t in out.items()},
+              "sha256": {k: _sha(t) for k, t in out.items()},
               "dq_skip_differing": int((dq != dq_full).sum()),
               "dq_skip_vs_full": fa.grad_errors((dq,), (dq_full,), HYFT16)["dq"],
               "dkv_vs_plain": {k: gerr[k] for k in ("dk", "dv", "dk_max_abs_err",

@@ -5,10 +5,15 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, ServeConfig, TrainConfig  # noqa: F401
 
-# the architectures the port serves so far; the others of the JAX package
-# come with the slices that port their families (ROADMAP queue 1, the other families)
+# the architectures the port runs so far: the dense family; the others of
+# the JAX package come with the slices that port their families (ROADMAP
+# queue 1, the other families)
 ARCHS = {
+    "mistral-nemo-12b": "mistral_nemo_12b",
+    "nemotron-4-340b": "nemotron_4_340b",
+    "olmo-1b": "olmo_1b",
     "qwen2-1.5b": "qwen2_1_5b",
+    "bert-base": "bert_base",
 }
 
 

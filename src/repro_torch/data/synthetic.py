@@ -1,13 +1,18 @@
-"""Deterministic synthetic LM batches (own copy of ``repro.data.synthetic``).
+"""Deterministic synthetic batches (own copy of ``repro.data.synthetic``).
 
 Batches are keyed by ``(seed, step, host_id)``, so a restarted job resumes
 bit-identically and each data-parallel host makes only its own shard of the
-global batch.  The token stream is the JAX package's order-2 Markov chain
-(``next = (shift1[prev] + prev) % vocab``, replaced by a uniform token with
-probability 0.15), with targets shifted by one.  The random stream is
-``torch.Generator``'s on the CPU, so it is the same on every device but
-not the JAX package's: tests that compare the two hand both sides the same
-tokens.
+global batch.  Two generators, as in the JAX package:
+
+* ``lm_batch``: the order-2 Markov chain (``next = (shift1[prev] + prev) %
+  vocab``, replaced by a uniform token with probability 0.15), with targets
+  shifted by one;
+* ``classify_batch``: the Tables 1-2 proxy task, a class per sequence
+  marked by its marker token at rate 0.3.
+
+The random stream is ``torch.Generator``'s on the CPU, so it is the same on
+every device but not the JAX package's: tests that compare the two hand
+both sides the same tokens.
 """
 from __future__ import annotations
 
@@ -57,3 +62,18 @@ def lm_batch(cfg: DataConfig, step: int, device=None) -> dict:
     tokens, targets = toks[:, :cfg.seq_len], toks[:, 1:cfg.seq_len + 1]
     return {"tokens": tokens.to(device), "targets": targets.to(device),
             "mask": torch.ones(targets.shape, dtype=F32, device=device)}
+
+
+def classify_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
+                   n_classes: int = 4, device=None) -> dict:
+    """Token sequences whose class is the marker token that fills about 0.3
+    of them: int32 ``labels`` (B,) in ``[0, n_classes)`` and ``tokens`` (B,
+    S), marker ``label + 1`` at rate 0.3, else a base token in
+    ``[n_classes + 1, vocab)``.  Keyed by ``(seed, step)`` like
+    ``lm_batch``."""
+    gen = _generator(seed, step)
+    labels = torch.randint(0, n_classes, (batch,), generator=gen)
+    base = torch.randint(n_classes + 1, vocab, (batch, seq), generator=gen)
+    is_marker = torch.rand((batch, seq), generator=gen) < 0.3
+    tokens = torch.where(is_marker, labels[:, None] + 1, base)
+    return {"tokens": tokens.to(I32).to(device), "labels": labels.to(I32).to(device)}

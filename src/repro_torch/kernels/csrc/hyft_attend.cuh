@@ -14,7 +14,7 @@
 //
 // What is computed, bit for bit: every page (split) is one split of the
 // reference.  Level 1 per split (_decode_tile): each score one fmaf chain
-// over d = 0..127, masked scores NEG_BIG before FP2FX, the split's integer
+// over d = 0..D-1, masked scores NEG_BIG before FP2FX, the split's integer
 // max over every step-th key from its start (m_loc), the exponent unit,
 // l_loc an fp32 sum of the addends in key order, PV one fmaf chain per
 // output over the split's keys from its first.  Level 2 (_splitk_combine):
@@ -26,7 +26,8 @@
 // torch combine give, whatever the address policy, so a sequential block
 // table over pages of bk keys gives the contiguous kernels' bits.  Every
 // split is merged, also the null-page blocks past a sequence's length, as
-// JAX does: their alpha is tiny but not zero.  Head width 128 only.
+// JAX does: their alpha is tiny but not zero.  Head widths D = 64 and 128,
+// a template parameter of every kernel; others are refused.
 //
 // verify_kernel is bound by fp32 FMAs.  A block owns 64 query rows of one
 // (b, kv head) and walks the splits in order twice.  Sweep 1 computes the
@@ -35,9 +36,11 @@
 // rescaled terms into the block's running (acc, l) in registers; only the
 // (rows, D) output is written.  The query tile is staged once per block;
 // K/V come through shared memory 64 keys at a time; each thread holds a
-// 4 x 4 score tile and a 4 x 8 output tile, so one float4 load feeds four
-// FMAs.  A 64-key tile whose mask is zero for every row of the block skips
-// K and QK in both sweeps: its raws are the fixed-point minimum whatever
+// 4 x 4 score tile and a 4 x D / 16 output tile (one float4 of columns at
+// D = 64, two at 128), so one float4 load feeds four FMAs.  At D = 64 the
+// block takes half the shared memory, so that two blocks share an SM at
+// every split size.  A 64-key tile whose mask is zero for every row of the
+// block skips K and QK in both sweeps: its raws are the fixed-point minimum whatever
 // the dots are, and the running max starts there.  Such a tile also gives
 // every row the same probabilities, so its PV is one chain per column,
 // shared by the block's rows.  For a causal prompt the work of a row tile
@@ -58,9 +61,9 @@
 // shared memory; each rank then takes its splits' Hyft stats (a split of
 // more than 32 keys with one thread per key and row, its l_loc from an
 // integer count where that is exact) and PV, and pushes each split's
-// rescaled terms to the rank that owns the term's 16 of the 128 output
-// columns; at the end of a round every rank adds its columns' terms of the
-// round's splits, in split order, to a running sum, and after the last
+// rescaled terms to the rank that owns the term's D / 8 output columns (16
+// at D = 128, 8 at 64); at the end of a round every rank adds its columns'
+// terms of the round's splits, in split order, to a running sum, and after the last
 // round writes them finalized.  A sequence that needs more than one round
 // has its scores computed twice (the maxima first, then a round at a time),
 // so that no length is refused: K is then read twice.  The GQA group's
@@ -108,19 +111,27 @@ using hyft::cp_async_wait;
 using hyft::fma4;
 using hyft::ld4;
 
-constexpr int kD = 128;            // head width
 constexpr int kThreads = 256;
 constexpr int kSub = 64;           // keys of one staged K or V tile
-constexpr int kPitch = kD + 4;     // q and K/V rows in shared memory: float4
-                                   // aligned, 8 neighbouring rows on 8 banks
 constexpr int kRowsV = 64;         // query rows of a verify block
 constexpr int kZPitch = kRowsV + 4;
 constexpr int kRanks = 8;          // blocks of a decode cluster
 constexpr int kRowsD = 16;         // most rows of a decode block
-constexpr int kSlice = kD / kRanks;  // output columns a decode rank sums
 constexpr size_t kMaxSmem = 232448;  // dynamic shared memory of one block
 // a decode block that keeps within this shares its SM with another
 constexpr size_t kHalfSmem = 112 * 1024;
+
+// What the head width D (64 or 128) fixes: the pitch of q and K/V rows in
+// shared memory (float4 aligned; D + 4 puts 8 neighbouring rows on 8
+// banks), the float4 column groups of a verify thread, and the output
+// columns a decode rank sums.
+template <int D>
+struct Width {
+  static_assert(D == 64 || D == 128, "the thread layouts cover 64 or 128 columns");
+  static constexpr int kPitch = D + 4;
+  static constexpr int kCG = D / 64;
+  static constexpr int kSlice = D / kRanks;
+};
 
 // Where the keys of one (b, kv head) live: pages of PS keys through the
 // block table (kPaged), or the contiguous stripe of sk keys.  Keys at or
@@ -171,19 +182,19 @@ __device__ __forceinline__ void to_f32(uint4 raw, float scale, float* out) {
 
 // Stage keys [j0, j0 + kSub) into s_kv (kSub x kPitch floats), dequantized;
 // keys at or past keys.sk read as zero.
-template <typename KV, int PS, bool kPaged>
+template <typename KV, int D, int PS, bool kPaged>
 __device__ __forceinline__ void stage(float* s_kv, const KV* __restrict__ src,
                                       const float* __restrict__ scale,
                                       const Keys<PS, kPaged>& keys, int j0) {
   constexpr int kVec = 16 / sizeof(KV);   // elements of one 16-byte load
-  constexpr int kPerRow = kD / kVec;
+  constexpr int kPerRow = D / kVec, kPitch = Width<D>::kPitch;
   for (int i = threadIdx.x; i < kSub * kPerRow; i += blockDim.x) {
     const int jl = i / kPerRow, d0 = (i % kPerRow) * kVec;
     const int j = j0 + jl;
     float val[kVec];
     if (j < keys.sk) {
       const long r = keys.row(j);
-      to_f32<KV>(*reinterpret_cast<const uint4*>(src + r * kD + d0),
+      to_f32<KV>(*reinterpret_cast<const uint4*>(src + r * D + d0),
                  std::is_same<KV, int8_t>::value ? scale[r] : 1.0f, val);
     } else {
 #pragma unroll
@@ -243,13 +254,14 @@ __device__ __forceinline__ int row_tile(int y, int ntiles, int rows, int sq) {
 
 // Grid (B * Hkv, ceil(rows / 64)).  Thread (ty, tx) = (tid / 16, tid % 16)
 // holds the scores of rows ty*4 + i and keys tx + 16 jj of a 64-key tile,
-// and the outputs of rows ty*4 + i, columns tx*4 + c and 64 + tx*4 + c.
+// and the outputs of rows ty*4 + i, columns 64g + tx*4 + c (g < D / 64).
 // Shared memory (dynamic): s_q [64][kPitch], s_kv [64][kPitch], s_z
 // [kChunk][kZPitch] (a chunk's raws, then its probabilities, key-major).
 // Two blocks share an SM where the shared memory allows it (a chunk of at
-// most 128 keys); at PS 256 one block holds an SM and may take 255 registers.
-template <typename KV, int PS, bool kPaged>
-__global__ void __launch_bounds__(kThreads, PS > 128 ? 1 : 2) verify_kernel(
+// most 128 keys, or D = 64: 102 KB at PS 256); at D = 128 and PS 256 one
+// block holds an SM and may take 255 registers.
+template <typename KV, int D, int PS, bool kPaged>
+__global__ void __launch_bounds__(kThreads, PS > 128 && D > 64 ? 1 : 2) verify_kernel(
     const float* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     const int* __restrict__ block_table, const float* __restrict__ mask,
@@ -258,6 +270,7 @@ __global__ void __launch_bounds__(kThreads, PS > 128 ? 1 : 2) verify_kernel(
   constexpr int kChunk = PS > kSub ? PS : kSub;   // keys of one pass of the stats
   constexpr int kPages = kChunk / PS;             // splits of one chunk
   constexpr int kSeg = PS < kSub ? PS : kSub;     // keys between split boundaries
+  constexpr int kPitch = Width<D>::kPitch, kCG = Width<D>::kCG;
   extern __shared__ float4 smem4[];
   float* s_q = reinterpret_cast<float*>(smem4);
   float* s_kv = s_q + kRowsV * kPitch;
@@ -269,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, PS > 128 ? 1 : 2) verify_kernel(
   __shared__ float s_lloc[kPages][kRowsV];
   __shared__ float s_lt[kPages][kRowsV];    // l terms
   __shared__ float s_lg[kRowsV];
-  __shared__ float s_vs[kPages][kD];   // a masked chunk's PV, shared by its rows
+  __shared__ float s_vs[kPages][D];    // a masked chunk's PV, shared by its rows
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int row0 = row_tile(blockIdx.y, gridDim.y, rows, sq) * kRowsV;
@@ -279,10 +292,10 @@ __global__ void __launch_bounds__(kThreads, PS > 128 ? 1 : 2) verify_kernel(
                               static_cast<long>(bh) * sk, hkv, hh, sk};
   const int lo = -(1 << (h.total - 1));   // FP2FX of a masked score
 
-  for (int i = tid; i < kRowsV * kD; i += kThreads) {
-    const int row = row0 + i / kD;
-    s_q[(i / kD) * kPitch + i % kD] =
-        row < rows ? q[(static_cast<long>(bh) * rows + row) * kD + i % kD] : 0.0f;
+  for (int i = tid; i < kRowsV * D; i += kThreads) {
+    const int row = row0 + i / D;
+    s_q[(i / D) * kPitch + i % D] =
+        row < rows ? q[(static_cast<long>(bh) * rows + row) * D + i % D] : 0.0f;
   }
 
   const float* mrow[4];   // the mask row of each of this thread's rows
@@ -317,7 +330,7 @@ __global__ void __launch_bounds__(kThreads, PS > 128 ? 1 : 2) verify_kernel(
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) dot[i][jj] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < kD; d += 4) {
+    for (int d = 0; d < D; d += 4) {
       float4 qa[4], kb[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qa[i] = ld4(s_q + (ty * 4 + i) * kPitch + d);
@@ -341,7 +354,7 @@ __global__ void __launch_bounds__(kThreads, PS > 128 ? 1 : 2) verify_kernel(
   for (int j0 = 0; j0 < nk; j0 += kSub) {
     bool ok[4][4];
     if (!tile_mask(j0, ok)) continue;
-    stage<KV, PS, kPaged>(s_kv, k, k_scale, keys, j0);
+    stage<KV, D, PS, kPaged>(s_kv, k, k_scale, keys, j0);
     __syncthreads();
     int raw[4][4];
     scores(ok, raw);
@@ -362,7 +375,7 @@ __global__ void __launch_bounds__(kThreads, PS > 128 ? 1 : 2) verify_kernel(
   }
 
   // ---- sweep 2: per split, level 1, rescaled into the running (acc, l)
-  float acc[4][8];
+  float acc[4][4 * kCG];
   float l_glob = 0.0f;   // of row tid, for tid < kRowsV
   for (int c0 = 0; c0 < nk; c0 += kChunk) {
     const int npg = min(kPages, nb - c0 / PS);
@@ -372,7 +385,7 @@ __global__ void __launch_bounds__(kThreads, PS > 128 ? 1 : 2) verify_kernel(
       int raw[4][4];
       if (tile_mask(c0 + s0, ok)) {
         live = true;
-        stage<KV, PS, kPaged>(s_kv, k, k_scale, keys, c0 + s0);
+        stage<KV, D, PS, kPaged>(s_kv, k, k_scale, keys, c0 + s0);
         __syncthreads();
         scores(ok, raw);
       } else {
@@ -416,16 +429,16 @@ __global__ void __launch_bounds__(kThreads, PS > 128 ? 1 : 2) verify_kernel(
         l_glob = c0 + pg == 0 ? s_lt[pg][tid] : __fadd_rn(l_glob, s_lt[pg][tid]);
     // PV, one split at a time.  In a chunk with no valid pair every raw is
     // the fixed-point minimum, so every row has the same probabilities and
-    // the same PV chains: one chain per column (threads 0-127), read by all
-    // rows, gives each row's bits
-    float part[4][8];
+    // the same PV chains: one chain per column (threads 0 to D - 1), read by
+    // all rows, gives each row's bits
+    float part[4][4 * kCG];
     float vs = 0.0f;
     for (int s0 = 0; s0 < kChunk && c0 + s0 < nk; s0 += kSub) {
-      stage<KV, PS, kPaged>(s_kv, v, v_scale, keys, c0 + s0);
+      stage<KV, D, PS, kPaged>(s_kv, v, v_scale, keys, c0 + s0);
       __syncthreads();
       const int nkt = min(kSub, nk - c0 - s0);
       if (!live) {
-        if (tid < kD)
+        if (tid < D)
           for (int seg = 0; seg < nkt; seg += kSeg) {
             const int jv = c0 + s0 + seg;
             if (jv % PS == 0) vs = 0.0f;
@@ -443,32 +456,32 @@ __global__ void __launch_bounds__(kThreads, PS > 128 ? 1 : 2) verify_kernel(
 #pragma unroll
             for (int i = 0; i < 4; ++i)
 #pragma unroll
-              for (int c = 0; c < 8; ++c)
-                part[i][c] = s_vs[(jv - c0) / PS][(c < 4 ? 0 : 64) + tx * 4 + c % 4];
+              for (int c = 0; c < 4 * kCG; ++c)
+                part[i][c] = s_vs[(jv - c0) / PS][64 * (c / 4) + tx * 4 + c % 4];
         } else {
           if (jv % PS == 0)
 #pragma unroll
             for (int i = 0; i < 4; ++i)
 #pragma unroll
-              for (int c = 0; c < 8; ++c) part[i][c] = 0.0f;
+              for (int c = 0; c < 4 * kCG; ++c) part[i][c] = 0.0f;
 #pragma unroll 4
           for (int j = 0; j < kSeg; ++j) {
             const int kk = s0 + seg + j;     // key within the chunk
             const float4 p = ld4(s_z + kk * kZPitch + ty * 4);
-            const float4 va = ld4(s_kv + (seg + j) * kPitch + tx * 4);
-            const float4 vb = ld4(s_kv + (seg + j) * kPitch + 64 + tx * 4);
+            float4 vv[kCG];
+#pragma unroll
+            for (int g = 0; g < kCG; ++g)
+              vv[g] = ld4(s_kv + (seg + j) * kPitch + 64 * g + tx * 4);
             const float pr[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              part[i][0] = fmaf(pr[i], va.x, part[i][0]);
-              part[i][1] = fmaf(pr[i], va.y, part[i][1]);
-              part[i][2] = fmaf(pr[i], va.z, part[i][2]);
-              part[i][3] = fmaf(pr[i], va.w, part[i][3]);
-              part[i][4] = fmaf(pr[i], vb.x, part[i][4]);
-              part[i][5] = fmaf(pr[i], vb.y, part[i][5]);
-              part[i][6] = fmaf(pr[i], vb.z, part[i][6]);
-              part[i][7] = fmaf(pr[i], vb.w, part[i][7]);
-            }
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int g = 0; g < kCG; ++g) {
+                part[i][4 * g + 0] = fmaf(pr[i], vv[g].x, part[i][4 * g + 0]);
+                part[i][4 * g + 1] = fmaf(pr[i], vv[g].y, part[i][4 * g + 1]);
+                part[i][4 * g + 2] = fmaf(pr[i], vv[g].z, part[i][4 * g + 2]);
+                part[i][4 * g + 3] = fmaf(pr[i], vv[g].w, part[i][4 * g + 3]);
+              }
           }
         }
         if ((jv + kSeg) % PS == 0) {       // the split ends: its term
@@ -477,7 +490,7 @@ __global__ void __launch_bounds__(kThreads, PS > 128 ? 1 : 2) verify_kernel(
           for (int i = 0; i < 4; ++i) {
             const float alpha = s_alpha[pg][ty * 4 + i];
 #pragma unroll
-            for (int c = 0; c < 8; ++c) {
+            for (int c = 0; c < 4 * kCG; ++c) {
               const float term = __fmul_rn(part[i][c], alpha);
               acc[i][c] = jv + kSeg == PS ? term : __fadd_rn(acc[i][c], term);
             }
@@ -495,12 +508,14 @@ __global__ void __launch_bounds__(kThreads, PS > 128 ? 1 : 2) verify_kernel(
     const int row = row0 + ty * 4 + i;
     if (row >= rows) continue;
     const float l = s_lg[ty * 4 + i];
-    float o[8];
+    float o[4 * kCG];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) o[c] = hyft_finalize(acc[i][c], l, h.mant);
-    float* dst = out + (static_cast<long>(bh) * rows + row) * kD;
-    *reinterpret_cast<float4*>(dst + tx * 4) = make_float4(o[0], o[1], o[2], o[3]);
-    *reinterpret_cast<float4*>(dst + 64 + tx * 4) = make_float4(o[4], o[5], o[6], o[7]);
+    for (int c = 0; c < 4 * kCG; ++c) o[c] = hyft_finalize(acc[i][c], l, h.mant);
+    float* dst = out + (static_cast<long>(bh) * rows + row) * D;
+#pragma unroll
+    for (int g = 0; g < kCG; ++g)
+      *reinterpret_cast<float4*>(dst + 64 * g + tx * 4) =
+          make_float4(o[4 * g], o[4 * g + 1], o[4 * g + 2], o[4 * g + 3]);
   }
 }
 
@@ -514,11 +529,11 @@ __global__ void __launch_bounds__(kThreads, PS > 128 ? 1 : 2) verify_kernel(
 // keys' scales and (K tiles) their mask.  The sizes keep a block within
 // half an SM's shared memory at the serving shape (128 pages, 6 rows), so
 // that two blocks share an SM: with one, the 16 clusters of that shape do
-// not all fit on the card at once.
-template <typename KV>
+// not all fit on the card at once.  A row of D = 64 takes half the bytes.
+template <typename KV, int D>
 struct Raw {
   static constexpr int kTile = sizeof(KV) == 4 ? 32 : 64;
-  static constexpr int kRowBytes = kD * static_cast<int>(sizeof(KV)) + 16;
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(KV)) + 16;
   static constexpr int kScales = kTile * kRowBytes;          // byte offsets
   static constexpr int kMask = kScales + kTile * 4;
   static constexpr int kBytes = kMask + kTile * 4;
@@ -551,14 +566,14 @@ __device__ __forceinline__ void load4(const unsigned char* p, float scale, float
 // jo % PS) of K or V, their scales and, with mask, their mask, into a ring
 // slot; keys at or past nown, or past sk, are zero-filled.  One commit
 // group.
-template <typename KV, int PS, bool kPaged>
+template <typename KV, int D, int PS, bool kPaged>
 __device__ __forceinline__ void fetch(unsigned char* slot, const KV* __restrict__ src,
                                       const float* __restrict__ scale,
                                       const float* __restrict__ mask_row, const int* s_bt,
                                       const Keys<PS, kPaged>& keys, int j1, int jo0,
                                       int nown) {
-  using R = Raw<KV>;
-  constexpr int kChunks = kD * static_cast<int>(sizeof(KV)) / 16;
+  using R = Raw<KV, D>;
+  constexpr int kChunks = D * static_cast<int>(sizeof(KV)) / 16;
   auto row_of = [&](int jo, bool& ok) -> long {
     ok = jo < nown && j1 + jo < keys.sk;
     if (!ok) return 0;
@@ -572,7 +587,7 @@ __device__ __forceinline__ void fetch(unsigned char* slot, const KV* __restrict_
     bool ok;
     const long r = row_of(jo0 + jl, ok);
     cp_async16(slot + jl * R::kRowBytes + c * 16,
-               reinterpret_cast<const unsigned char*>(src + r * kD) + c * 16, ok);
+               reinterpret_cast<const unsigned char*>(src + r * D) + c * 16, ok);
   }
   for (int jl = threadIdx.x; jl < R::kTile; jl += blockDim.x) {
     bool ok;
@@ -592,11 +607,12 @@ __device__ __forceinline__ void fetch(unsigned char* slot, const KV* __restrict_
 // round its K tiles again (one round: the only K tiles) and its V tiles.
 // A K tile without a valid key skips its math.
 // Shared memory (dynamic): s_q [16][kPitch] f32; the ring; s_z [P * PS]
-// [rows] (the keys' raws, then their probabilities); s_recv [8 P][rows][16]
-// (the acc terms of this rank's 16 columns, pushed by each split's owner);
+// [rows] (the keys' raws, then their probabilities); s_recv [8 P][rows]
+// [D / 8] (the acc terms of this rank's D / 8 columns, pushed by each
+// split's owner);
 // s_lrecv [8 P][rows] (every split's l term, pushed likewise); s_mloc,
 // s_alpha, s_lq [P][rows]; s_bt [nround * P] (paged: this rank's pages).
-template <typename KV, int PS, bool kPaged>
+template <typename KV, int D, int PS, bool kPaged>
 __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
     decode_kernel(const float* __restrict__ q, const KV* __restrict__ k,
                   const KV* __restrict__ v, const float* __restrict__ k_scale,
@@ -604,9 +620,10 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
                   const float* __restrict__ mask, float* __restrict__ out, int hkv,
                   int rows, int nb, int sk, int P, int nround, float sm_scale,
                   HyftParams h) {
-  using R = Raw<KV>;
+  using R = Raw<KV, D>;
   constexpr int kTile = R::kTile;
   constexpr int kSeg = PS < kTile ? PS : kTile;   // keys between split boundaries
+  constexpr int kPitch = Width<D>::kPitch, kSlice = Width<D>::kSlice;
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
   const int rank = static_cast<int>(cluster.block_rank());
@@ -636,9 +653,9 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
   auto own = [&](int r) { return max(0, min(nb, first_split(r) + P) - first_split(r)); };
   auto tiles = [&](int r) { return (own(r) * PS + kTile - 1) / kTile; };
 
-  for (int i = tid; i < kRowsD * kD; i += kThreads)
-    s_q[(i / kD) * kPitch + i % kD] =
-        i / kD < rows ? q[(static_cast<long>(bh) * rows + i / kD) * kD + i % kD] : 0.0f;
+  for (int i = tid; i < kRowsD * D; i += kThreads)
+    s_q[(i / D) * kPitch + i % D] =
+        i / D < rows ? q[(static_cast<long>(bh) * rows + i / D) * D + i % D] : 0.0f;
   if constexpr (kPaged)
     for (int i = tid; i < nround * P; i += kThreads) {
       const int pg = first_split(i / P) + i % P;
@@ -669,9 +686,9 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
       is_v = i >= n;
       i -= is_v ? n : 0;
     }
-    fetch<KV, PS, kPaged>(s_ring + (u % R::kStages) * R::kBytes, is_v ? v : k,
-                          is_v ? v_scale : k_scale, is_v ? nullptr : mask_row,
-                          s_bt + r * P, keys, first_split(r) * PS, i * kTile, own(r) * PS);
+    fetch<KV, D, PS, kPaged>(s_ring + (u % R::kStages) * R::kBytes, is_v ? v : k,
+                             is_v ? v_scale : k_scale, is_v ? nullptr : mask_row,
+                             s_bt + r * P, keys, first_split(r) * PS, i * kTile, own(r) * PS);
   };
   int t = 0;   // the item consumed next
   for (int u = 0; u < R::kStages - 1; ++u) issue(u);
@@ -707,7 +724,7 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int a = 0; a < kQRows; ++a) dot[a] = 0.0f;
 #pragma unroll
-        for (int d = 0; d < kD; d += R::kVec) {
+        for (int d = 0; d < D; d += R::kVec) {
           float kf[R::kVec];
           to_f32<KV>(*reinterpret_cast<const uint4*>(slot + kk * R::kRowBytes +
                                                      d * static_cast<int>(sizeof(KV))),
@@ -758,11 +775,15 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
   // term; PV of the V tiles, each split's rescaled terms pushed to the rank
   // that sums their columns; then, the round's terms all in, every rank
   // adds its columns' terms in split order
-  // PV: splits per tile, warps per split, the rows of one warp
+  // PV: splits per tile, warps per split; the lanes of one row (D / 4: a
+  // lane takes 4 columns), the rows a warp takes at once (2 at D = 64, whose
+  // row fills half a warp), and the rows of one thread
   constexpr int kWpp = kThreads / 32 / (kTile / kSeg);
-  constexpr int kRowsW = (kRowsD + kWpp - 1) / kWpp;
-  const int warp = tid / 32, c0 = (tid % 32) * 4;
-  float acc = 0.0f, l = 0.0f;   // of (row tid / 16, column tid % 16), tid < rows * 16
+  constexpr int kLanes = D / 4, kHalves = 32 / kLanes;
+  constexpr int kRowsW = (kRowsD + kWpp * kHalves - 1) / (kWpp * kHalves);
+  const int warp = tid / 32, c0 = (tid % kLanes) * 4, half = tid % 32 / kLanes;
+  // of (row tid / kSlice, column tid % kSlice), tid < rows * kSlice
+  float acc = 0.0f, l = 0.0f;
   const int q0 = rank * P;   // the round's index of this rank's first split
   // split pg's alpha (kept) and l term (to every rank, which sums every l)
   auto push_l = [&](int it, int pg, int rr, float l_loc) {
@@ -823,7 +844,8 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
     }
     // Warp w takes one split of a V tile (or, for splits as long as a tile
     // or longer, the tile's part of its split) and every kWpp-th row from w
-    // % kWpp; lane l the columns 4l..4l+3
+    // % kWpp, the half h of its lanes the h-th of each kHalves of them;
+    // lane l the columns 4l..4l+3 of its row (l mod D / 4)
     float part[kRowsW][4];
     for (int i = 0; i < tiles(r); ++i, ++t) {
       const unsigned char* slot = next_slot();
@@ -845,7 +867,7 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
                     std::is_same<KV, int8_t>::value ? sc[seg + j] : 1.0f, vd);
 #pragma unroll
           for (int a = 0; a < kRowsW; ++a) {
-            const int rr = warp % kWpp + kWpp * a;
+            const int rr = warp % kWpp + kWpp * (kHalves * a + half);
             if (rr < rows) {
               const float p = s_z[(jo + j) * rows + rr];
 #pragma unroll
@@ -858,7 +880,7 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
           float* dst = cluster.map_shared_rank(s_recv, c0 / kSlice);
 #pragma unroll
           for (int a = 0; a < kRowsW; ++a) {
-            const int rr = warp % kWpp + kWpp * a;
+            const int rr = warp % kWpp + kWpp * (kHalves * a + half);
             if (rr < rows) {
               const float alpha = s_alpha[pg * rows + rr];
               *reinterpret_cast<float4*>(dst + ((q0 + pg) * rows + rr) * kSlice + c0 % kSlice) =
@@ -885,7 +907,8 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
   }
   if (tid < rows * kSlice) {
     const int rr = tid / kSlice, c = tid % kSlice;
-    out[(static_cast<long>(bh) * rows + rr) * kD + rank * kSlice + c] = hyft_finalize(acc, l, h.mant);
+    out[(static_cast<long>(bh) * rows + rr) * D + rank * kSlice + c] =
+        hyft_finalize(acc, l, h.mant);
   }
 }
 
@@ -915,11 +938,12 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename KV, int PS, bool kPaged>
+template <typename KV, int D, int PS, bool kPaged>
 cudaError_t launch_verify(const Args& a) {
-  auto kern = verify_kernel<KV, PS, kPaged>;
+  auto kern = verify_kernel<KV, D, PS, kPaged>;
   constexpr int kChunk = PS > kSub ? PS : kSub;
-  const size_t smem = sizeof(float) * ((kRowsV + kSub) * kPitch + kChunk * kZPitch);
+  const size_t smem =
+      sizeof(float) * ((kRowsV + kSub) * Width<D>::kPitch + kChunk * kZPitch);
   static size_t allowed = 0;
   if (cudaError_t err = allow_smem(kern, smem, allowed)) return err;
   const dim3 grid(a.bh, (a.rows + kRowsV - 1) / kRowsV);
@@ -935,15 +959,17 @@ cudaError_t launch_verify(const Args& a) {
 // The splits per rank and round, P: all of a rank's splits (one round) if
 // the block then keeps within half an SM's shared memory, else within all
 // of it; past that, as many as fit, in as many rounds as it takes.
-template <typename KV, int PS, bool kPaged>
+template <typename KV, int D, int PS, bool kPaged>
 cudaError_t launch_decode(const Args& a) {
-  auto kern = decode_kernel<KV, PS, kPaged>;
+  using R = Raw<KV, D>;
+  auto kern = decode_kernel<KV, D, PS, kPaged>;
   const int ppr = (a.nb + kRanks - 1) / kRanks;
-  const size_t fixed = sizeof(float) * kRowsD * kPitch + Raw<KV>::kStages * Raw<KV>::kBytes +
+  const size_t fixed = sizeof(float) * kRowsD * Width<D>::kPitch + R::kStages * R::kBytes +
                        (kPaged ? sizeof(int) * (ppr + 1) : 0);
-  const size_t per_split = sizeof(float) * (static_cast<size_t>(a.rows) * (PS + 3) +
-                                            static_cast<size_t>(kRanks) * a.rows * (kSlice + 1)) +
-                           (kPaged ? sizeof(int) : 0);
+  const size_t per_split =
+      sizeof(float) * (static_cast<size_t>(a.rows) * (PS + 3) +
+                       static_cast<size_t>(kRanks) * a.rows * (Width<D>::kSlice + 1)) +
+      (kPaged ? sizeof(int) : 0);
   auto fit = [&](size_t budget) {
     return budget > fixed ? static_cast<int>(std::min<size_t>(ppr, (budget - fixed) / per_split))
                           : 0;
@@ -965,12 +991,12 @@ cudaError_t launch_decode(const Args& a) {
   return cudaGetLastError();
 }
 
-// the shared argument checks and the K/V type switch; by_split picks the
-// split size
-template <bool kDecode, bool kPaged, int PS>
+// the K/V type switch of one head width and split (page) size; the sources
+// that include this pick the width and the size
+template <bool kDecode, bool kPaged, int D, int PS>
 cudaError_t launch(const Args& a, int kv_type) {
 #define HYFT_LAUNCH(T) \
-  return kDecode ? launch_decode<T, PS, kPaged>(a) : launch_verify<T, PS, kPaged>(a)
+  return kDecode ? launch_decode<T, D, PS, kPaged>(a) : launch_verify<T, D, PS, kPaged>(a)
   if (kv_type == 0) HYFT_LAUNCH(float);
   if (kv_type == 1) HYFT_LAUNCH(__nv_bfloat16);
   if (kv_type == 2) HYFT_LAUNCH(int8_t);
@@ -978,9 +1004,10 @@ cudaError_t launch(const Args& a, int kv_type) {
   return cudaErrorInvalidValue;
 }
 
-inline bool valid(const Args& a, int d) {
-  return d == kD && a.bh > 0 && a.hkv > 0 && a.rows > 0 && a.nb > 0 && a.sk > 0 &&
-         a.sq > 0 && a.rows % a.sq == 0 && a.h.step >= 1 && a.h.mant <= a.h.frac;
+// the shared argument checks (the head width is checked by the switch on it)
+inline bool valid(const Args& a) {
+  return a.bh > 0 && a.hkv > 0 && a.rows > 0 && a.nb > 0 && a.sk > 0 && a.sq > 0 &&
+         a.rows % a.sq == 0 && a.h.step >= 1 && a.h.mant <= a.h.frac;
 }
 
 }  // namespace

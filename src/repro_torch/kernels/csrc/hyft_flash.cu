@@ -26,7 +26,8 @@
 //
 // What bounds them on an H100: fp32 FMAs (qwen2-1.5b at B 4, S 1024,
 // causal: 12.9 / 19.3 / 25.8 GFLOP over the attended half for forward / dq
-// / dk-dv, against a few tens of MB of operands), and, before the FMAs,
+// / dk-dv, against a few tens of MB of operands; bert-base at D 64, B 32,
+// S 128, non-causal: 1.6 / 2.4 / 3.2 GFLOP against 32-45 MB), and, before the FMAs,
 // shared-memory loads: an SM moves 32 words of shared memory a clock
 // against 128 FMA lanes.  No tensor cores and no TF32: every score q.k (and
 // do.v) is one fmaf chain over d = 0..D-1 in order, then __fmul_rn(dot,
@@ -36,25 +37,33 @@
 // All three are register-tiled: a thread holds a few rows x a few keys of
 // scores (and rows x columns or keys x columns of sums) and reads its
 // operands from shared memory as float4, each output's chain kept in its
-// order.  The forward takes 64 query rows per block, two blocks per SM: 4
-// rows x 8 keys of scores and 4 rows x 8 columns of PV a thread (32 FMAs per
-// 3 float4 loads).  K is staged in slices of 32 d and V in slices of 32 keys
-// through a two-slot cp.async ring, the next slice loading during the math.
+// order.  They take head widths D = 64 and 128 (a template parameter): the
+// 16 threads of a row group own D / 16 columns each, one float4 at 64 and
+// two (4tx.. and 64 + 4tx..) at 128, so a thread's sums halve at 64 and no
+// column is left idle.  The forward takes 64 query rows per block, two
+// blocks per SM: 4 rows x 8 keys of scores and 4 rows x D / 16 columns of PV
+// a thread (32 FMAs per 3 float4 loads at 128, per 2 at 64).  K is staged
+// in D / 32 slices of 32 d and V in 4 slices of 32 keys through a two-slot
+// cp.async ring, the next slice loading during the math.
 // Its exponent units run over all threads, and the block sum lb is an
 // integer count of 2^-acc reduced by warp shuffles: equal to the ordered
 // fp32 sum while the count stays below 2^24 (every partial sum exact; always
 // under HYFT16, whose block of 128 keys counts at most 2^21), else the
 // ordered sum.  dk/dv takes 32 keys per block (K, V in shared memory), one
-// block per SM, and walks the query rows of every group member in order, in
+// block per SM at D = 128 and two at 64 (187 and 107 KB of shared memory in
+// fp32), and walks the query rows of every group member in order, in
 // sub-tiles of 64 through the ring; half the threads run the q.k chains, the
 // other half the do.v chains (4 rows x 4 keys a thread), then the first half
-// sums dv and the second dk (4 keys x 8 columns).  One fixed-order chain per
+// sums dv and the second dk (4 keys x D / 16 columns).  One fixed-order chain per
 // output over (group member, row), the parent design's order; the longest
 // causal key tiles first.  dq mirrors it over the other axis: 64 query rows
 // per block (q and do staged once), two blocks per SM, K and V in sub-tiles
 // of 32 keys, the q.k and do.v chains on the two halves (4 rows x 4 keys a
-// thread), then dq summed by every thread (4 rows x 8 columns), keys in
-// order; the longest causal row tiles first.  On an H100 at the training
+// thread), then dq summed by every thread (4 rows x D / 16 columns), keys in
+// order; the longest causal row tiles first.  Shared memory per block (fp32
+// inputs, D = 128 / 64): forward 103 / 87 KB, dq 109 / 61 KB; the forward
+// and dq keep two blocks per SM at both widths, where the register cap of
+// 128 binds.  On an H100 at the training
 // shape the three run at about 36-41% of the fp32 peak; 128-row forward
 // tiles of 8 x 8 (one block per SM) and dk/dv sub-tiles of 32 rows (two
 // blocks per SM) measured slower, dq with a two-slot ring (one block per
@@ -170,11 +179,11 @@ __device__ __forceinline__ float f4(const float4& a, int c) {
 // forward.  Grid (BH, ceil(sq / 64)), the tiles of the last rows first (the
 // longest under the causal mask).  Thread (ty, tx) = (tid / 16, tid % 16)
 // holds rows 4ty..4ty+3: their scores against keys tx + 16u (u < 8) of a
-// block, their PV outputs of columns 4tx..4tx+3 and 64+4tx..64+4tx+3, and
-// (all 16 threads of a row group alike) their m, l and alpha.  The ring
-// streams each KV block as 8 items: K in 4 slices of 32 d (all 128 keys),
-// then V in 4 slices of 32 keys; a block past the causal frontier as its 4
-// V items only.  Shared memory (dynamic):
+// block, their PV outputs of columns 64g + 4tx..64g + 4tx+3 (g < D / 64),
+// and (all 16 threads of a row group alike) their m, l and alpha.  The ring
+// streams each KV block as D / 32 + 4 items: K in D / 32 slices of 32 d (all
+// 128 keys), then V in 4 slices of 32 keys; a block past the causal frontier
+// as its 4 V items only.  Shared memory (dynamic):
 //   s_q    [64][D + 4]              the query rows, fp32
 //   ring   kStages x max(K slice [128][32 + pad], V slice [32][D + pad]), T
 //   s_p    [128][64 + 4]            the block's probabilities, key-major
@@ -183,9 +192,14 @@ constexpr int kR = 4;              // rows of a thread (two blocks per SM)
 constexpr int kFwdRows = 16 * kR;  // query rows of a block
 constexpr int kKeys = 128;         // the largest KV block
 constexpr int kSlice = 32;         // d of a K slice, keys of a V slice
+constexpr int kVItems = kKeys / kSlice;  // V slices of a KV block
 
 template <typename T, int D>
 struct FwdSmem {
+  static_assert(D == 64 || D == 128, "the thread layout covers 64 or 128 columns");
+  static constexpr int kCG = D / 64;                   // float4 columns of a thread
+  static constexpr int kKItems = D / kSlice;           // K slices of a KV block
+  static constexpr int kItems = kKItems + kVItems;     // ring items of a live block
   static constexpr int kQP = D + 4;                    // s_q pitch (fp32)
   static constexpr int kKP = kSlice + 16 / sizeof(T);  // K slice pitch (T)
   static constexpr int kVP = D + 16 / sizeof(T);       // V slice pitch (T)
@@ -198,11 +212,11 @@ struct FwdSmem {
 };
 
 // pv[r][c] = fmaf(p[j][kR ty + r], v[j][c], pv[r][c]) over keys j0 .. j0 + nj -
-// 1 of s_p in order, columns 4tx.. and 64 + 4tx..; vs holds V rows j0 ..;
+// 1 of s_p in order, columns 64g + 4tx.. (g < kCG); vs holds V rows j0 ..;
 // kMasked: every key has its row's probability of key 0
-template <bool kMasked, int kVP, int kPP, typename T>
-__device__ __forceinline__ void pv_keys(float (&pv)[kR][8], const T* vs, const float* s_p,
-                                        int j0, int nj, int tx, int ty) {
+template <bool kMasked, int kCG, int kVP, int kPP, typename T>
+__device__ __forceinline__ void pv_keys(float (&pv)[kR][4 * kCG], const T* vs,
+                                        const float* s_p, int j0, int nj, int tx, int ty) {
   float4 p_row[kR / 4];
 #pragma unroll
   for (int g = 0; g < kR / 4; ++g) p_row[g] = ld4(s_p + kR * ty + 4 * g);
@@ -212,16 +226,16 @@ __device__ __forceinline__ void pv_keys(float (&pv)[kR][8], const T* vs, const f
 #pragma unroll
     for (int g = 0; g < kR / 4; ++g)
       p4[g] = kMasked ? p_row[g] : ld4(s_p + (j0 + j) * kPP + kR * ty + 4 * g);
-    const float4 va = ld4(vs + j * kVP + 4 * tx);
-    const float4 vb = ld4(vs + j * kVP + 64 + 4 * tx);
+    float4 vv[kCG];
+#pragma unroll
+    for (int g = 0; g < kCG; ++g) vv[g] = ld4(vs + j * kVP + 64 * g + 4 * tx);
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
       const float p = f4(p4[r / 4], r % 4);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        pv[r][c] = fmaf(p, f4(va, c), pv[r][c]);
-        pv[r][4 + c] = fmaf(p, f4(vb, c), pv[r][4 + c]);
-      }
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int g = 0; g < kCG; ++g) pv[r][4 * g + c] = fmaf(p, f4(vv[g], c), pv[r][4 * g + c]);
     }
   }
 }
@@ -232,8 +246,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
     const float* __restrict__ mask, float* __restrict__ o, int* __restrict__ m_out,
     float* __restrict__ l_out, int sq, int sk, int bk, int group, int hq_per_b,
     int q_offset, int causal, int skip, float scale, Params h) {
-  static_assert(D == 128, "the thread layout covers 128 columns");
   using S = FwdSmem<T, D>;
+  constexpr int kCG = S::kCG, kKItems = S::kKItems, kItems = S::kItems;
   extern __shared__ __align__(16) unsigned char fwd_smem[];
   float* s_q = reinterpret_cast<float*>(fwd_smem);
   unsigned char* ring = fwd_smem + S::kQBytes;
@@ -254,24 +268,24 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
   const int kb_live = causal && skip ? min(nkb, last_pos / bk + 1) : nkb;
   int kb_end = nkb;
 
-  // item t of the stream: a live block's 4 K slices of d, then its 4 V slices
-  // of keys; a masked block's 4 V slices
+  // item t of the stream: a live block's D / 32 K slices of d, then its 4 V
+  // slices of keys; a masked block's 4 V slices
   auto first_item = [&](int kb) {
-    return kb < kb_live ? 8 * kb : 8 * kb_live + 4 * (kb - kb_live);
+    return kb < kb_live ? kItems * kb : kItems * kb_live + kVItems * (kb - kb_live);
   };
   auto issue = [&](int t) {
     T* dst = reinterpret_cast<T*>(ring + (t % kStages) * S::kSlot);
-    int kb = t / 8, i = t % 8;
+    int kb = t / kItems, i = t % kItems;
     if (kb >= kb_live) {
-      kb = kb_live + (t - 8 * kb_live) / 4;
-      i = 4 + (t - 8 * kb_live) % 4;
+      kb = kb_live + (t - kItems * kb_live) / kVItems;
+      i = kKItems + (t - kItems * kb_live) % kVItems;
     }
     const long key0 = kv0 + static_cast<long>(kb) * bk;
-    if (i < 4)
+    if (i < kKItems)
       fetch_rows<T, kSlice, S::kKP>(dst, k, key0 * D + i * kSlice, D, kKeys, bk);
     else
-      fetch_rows<T, D, S::kVP>(dst, v, (key0 + (i - 4) * kSlice) * D, D, kSlice,
-                               bk - (i - 4) * kSlice);
+      fetch_rows<T, D, S::kVP>(dst, v, (key0 + (i - kKItems) * kSlice) * D, D, kSlice,
+                               bk - (i - kKItems) * kSlice);
     cp_async_commit();
   };
   // wait for item t (the next one in flight) and return its slot
@@ -292,13 +306,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
   }
 
   int m_run[kR], cnt[kR];
-  float l_run[kR], alpha[kR], acc[kR][8];
+  float l_run[kR], alpha[kR], acc[kR][4 * kCG];
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
     m_run[r] = -(1 << (h.total - 1));  // the running max starts at fx lo (:109)
     l_run[r] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+    for (int c = 0; c < 4 * kCG; ++c) acc[r][c] = 0.0f;
   }
 
   for (int kb = 0; kb < kb_end; ++kb) {
@@ -329,7 +343,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
       for (int r = 0; r < kR; ++r)
 #pragma unroll
         for (int u = 0; u < 8; ++u) dot[r][u] = 0.0f;
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kKItems; ++i) {
         const T* ks = begin(t0 + i);
 #pragma unroll
         for (int d4 = 0; d4 < kSlice; d4 += 4) {
@@ -408,18 +422,18 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
 
     // ---- PV over the block's keys in order (s_p is visible after the
     // first V slice's barrier)
-    float pv[kR][8];
+    float pv[kR][4 * kCG];
 #pragma unroll
     for (int r = 0; r < kR; ++r)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) pv[r][c] = 0.0f;
-    for (int i = 0; i < 4; ++i) {
-      const T* vs = begin(t0 + (kb < kb_live ? 4 : 0) + i);
+      for (int c = 0; c < 4 * kCG; ++c) pv[r][c] = 0.0f;
+    for (int i = 0; i < kVItems; ++i) {
+      const T* vs = begin(t0 + (kb < kb_live ? kKItems : 0) + i);
       const int j0 = i * kSlice, nj = min(kSlice, bk - j0);
       if (kb < kb_live)
-        pv_keys<false, S::kVP, S::kPP>(pv, vs, s_p, j0, nj, tx, ty);
+        pv_keys<false, kCG, S::kVP, S::kPP>(pv, vs, s_p, j0, nj, tx, ty);
       else  // a masked block's probabilities are one per row, kept in registers
-        pv_keys<true, S::kVP, S::kPP>(pv, vs, s_p, j0, nj, tx, ty);
+        pv_keys<true, kCG, S::kVP, S::kPP>(pv, vs, s_p, j0, nj, tx, ty);
       __syncthreads();
     }
 
@@ -439,7 +453,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
       const float lb = ordered ? lsum : __fmul_rn(static_cast<float>(cnt[r]), pow2_float(-h.acc));
       l_run[r] = __fadd_rn(fx_quantize(__fmul_rn(l_run[r], alpha[r]), h.acc), lb);
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] = __fadd_rn(__fmul_rn(acc[r][c], alpha[r]), pv[r][c]);
+      for (int c = 0; c < 4 * kCG; ++c)
+        acc[r][c] = __fadd_rn(__fmul_rn(acc[r][c], alpha[r]), pv[r][c]);
     }
   }
   cp_async_wait<0>();
@@ -451,11 +466,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
     if (rl >= nvalid) continue;
     const long ri = static_cast<long>(bh) * sq + row0 + rl;
     float* orow = o + ri * D;
-    float res[8];
+    float res[4 * kCG];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) res[c] = hyft_finalize(acc[r][c], l_run[r], h.mant);
-    *reinterpret_cast<float4*>(orow + 4 * tx) = make_float4(res[0], res[1], res[2], res[3]);
-    *reinterpret_cast<float4*>(orow + 64 + 4 * tx) = make_float4(res[4], res[5], res[6], res[7]);
+    for (int c = 0; c < 4 * kCG; ++c) res[c] = hyft_finalize(acc[r][c], l_run[r], h.mant);
+#pragma unroll
+    for (int g = 0; g < kCG; ++g)
+      *reinterpret_cast<float4*>(orow + 64 * g + 4 * tx) =
+          make_float4(res[4 * g], res[4 * g + 1], res[4 * g + 2], res[4 * g + 3]);
     if (tx == 0) {
       m_out[ri] = m_run[r];
       l_out[ri] = l_run[r];
@@ -471,8 +488,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
 // of the block split the work: per sub-tile, half 0 runs the q.k chains and
 // the probabilities p, half 1 the do.v chains and ds = p (dp - delta), each
 // thread 4 rows (ry + 16i) x 4 keys (kx + 8u); then half 0 sums dv += p^T do
-// and half 1 dk += ds^T q, each thread 4 keys (4kq..) x 8 columns (4cx..,
-// 64 + 4cx..).  Shared memory (dynamic):
+// and half 1 dk += ds^T q, each thread 4 keys (4kq..) x D / 16 columns
+// (64g + 4cx.., g < D / 64).  Shared memory (dynamic):
 //   s_k, s_v   [32][D + 4]                      the block's keys and values, fp32
 //   ring       kStages x (q [64][D + pad] of T, do [64][D + 4], m, l, delta [64])
 //   s_p, s_ds  [64][32 + 8]                     p and ds
@@ -483,6 +500,10 @@ constexpr int kDkvRT = kDkvRows / 16;     // rows of a score thread
 
 template <typename T, int D>
 struct DkvSmem {
+  static_assert(D == 64 || D == 128, "the thread layout covers 64 or 128 columns");
+  static constexpr int kCG = D / 64;                 // float4 columns of a sum thread
+  // blocks an SM: the shared memory holds one at 128, two at 64
+  static constexpr int kMinBlocks = D == 64 ? 2 : 1;
   static constexpr int kKP = D + 4;                  // s_k, s_v pitch (fp32)
   static constexpr int kQP = D + 16 / sizeof(T);     // q pitch (T)
   static constexpr int kOP = D + 4;                  // do pitch (fp32)
@@ -518,37 +539,38 @@ __device__ __forceinline__ void dot_tile(float (&acc)[kDkvRT][4], const TA* a, c
 }
 
 // acc[kk][c] = fmaf(w[row][4kq + kk], x[row][col c], acc) over rows 0..n-1
-// in order, columns 4cx.. and 64 + 4cx..
-template <int wP, int xP, typename TX>
-__device__ __forceinline__ void sum_rows(float (&acc)[4][8], const float* w, const TX* x,
-                                         int n, int kq, int cx) {
+// in order, columns 64g + 4cx.. (g < kCG)
+template <int kCG, int wP, int xP, typename TX>
+__device__ __forceinline__ void sum_rows(float (&acc)[4][4 * kCG], const float* w,
+                                         const TX* x, int n, int kq, int cx) {
 #pragma unroll 2
   for (int rl = 0; rl < n; ++rl) {
     const float4 w4 = ld4(w + rl * wP + 4 * kq);
-    const float4 xa = ld4(x + rl * xP + 4 * cx);
-    const float4 xb = ld4(x + rl * xP + 64 + 4 * cx);
+    float4 xv[kCG];
+#pragma unroll
+    for (int g = 0; g < kCG; ++g) xv[g] = ld4(x + rl * xP + 64 * g + 4 * cx);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const float wk = f4(w4, kk);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        acc[kk][c] = fmaf(wk, f4(xa, c), acc[kk][c]);
-        acc[kk][4 + c] = fmaf(wk, f4(xb, c), acc[kk][4 + c]);
-      }
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int g = 0; g < kCG; ++g)
+          acc[kk][4 * g + c] = fmaf(wk, f4(xv[g], c), acc[kk][4 * g + c]);
     }
   }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
+__global__ void __launch_bounds__(kThreads, DkvSmem<T, D>::kMinBlocks) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ delta,
     const int* __restrict__ m_in, const float* __restrict__ l_in,
     const float* __restrict__ mask, float* __restrict__ dk, float* __restrict__ dv,
     int sq, int sk, int group, int hq_per_b, int q_offset, int causal, int skip,
     float scale, Params h) {
-  static_assert(D == 128, "the thread layout covers 128 columns");
   using S = DkvSmem<T, D>;
+  constexpr int kCG = S::kCG;
   extern __shared__ __align__(16) unsigned char dkv_smem[];
   float* s_k = reinterpret_cast<float*>(dkv_smem);
   float* s_v = s_k + kDkvKeys * S::kKP;
@@ -619,11 +641,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
     *reinterpret_cast<float4*>(s_v + j * S::kKP + c) = ok ? load4(v, gi) : zero;
   }
 
-  float acc[4][8];  // dv (half 0) or dk before its scale (half 1)
+  float acc[4][4 * kCG];  // dv (half 0) or dk before its scale (half 1)
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[kk][c] = 0.0f;
+    for (int c = 0; c < 4 * kCG; ++c) acc[kk][c] = 0.0f;
 
   for (int t = 0; g < group; ++t) {
     int gn = g, sn = s + 1;
@@ -681,9 +703,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
 
     // ---- dv += p^T do (half 0), dk += ds^T q (half 1), rows in order
     if (half == 0)
-      sum_rows<S::kPP, S::kOP>(acc, s_p, s_do, nrows, kq, cx);
+      sum_rows<kCG, S::kPP, S::kOP>(acc, s_p, s_do, nrows, kq, cx);
     else
-      sum_rows<S::kPP, S::kQP>(acc, s_ds, s_q, nrows, kq, cx);
+      sum_rows<kCG, S::kPP, S::kQP>(acc, s_ds, s_q, nrows, kq, cx);
     __syncthreads();
     g = gn;
     s = sn;
@@ -697,11 +719,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
     const long gi = (static_cast<long>(bkv) * sk + key) * D + 4 * cx;
     float* out = half == 0 ? dv : dk;
     const float f = half == 0 ? 1.0f : scale;
-    float r[8];
+    float r[4 * kCG];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) r[c] = half == 0 ? acc[kk][c] : __fmul_rn(acc[kk][c], f);
-    *reinterpret_cast<float4*>(out + gi) = make_float4(r[0], r[1], r[2], r[3]);
-    *reinterpret_cast<float4*>(out + gi + 64) = make_float4(r[4], r[5], r[6], r[7]);
+    for (int c = 0; c < 4 * kCG; ++c) r[c] = half == 0 ? acc[kk][c] : __fmul_rn(acc[kk][c], f);
+#pragma unroll
+    for (int g = 0; g < kCG; ++g)
+      *reinterpret_cast<float4*>(out + gi + 64 * g) =
+          make_float4(r[4 * g], r[4 * g + 1], r[4 * g + 2], r[4 * g + 3]);
   }
 }
 
@@ -715,8 +739,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
 // block split the score work: half 0 runs the q.k chains and the
 // probabilities p, half 1 the do.v chains and then ds = p (dp - delta),
 // each thread 4 rows (ry + 16i) x 4 keys (kx + 8u); then every thread sums
-// dq += ds k for 4 rows (4rq..) x 8 columns (4cx.., 64 + 4cx..), keys in
-// order.  Shared memory (dynamic):
+// dq += ds k for 4 rows (4rq..) x D / 16 columns (64g + 4cx.., g < D / 64),
+// keys in order.  Shared memory (dynamic):
 //   s_q    [64][D + pad]          the query rows, T
 //   s_do   [64][D + 4]            their output gradient, fp32
 //   s_k    [32][D + pad]          the sub-tile's keys, T
@@ -729,6 +753,8 @@ constexpr int kDqKeys = 32;  // keys of one staged sub-tile
 
 template <typename T, int D>
 struct DqSmem {
+  static_assert(D == 64 || D == 128, "the thread layout covers 64 or 128 columns");
+  static constexpr int kCG = D / 64;              // float4 columns of a sum thread
   static constexpr int kQP = D + 16 / sizeof(T);  // s_q pitch (T)
   static constexpr int kOP = D + 4;               // s_do pitch (fp32)
   static constexpr int kKP = D + 16 / sizeof(T);  // K, V pitch (T)
@@ -747,8 +773,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(
     const int* __restrict__ m_in, const float* __restrict__ l_in,
     const float* __restrict__ mask, float* __restrict__ dq, int sq, int sk, int group,
     int hq_per_b, int q_offset, int causal, int skip, float scale, Params h) {
-  static_assert(D == 128, "the thread layout covers 128 columns");
   using S = DqSmem<T, D>;
+  constexpr int kCG = S::kCG;
   extern __shared__ __align__(16) unsigned char dq_smem[];
   T* s_q = reinterpret_cast<T*>(dq_smem);
   float* s_do = reinterpret_cast<float*>(dq_smem + S::kQBytes);
@@ -820,11 +846,11 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(
   if (n_end > 0) issue(0);
   else cp_async_commit();
 
-  float acc[4][8];  // dq before its scale
+  float acc[4][4 * kCG];  // dq before its scale
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+    for (int c = 0; c < 4 * kCG; ++c) acc[r][c] = 0.0f;
 
   for (int t = 0; t < n_end; ++t) {
     cp_async_wait<0>();
@@ -869,7 +895,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(
     __syncthreads();
 
     // ---- dq += ds k over the sub-tile's keys in order
-    sum_rows<S::kSP, S::kKP>(acc, s_ds, s_k, nk, rq, cx);
+    sum_rows<kCG, S::kSP, S::kKP>(acc, s_ds, s_k, nk, rq, cx);
     __syncthreads();
     if (t + 1 < n_end) issue(t + 1);  // the other block of the SM computes meanwhile
   }
@@ -880,11 +906,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(
     const int rl = 4 * rq + r;
     if (rl >= nvalid) continue;
     float* out = dq + qbase + static_cast<long>(rl) * D + 4 * cx;
-    float o[8];
+    float o[4 * kCG];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) o[c] = __fmul_rn(acc[r][c], scale);
-    *reinterpret_cast<float4*>(out) = make_float4(o[0], o[1], o[2], o[3]);
-    *reinterpret_cast<float4*>(out + 64) = make_float4(o[4], o[5], o[6], o[7]);
+    for (int c = 0; c < 4 * kCG; ++c) o[c] = __fmul_rn(acc[r][c], scale);
+#pragma unroll
+    for (int g = 0; g < kCG; ++g)
+      *reinterpret_cast<float4*>(out + 64 * g) =
+          make_float4(o[4 * g], o[4 * g + 1], o[4 * g + 2], o[4 * g + 3]);
   }
 }
 
@@ -970,11 +998,21 @@ bool valid_shape(int bh, int sq, int sk, int group, int hq_per_b, int step, int 
 
 }  // namespace
 
+// return LAUNCH<T, D>(...) for the inputs' type (in_type 0 f32, 1 bf16) and
+// the head width d (64 or 128); any other pair is refused
+#define HYFT_WIDTHS(LAUNCH, T, ...)                  \
+  if (d == 64) return LAUNCH<T, 64>(__VA_ARGS__);    \
+  if (d == 128) return LAUNCH<T, 128>(__VA_ARGS__);
+#define HYFT_DISPATCH(LAUNCH, ...)                                             \
+  if (in_type == 0) { HYFT_WIDTHS(LAUNCH, float, __VA_ARGS__) }                \
+  if (in_type == 1) { HYFT_WIDTHS(LAUNCH, __nv_bfloat16, __VA_ARGS__) }        \
+  return cudaErrorInvalidValue;
+
 extern "C" {
 
-// Forward: q (BH, sq, D), k/v (BH / group, sk, D) of in_type (0 f32, 1 bf16),
-// mask (B, sk) f32 with B = BH / hq_per_b, or null; sk a multiple of bk
-// (bk <= 128); k and v 16-byte aligned.  skip != 0 drops the causally
+// Forward: q (BH, sq, D), k/v (BH / group, sk, D) of in_type (0 f32, 1 bf16)
+// with D = d, 64 or 128; mask (B, sk) f32 with B = BH / hq_per_b, or null;
+// sk a multiple of bk (bk <= 128); k and v 16-byte aligned.  skip != 0 drops the causally
 // masked KV blocks under the guard of the note above.  Writes o (BH, sq, D)
 // f32, m (BH, sq) i32, l (BH, sq) f32.  Returns the cudaError_t of the
 // launch.
@@ -987,15 +1025,8 @@ int hyft_flash_fwd(const void* q, const void* k, const void* v, const void* mask
     return cudaErrorInvalidValue;
   const Params h{frac, total, mant, acc, step};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 128) {
-    if (in_type == 0)
-      return launch_fwd<float, 128>(q, k, v, mask, o, m, l, bh, sq, sk, bk, group, hq_per_b,
-                                    q_offset, causal, skip, scale, h, s);
-    if (in_type == 1)
-      return launch_fwd<__nv_bfloat16, 128>(q, k, v, mask, o, m, l, bh, sq, sk, bk, group,
-                                            hq_per_b, q_offset, causal, skip, scale, h, s);
-  }
-  return cudaErrorInvalidValue;
+  HYFT_DISPATCH(launch_fwd, q, k, v, mask, o, m, l, bh, sq, sk, bk, group, hq_per_b, q_offset,
+                causal, skip, scale, h, s)
 }
 
 // dq: the forward's operands plus do (BH, sq, D) f32, delta (BH, sq) f32 and
@@ -1012,16 +1043,8 @@ int hyft_flash_bwd_dq(const void* q, const void* k, const void* v, const void* d
     return cudaErrorInvalidValue;
   const Params h{frac, total, mant, acc, step};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 128) {
-    if (in_type == 0)
-      return launch_dq<float, 128>(q, k, v, dout, delta, m, l, mask, dq, bh, sq, sk, group,
-                                   hq_per_b, q_offset, causal, skip, scale, h, s);
-    if (in_type == 1)
-      return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, delta, m, l, mask, dq, bh, sq, sk,
-                                           group, hq_per_b, q_offset, causal, skip, scale, h,
-                                           s);
-  }
-  return cudaErrorInvalidValue;
+  HYFT_DISPATCH(launch_dq, q, k, v, dout, delta, m, l, mask, dq, bh, sq, sk, group, hq_per_b,
+                q_offset, causal, skip, scale, h, s)
 }
 
 // dk/dv: the same inputs as dq, q and do 16-byte aligned; skip != 0 drops
@@ -1038,16 +1061,8 @@ int hyft_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* 
     return cudaErrorInvalidValue;
   const Params h{frac, total, mant, acc, step};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 128) {
-    if (in_type == 0)
-      return launch_dkv<float, 128>(q, k, v, dout, delta, m, l, mask, dk, dv, bh, sq, sk,
-                                    group, hq_per_b, q_offset, causal, skip, scale, h, s);
-    if (in_type == 1)
-      return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, delta, m, l, mask, dk, dv, bh, sq,
-                                            sk, group, hq_per_b, q_offset, causal, skip, scale,
-                                            h, s);
-  }
-  return cudaErrorInvalidValue;
+  HYFT_DISPATCH(launch_dkv, q, k, v, dout, delta, m, l, mask, dk, dv, bh, sq, sk, group,
+                hq_per_b, q_offset, causal, skip, scale, h, s)
 }
 
 }  // extern "C"

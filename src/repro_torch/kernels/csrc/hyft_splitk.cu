@@ -28,6 +28,17 @@ namespace {
 
 using namespace hyft_attend;
 
+// the split size of one head width: 64, 128 or 256 keys
+template <bool kDecode, int D>
+int by_split(const Args& a, int bk, int kv_type) {
+  switch (bk) {
+    case 64: return launch<kDecode, false, D, 64>(a, kv_type);
+    case 128: return launch<kDecode, false, D, 128>(a, kv_type);
+    case 256: return launch<kDecode, false, D, 256>(a, kv_type);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <bool kDecode>
 int dispatch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
              const void* mask, void* out, int kv_type, int bh, int hkv, int rows, int sk,
@@ -36,11 +47,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks, const 
   const Args a{q, k, v, ks, vs, nullptr, mask, out, bh, hkv, rows,
                bk > 0 ? (sk + bk - 1) / bk : 0, sk, sq, scale,
                {frac, total, mant, acc_bits, step}, static_cast<cudaStream_t>(stream)};
-  if (!valid(a, d)) return cudaErrorInvalidValue;
-  switch (bk) {
-    case 64: return launch<kDecode, false, 64>(a, kv_type);
-    case 128: return launch<kDecode, false, 128>(a, kv_type);
-    case 256: return launch<kDecode, false, 256>(a, kv_type);
+  if (!valid(a)) return cudaErrorInvalidValue;
+  switch (d) {
+    case 64: return by_split<kDecode, 64>(a, bk, kv_type);
+    case 128: return by_split<kDecode, 128>(a, bk, kv_type);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -50,7 +60,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks, const 
 extern "C" {
 
 // Decode (Sq = 1): q (BH, rows, D) f32 with rows = the GQA group (at most
-// 16); k, v (BH, sk, D) of kv_type (0 f32, 1 bf16, 2 int8 with f32 scales
+// 16) and D = d, 64 or 128; k, v (BH, sk, D) of kv_type (0 f32, 1 bf16, 2 int8 with f32 scales
 // (BH, sk)), 16-byte aligned; mask (B, sk) f32 shared by every row; splits
 // of bk keys.  Writes out (BH, rows, D) f32, the finalized attention.
 // Returns the cudaError_t of the launch.

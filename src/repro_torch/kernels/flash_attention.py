@@ -72,7 +72,7 @@ LAUNCHES = {"hyft_splitk_decode": 0, "hyft_splitk_verify": 0,
 
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _IN_TYPES = {torch.float32: 0, torch.bfloat16: 1}   # the flash kernels' q/k/v
-_HEAD_DIMS = (128,)  # head widths the CUDA kernel is instantiated for
+_HEAD_DIMS = (64, 128)  # head widths the CUDA kernels are instantiated for
 # split sizes the contiguous kernels, and page sizes the paged kernels, are
 # built for
 _SPLIT_SIZES = (64, 128, 256)

@@ -452,3 +452,39 @@ def test_flash_skip_needs_a_live_row_max():
     assert not torch.equal(o[dead], full[0][dead, :SKIP_ROWS])
     live = slice(0, HQ)                      # entry 0 sees key 0 in every row
     assert torch.equal(o[live], full[0][live, :SKIP_ROWS])
+
+
+@pytest.mark.parametrize("name", ["hyft16", "hyft32"])
+def test_flash_matches_jax_at_width_64(name):
+    """At head width 64 (bert-base's), non-causal, a GQA group of 1 and of
+    2: the plain forward's (o, m, l) and its VJP against the JAX kernel in
+    interpret mode, at this file's tolerances."""
+    cj, ct = CONFIGS[name]
+    rng = np.random.default_rng(64)
+    S, d = 40, 64
+    kw = dict(causal=False, block_q=16, block_k=16)
+    for hkv in (HQ, HKV):
+        q = rng.standard_normal((B, HQ, S, d)).astype(np.float32)
+        k = rng.standard_normal((B, hkv, S, d)).astype(np.float32)
+        v = rng.standard_normal((B, hkv, S, d)).astype(np.float32)
+        w = rng.standard_normal((B, HQ, S, d)).astype(np.float32)
+        o_j, m_j, l_j = (np.array(a) for a in jax_flash(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), cj, interpret=True,
+            return_stats=True, **kw))
+        tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+        o, m, l = tfa.flash_hyft_attention(tq.detach(), tk.detach(), tv.detach(), ct,
+                                           return_stats=True, **kw)
+        moved = np.abs(m.numpy().astype(np.int64) - m_j)
+        assert moved.max() <= 1 and (moved > 0).mean() <= 0.02
+        np.testing.assert_allclose(o.numpy(), o_j, rtol=0, atol=_tol(ct, v))
+        err = tfa.flash_errors((o, m, l), tuple(map(torch.from_numpy, (o_j, m_j, l_j))),
+                               ct, float(np.abs(v).max()), 16, S // 16 + 1)
+        assert err["l"] <= 1 and err["o"] <= 1, err
+
+        def f(q_, k_, v_):
+            return jnp.sum(jax_flash(q_, k_, v_, cj, interpret=True, **kw) * w)
+        ref = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        out = tfa.flash_hyft_attention(tq, tk, tv, ct, **kw)
+        (out * torch.from_numpy(w)).sum().backward()
+        for got, want in zip((tq.grad, tk.grad, tv.grad), ref):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)

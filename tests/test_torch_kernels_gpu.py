@@ -88,8 +88,8 @@ def test_verify_kernel_matches_plain(Sq, cache_dtype):
 @pytest.mark.gpu
 def test_kernel_rejects_bad_input():
     _card()
-    q3 = torch.zeros(4, 6, 64, device="cuda")          # head width not built
-    k3 = torch.zeros(4, 10, 64, device="cuda")
+    q3 = torch.zeros(4, 6, 96, device="cuda")          # head width not built
+    k3 = torch.zeros(4, 10, 96, device="cuda")
     mask = torch.ones(2, 10, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         fa._splitk_attention_cuda(q3, k3, k3, None, None, mask, cfg=HYFT16,
@@ -411,7 +411,7 @@ def test_flash_skip_matches_full(dtype, cfg):
 @pytest.mark.gpu
 def test_flash_rejects_bad_input():
     _card()
-    q3 = torch.zeros(4, 8, 64, device="cuda")          # head width not built
+    q3 = torch.zeros(4, 8, 96, device="cuda")          # head width not built
     with pytest.raises(ValueError, match="head dim"):
         fa._flash_fwd_cuda(q3, q3[:2], q3[:2], None, cfg=HYFT16, sm_scale=0.125,
                            causal=True, bk=8, group=2, q_offset=0)
@@ -452,6 +452,168 @@ def test_training_step_runs_on_the_flash_kernels():
                            "hyft_flash_fwd": 4, "hyft_flash_bwd_dq": 2,
                            "hyft_flash_bwd_dkv": 2}
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+
+
+# --------------------------------------------------------------------------
+# head width 64 (bert-base, whisper-medium, internvl2-1b): kernels 3-9
+# --------------------------------------------------------------------------
+
+W64 = 64
+# (hq, hkv): bert-base's 12 / 12 heads (a GQA group of 1) and a group of 3
+GROUPS64 = [(12, 12), (6, 2)]
+GROUP_IDS = ["group-1", "group-3"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [HYFT16, HYFT32], ids=["hyft16", "hyft32"])
+@pytest.mark.parametrize("cache_dtype", ["float32", "fp2fx8", "bfloat16"])
+@pytest.mark.parametrize("hq, hkv", GROUPS64, ids=GROUP_IDS)
+def test_split_k_kernels_match_plain_at_width_64(hq, hkv, cache_dtype, cfg):
+    """Kernels 6 (decode, ragged lengths over 600 keys in splits of 256) and
+    8 (a chunk of 40 lanes ending at each length) at D = 64 against their
+    plain versions, within the ``out`` bound; through the wrappers, chunk
+    attention at Sq = 1 is decode bit for bit."""
+    gen = _card()
+    Sk, Sq = 600, 40
+    k, v, sc, vf = _kv_pool(gen, (B, hkv, Sk, W64), cache_dtype)
+    lengths = torch.tensor([Sk, Sk // 3 + 1], device="cuda")
+    mask = (torch.arange(Sk, device="cuda")[None] < lengths[:, None]).float()
+    lane = (torch.arange(Sk, device="cuda")[None, None]
+            <= (lengths[:, None, None] - Sq + torch.arange(Sq, device="cuda")[None, :, None]))
+    flat = [t.reshape(B * hkv, Sk, *t.shape[3:]) if t is not None else None
+            for t in (k, v, sc.get("k_scale"), sc.get("v_scale"))]
+    kw = dict(cfg=cfg, sm_scale=W64 ** -0.5, bk=256, hkv=hkv)
+    g = hq // hkv
+    q1 = torch.randn(B, hq, 1, W64, generator=gen, device="cuda")
+    qc = torch.randn(B * hkv, g * Sq, W64, generator=gen, device="cuda")
+    for q3, m, sq in ((q1.reshape(B * hkv, g, W64), mask, None),
+                      (qc, lane.float().contiguous(), Sq)):
+        got = fa._splitk_attention_cuda(q3, *flat, m, **kw, sq=sq)
+        err = fa.out_errors(got, fa.splitk_tiles_plain(q3, *flat, m, **kw, sq=sq), cfg,
+                            float(vf.abs().max()))
+        assert torch.isfinite(got).all() and err["out"] <= 1, err
+    out = fa.flash_hyft_decode(q1, k, v, cfg, kv_len_mask=mask, **sc)
+    one = fa.flash_hyft_verify(q1, k, v, mask[:, None], cfg, **sc)
+    assert torch.equal(one, out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", ["float32", "fp2fx8", "bfloat16"])
+@pytest.mark.parametrize("ps", [16, 64, 256])
+@pytest.mark.parametrize("hq, hkv", GROUPS64, ids=GROUP_IDS)
+def test_paged_kernels_match_plain_at_width_64(hq, hkv, ps, cache_dtype):
+    """Kernels 7 and 9 at D = 64 over a shuffled table (the null page past
+    each length), HYFT16 and HYFT32, against their plain versions within the
+    ``out`` bound; over a sequential table of pages of 64 or 256 they equal
+    the contiguous kernels at bk = ps bit for bit."""
+    gen = _card()
+    nb, Sq = 6, 24
+    Sk = nb * ps
+    lengths = torch.tensor([Sk - 3, 2 * ps + 1], device="cuda")
+    used = (-(-lengths // ps)).tolist()
+    P = B * nb + 1
+    k, v, sc, vf = _kv_pool(gen, (P, hkv, ps, W64), cache_dtype)
+    perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+    bt = torch.zeros(B, nb, dtype=torch.int32, device="cuda")
+    bt[0, :used[0]] = perm[:used[0]].int()
+    bt[1, :used[1]] = perm[used[0]:used[0] + used[1]].int()
+    mask = (torch.arange(Sk, device="cuda")[None] < lengths[:, None]).float()
+    lane = (torch.arange(Sk, device="cuda")[None, None]
+            <= (lengths[:, None, None] - Sq + torch.arange(Sq, device="cuda")[None, :, None]))
+    lane = lane.float().contiguous()
+    g = hq // hkv
+    q1 = torch.randn(B * hkv, g, W64, generator=gen, device="cuda")
+    qc = torch.randn(B * hkv, g * Sq, W64, generator=gen, device="cuda")
+    for cfg in (HYFT16, HYFT32):
+        kw = dict(cfg=cfg, sm_scale=W64 ** -0.5, hkv=hkv)
+        for q3, m, sq in ((q1, mask, None), (qc, lane, Sq)):
+            args = (q3, k, v, sc.get("k_scale"), sc.get("v_scale"), bt, m)
+            got = fa._paged_attention_cuda(*args, **kw, sq=sq)
+            err = fa.out_errors(got, fa.paged_tiles_plain(*args, **kw, sq=sq), cfg,
+                                float(vf.abs().max()))
+            assert torch.isfinite(got).all() and err["out"] <= 1, err
+    if ps not in fa._SPLIT_SIZES:   # no contiguous kernel splits at ps
+        return
+    seq = torch.arange(1, B * nb + 1, dtype=torch.int32, device="cuda").reshape(B, nb)
+
+    def contiguous(x):   # the pool's pages 1.. in table order: (B, Hkv, Sk[, D])
+        x = x[1:].reshape(B, nb, hkv, ps, *x.shape[3:]).transpose(1, 2)
+        return x.reshape(B, hkv, Sk, *x.shape[4:]).contiguous()
+    cont = {n: contiguous(t) for n, t in sc.items()}
+    q = qc.reshape(B, hq, Sq, W64)
+    paged = fa.flash_hyft_verify(q, k, v, lane, HYFT16, block_tables=seq, **sc)
+    dense = fa.flash_hyft_verify(q, contiguous(k), contiguous(v), lane, HYFT16,
+                                 block_k=ps, **cont)
+    assert torch.equal(dense, paged)
+    q = q1.reshape(B, hq, 1, W64)
+    paged = fa.flash_hyft_decode_paged(q, k, v, seq, HYFT16, kv_len_mask=mask, **sc)
+    dense = fa.flash_hyft_decode(q, contiguous(k), contiguous(v), HYFT16, block_k=ps,
+                                 kv_len_mask=mask, **cont)
+    assert torch.equal(dense, paged)
+
+
+# (id, causal, Sq, Sk, mask, q_offset) at D = 64: bert's non-causal shape,
+# keys padded to the block under a ragged mask, a causal tile, dead rows
+FLASH_CASES64 = [("noncausal", False, 128, 128, None, 0),
+                 ("masked-padded", False, 72, 200, "ragged", 0),
+                 ("causal-offset-masked", True, 144, 200, "ragged", 56),
+                 ("causal-dead-rows", True, 256, 256, "dead", 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [HYFT16, HYFT32], ids=["hyft16", "hyft32"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hq, hkv", GROUPS64, ids=GROUP_IDS)
+@pytest.mark.parametrize("case", FLASH_CASES64, ids=[c[0] for c in FLASH_CASES64])
+def test_flash_kernels_match_plain_at_width_64(case, hq, hkv, dtype, cfg):
+    """Kernels 3, 4 and 5 at D = 64 against their plain versions, called by
+    name on the same padded inputs, within ``flash_errors`` and
+    ``grad_errors``; on a causal case the forward that skips the masked
+    blocks equals the one that walks them, bit for bit."""
+    gen = _card()
+    _, causal, Sq, Sk, mask_kind, q_offset = case
+    q = torch.randn(B, hq, Sq, W64, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, hkv, Sk, W64, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, hkv, Sk, W64, generator=gen, device="cuda").to(dtype)
+    q, k, v, maskf, bk = fa.flash_operands(q, k, v, _flash_mask(mask_kind, Sk))
+    q3, k3, v3 = fa._h3(q), fa._h3(k), fa._h3(v)
+    kw = dict(cfg=cfg, sm_scale=W64 ** -0.5, causal=causal, bk=bk, group=hq // hkv,
+              q_offset=q_offset)
+    got = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw)
+    ref = fa._flash_fwd_plain(q3, k3, v3, maskf, **kw)
+    err = fa.flash_errors(got, ref, cfg, float(v.float().abs().max()), bk, k3.shape[1] // bk)
+    assert err["m"] <= 1 and err["l"] <= 1 and err["o"] <= 1, err
+    do3 = torch.randn(q3.shape, generator=gen, device="cuda")
+    args = (q3, k3, v3, maskf, do3, fa._flash_delta(do3, ref[0]).contiguous(), *ref[1:])
+    gerr = fa.grad_errors(
+        (fa._flash_bwd_dq_cuda(*args, **kw), *fa._flash_bwd_dkv_cuda(*args, **kw)),
+        (fa._flash_bwd_dq_plain(*args, **kw), *fa._flash_bwd_dkv_plain(*args, **kw)),
+        cfg)
+    assert max(gerr["dq"], gerr["dk"], gerr["dv"]) <= 1, gerr
+    if causal:
+        full = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw, skip_masked=False)
+        assert all(map(torch.equal, got, full))
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_width_96():
+    """A CUDA tensor of a head width the kernels are not built for raises a
+    ValueError that names the widths they take: flash, split-K and paged."""
+    _card()
+    q3 = torch.zeros(4, 8, 96, device="cuda")
+    with pytest.raises(ValueError, match=r"head dim 96 not in \(64, 128\)"):
+        fa._flash_fwd_cuda(q3, q3[:2], q3[:2], None, cfg=HYFT16, sm_scale=0.1,
+                           causal=False, bk=8, group=2, q_offset=0)
+    mask = torch.ones(2, 8, device="cuda")
+    q1 = q3[:, :1].contiguous()
+    with pytest.raises(ValueError, match=r"head dim 96 not in \(64, 128\)"):
+        fa._splitk_attention_cuda(q1, q3, q3, None, None, mask, cfg=HYFT16,
+                                  sm_scale=0.1, bk=64, hkv=2, sq=None)
+    pool = torch.zeros(5, 2, 8, 96, device="cuda")
+    bt = torch.ones(2, 1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match=r"head dim 96 not in \(64, 128\)"):
+        fa._paged_attention_cuda(q1, pool, pool, None, None, bt, mask, cfg=HYFT16,
+                                 sm_scale=0.1, hkv=2, sq=None)
 
 
 # --------------------------------------------------------------------------
