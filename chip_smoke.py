@@ -78,7 +78,16 @@ script exits non-zero without its last line:
               at bk 64 and 256 (fp32, fp2fx8): both merge on chip; at D 64
               (groups 1 and 6) kernels 7 and 9 against their plain
               versions over pages of 16, fp32 / fp2fx8 / bf16;
- 10. continuous serve  ``SlotPoolEngine`` serving qwen2-1.5b at full width
+ 10. widths check  kernels 3-9 at head widths 16, 112 and 192, each at
+              the heads of the config that uses it (the model drafter's 4 /
+              2, zamba2-7b's 32 / 32, nemotron-4-340b's 96 / 8): 6 and 8 over
+              a dense cache of 8 slots x 2048 keys, 7 and 9 over pages of 16,
+              decode and chunks of 5 (a spec step's lanes) and 128 lanes,
+              fp32 / bf16 / fp2fx8 K/V; 3-5 at batch 2, S 512, causal, fp32
+              and bf16, with the causal skip against the full walk; HYFT16
+              and HYFT32, each within its bound; and kernel 7 at a GQA group
+              of 24 rows (two clusters, each bitwise a launch of its rows);
+ 10b. continuous serve  ``SlotPoolEngine`` serving qwen2-1.5b at full width
               (hyft16, kernel mode, bf16 compute) over a paged pool (pages
               of 16, prefix cache, 8 slots, max_len 2048, prefill chunks of
               256, bursts of 8), once per cache (fp2fx8, float32): 24 chat
@@ -155,7 +164,26 @@ script exits non-zero without its last line:
               must fail the last gate (``_bert_parity``);
  16. tables   the port's Tables 1, 2 and 3 proxies on the card, their
               lines as printed; Table 3 equal to the JAX package's rows;
- 17. kernels  per kernel variant: ``ms``, its device time per launch
+ 17. olmo     olmo-1b at full width (16 layers, d_model 2048, 16 / 16
+              heads, np_ln, tied): the serve phase (generate, batch 4, prompt
+              1024, 32 new tokens, per cache; 16 chunk and 16 x 31 decode
+              launches) and the parity phase (fp32, HYFT32) within
+              PARITY_BOUND;
+ 18. spec     speculative decoding with mistral-nemo-12b at full width and
+              depth (40 layers, bf16 params, 24.5 GB), hyft16, kernel mode,
+              over a paged fp2fx8 pool with the prefix cache: the 24 chat
+              requests served continuous (the reference), spec with the
+              n-gram drafter and spec with the model drafter (qwen2-1.5b's
+              random smoke model: kernels 6 and 8 at D 16), draft_k 4: the
+              acceptance rate, tokens per model call, spec steps, drafter
+              calls, tokens/s, TTFT and TBT, peak pages and memory, kernel 9
+              at 5 lanes (40 a spec step); in bf16 each request's first
+              token that differs from the reference, with the reference's
+              top-2 logit margin there, which must be within BF16_FLIP_ULPS
+              ulps; then the three runs in fp32 at MISTRAL_FP32_LAYERS layers
+              over a dense cache, where every spec token must be the
+              reference's; and the lockstep parity at that depth;
+ 19. kernels  per kernel variant: ``ms``, its device time per launch
               (torch.profiler); ``kernel_ms``, CUDA events over many
               launches from Python after a warm-up (the wrapper's host time
               included: it bounds decode, whose kernel is short);
@@ -169,7 +197,10 @@ script exits non-zero without its last line:
               function's operations (``SOFTMAX_OPS``), one a lane a clock
               over all lanes (33.5 T/s), the integer ones at half that;
               kernels 3-5 also at bert's shape (D 64, non-causal, bf16);
-              kernels 6-9 are checked at D 64 but timed only at 128;
+              kernels 6-9 are checked at D 64 but timed only at 128; kernels
+              3-9 at D 16, 112 and 192 (the widths check's heads) and
+              kernels 8 and 9 at the 5 lanes of a spec step at mistral-nemo's
+              heads, each with its launches in the spec phase;
 
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -186,6 +217,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+DEV = "cuda"   # the card; the serving phases' engines live here
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and fp32
 # outside the tensor cores; the kernels use fp32 FMAs only
@@ -306,6 +338,7 @@ def build_phase():
     res = build.build(verbose=True)
     ptxas = [ln.strip() for ln in res["log"].splitlines() if "Used" in ln]
     emit({"phase": "build", "seconds": round(res["seconds"], 3),
+          "seconds_by_source": res["seconds_by_source"],
           "library": Path(res["path"]).name, "ptxas": ptxas})
 
 
@@ -467,6 +500,18 @@ FLASH_SMALL = [("masked-padded", False, 72, 200, 0, "ragged"),
 FLASH_64 = [("bert", False, BERT_S, BERT_S, 0, None, D64, HQ, HQ, BERT_B),
             ("masked-padded", False, 72, 200, 0, "ragged", D64, HQ, HQ, B)]
 
+# the configs' head widths beside 64 and 128, each at the heads of what
+# runs it: (query heads, KV heads, what)
+WIDTHS = {16: (4, 2, "the smoke models: the model drafter, qwen2-1.5b smoke, 4 / 2 heads"),
+          112: (32, 32, "zamba2-7b: 32 / 32 heads"),
+          192: (96, 8, "nemotron-4-340b: 96 / 8 heads, a GQA group of 12")}
+WIDTH_FLASH_B, WIDTH_FLASH_S = 2, 512   # the flash checks at the new widths
+# the flash kernels at those widths: causal, batch 2, S 512
+FLASH_WIDTHS = [(f"d{d}", True, WIDTH_FLASH_S, WIDTH_FLASH_S, 0, None, d, hq, hkv,
+                 WIDTH_FLASH_B) for d, (hq, hkv, _) in WIDTHS.items()]
+# the cases whose causal skip is held against the full walk
+SKIP_CASES = {"main", "causal-dead-rows"} | {c[0] for c in FLASH_WIDTHS}
+
 
 def _flash_case(torch, gen, dtype, Sq, Sk, mask_kind, d=D, hq=HQ, hkv=HKV, batch=B):
     """Padded 3D operands of ``flash_hyft_attention`` and an fp32 do."""
@@ -492,8 +537,9 @@ def flash_check_phase(torch):
     each pair called by name on the same inputs (the backward pair on the
     plain forward's o, m, l): the forward within ``fa.flash_errors`` (m
     exact or off by one raw), the gradients within ``fa.grad_errors``.  At
-    the main shape and on the dead rows (HYFT16, HYFT32) also the kernels'
-    causal skip against the full walk (``flash_skip_check``)."""
+    the main shape, on the dead rows and at head widths 16, 112 and 192
+    (FLASH_WIDTHS; HYFT16, HYFT32) also the kernels' causal skip against
+    the full walk (``flash_skip_check``)."""
     from repro_torch.core.hyft import HYFT16, HYFT32
     from repro_torch.kernels import flash_attention as fa
 
@@ -502,7 +548,7 @@ def flash_check_phase(torch):
     # (name, causal, Sq, Sk, q_offset, mask, head width, query and KV
     # heads, batch)
     cases = ([("main", True, SEQ, SEQ, 0, None, D, HQ, HKV, B)]
-             + [c + (D, HQ, HKV, B) for c in FLASH_SMALL] + FLASH_64)
+             + [c + (D, HQ, HKV, B) for c in FLASH_SMALL] + FLASH_64 + FLASH_WIDTHS)
     for dtype in (torch.bfloat16, torch.float32):
         for name, causal, Sq, Sk, q_offset, mask_kind, d, hq, hkv, batch in cases:
             q3, k3, v3, maskf, bk, do3 = _flash_case(torch, gen, dtype, Sq, Sk, mask_kind,
@@ -531,14 +577,16 @@ def flash_check_phase(torch):
                     "flash forward disagrees with its plain version"
                 assert max(gerr["dq"], gerr["dk"], gerr["dv"]) <= 1, \
                     "flash backward disagrees with its plain version"
-                if name in ("main", "causal-dead-rows") and cfg in (HYFT16, HYFT32):
+                if name in SKIP_CASES and cfg in (HYFT16, HYFT32):
                     flash_skip_check(torch, fa, (q3, k3, v3, maskf, do3), kw, got,
                                      dtype, cfg, name)
                 # the kernels line's errors: the training path's types
-                # (fp32 at D 128, bf16 for bert at D 64) under HYFT16
-                if cfg is HYFT16 and (name, dtype) in (("main", torch.float32),
-                                                       ("bert", torch.bfloat16)):
-                    tag = "" if name == "main" else "[bert]"
+                # (fp32 at D 128, bf16 for bert at D 64, fp32 at the new
+                # widths) under HYFT16
+                if cfg is HYFT16 and (name, dtype) in (
+                        ("main", torch.float32), ("bert", torch.bfloat16),
+                        *((c[0], torch.float32) for c in FLASH_WIDTHS)):
+                    tag = {"main": "", "bert": "[bert]"}.get(name, f"[{name}]")
                     errors["hyft_flash_fwd" + tag] = err["max_abs_err"]
                     errors["hyft_flash_bwd_dq" + tag] = gerr["dq_max_abs_err"]
                     errors["hyft_flash_bwd_dkv" + tag] = max(gerr["dk_max_abs_err"],
@@ -616,7 +664,7 @@ def serve_phase(torch, params, cfg):
         want.update(hyft_splitk_verify=cfg.n_layers,
                     hyft_splitk_decode=cfg.n_layers * (NEW - 1))
         t_decode = t_all - t_prefill
-        emit({"phase": "serve", "cache": cache_dtype, "launches": got,
+        emit({"phase": "serve", "arch": cfg.name, "cache": cache_dtype, "launches": got,
               "expected": want, "prefill_ms": t_prefill * 1e3,
               "decode_ms_per_token": t_decode / (NEW - 1) * 1e3,
               "decode_tokens_per_s": B * (NEW - 1) / t_decode,
@@ -634,7 +682,8 @@ def serve_phase(torch, params, cfg):
 
 def parity_phase(torch, params, cfg):
     """attn_mode="kernel" against the unfused reference mode, fp32 compute
-    and HYFT32, on the same weights: prefill and the first decode step."""
+    and HYFT32, on the same weights: prefill and the first decode step.
+    Returns the phase's line."""
     from repro_torch.models import build_model
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -651,7 +700,7 @@ def parity_phase(torch, params, cfg):
         ld, _ = model.decode_step(params, cache, tokens[:, :1], PROMPT)
         logits[mode] = (lp[:, -1], ld[:, -1])
         del cache, lp
-    res = {"phase": "parity"}
+    res = {"phase": "parity", "arch": cfg.name, "n_layers": cfg.n_layers}
     for i, name in enumerate(("prefill", "decode")):
         a, b = logits["kernel"][i], logits["unfused"][i]
         assert torch.isfinite(a).all() and torch.isfinite(b).all()
@@ -663,6 +712,7 @@ def parity_phase(torch, params, cfg):
     emit(res)
     assert res["prefill_maxdiff_over_std"] <= PARITY_BOUND, "prefill parity"
     assert res["decode_maxdiff_over_std"] <= PARITY_BOUND, "decode parity"
+    return res
 
 
 def _paged_case(torch, gen, ps, cache_dtype, lengths, d=D, hkv=HKV):
@@ -852,11 +902,14 @@ def _pct(xs, q):
 
 
 def _serve_run(torch, model, params, scfg, reqs, cfg):
-    """One engine run with its launch counts, gates and metrics."""
+    """One engine run with its launch counts, gates and metrics.  A spec
+    run's burst steps are its verify calls (one chunk launch per layer),
+    and a model drafter (a dense cache) adds one chunk launch per layer per
+    sync and draft_k - 1 decode launches per layer per draft loop."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.serve.scheduler import SlotPoolEngine
 
-    eng = SlotPoolEngine(model, params, scfg)
+    eng = SlotPoolEngine(model, params, scfg, device=DEV)
     torch.cuda.reset_peak_memory_stats()
     for name in fa.LAUNCHES:                       # the main path's run
         fa.LAUNCHES[name] = 0
@@ -864,12 +917,17 @@ def _serve_run(torch, model, params, scfg, reqs, cfg):
     got = dict(fa.LAUNCHES)
     st = eng.stats
     want = dict.fromkeys(fa.LAUNCHES, 0)
-    if scfg.kv_layout == "paged":
-        want.update(hyft_paged_decode=cfg.n_layers * st["burst_steps"],
-                    hyft_paged_verify=cfg.n_layers * st["prefills"])
+    kind = "paged" if scfg.kv_layout == "paged" else "splitk"
+    if scfg.scheduler == "spec":
+        want[f"hyft_{kind}_verify"] = cfg.n_layers * (st["prefills"] + st["spec_steps"])
+        dmodel = getattr(eng.drafter, "model", None)
+        if dmodel is not None:          # one sync and one draft loop per call pair
+            pairs = eng.drafter.model_calls // 2
+            want["hyft_splitk_verify"] += dmodel.cfg.n_layers * pairs
+            want["hyft_splitk_decode"] += dmodel.cfg.n_layers * (scfg.draft_k - 1) * pairs
     else:
-        want.update(hyft_splitk_decode=cfg.n_layers * st["burst_steps"],
-                    hyft_splitk_verify=cfg.n_layers * st["prefills"])
+        want[f"hyft_{kind}_decode"] = cfg.n_layers * st["burst_steps"]
+        want[f"hyft_{kind}_verify"] = cfg.n_layers * st["prefills"]
     assert got == want, f"launch counts {got} != {want}"
     assert sorted(done) == [r.rid for r in reqs], "a request has no outcome"
     for r in reqs:
@@ -890,6 +948,11 @@ def _serve_run(torch, model, params, scfg, reqs, cfg):
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "prefix_hit_rate": st["cached_tokens"] / max(1, st["prompt_tokens"]),
            "stats": st}
+    if scfg.scheduler == "spec":
+        rec.update(spec_mode=scfg.spec_mode, draft_k=scfg.draft_k,
+                   acceptance_rate=st["accepted_tokens"] / max(1, st["draft_tokens"]),
+                   tokens_per_model_call=st["tokens_emitted"] / max(1, st["model_calls"]),
+                   drafter_model_calls=eng.drafter.model_calls)
     return rec, done
 
 
@@ -1985,6 +2048,459 @@ def softmax_kernels_phase(torch, errors, serve_launches, train_launches):
     return kernels
 
 
+# --------------------------------------------------------------------------
+# head widths 16, 112 and 192: kernels 3-9 beyond the main path's 128
+# --------------------------------------------------------------------------
+
+SLOT_LENGTHS = [2048, 1500, 900, 513, 300, 64, 17, 1]   # 8 slots' ragged lengths
+GROUP24 = (48, 2)                        # kernel 7 at a GQA group of 24 rows, D 128
+# speculative decoding (the spec phase): mistral-nemo-12b served with
+# draft_k 4, so that a verify call scores 5 lanes per slot; the drafter
+SPEC_ARCH, SPEC_DRAFTER, SPEC_K = "mistral-nemo-12b", "qwen2-1.5b", 4
+SPEC_LANES = SPEC_K + 1
+SPEC_LIVE = 1024                         # keys per slot of the Sq 5 timings
+# the depth of mistral-nemo-12b's fp32 runs (of 40): the three fp32 serving
+# runs of the spec phase and the lockstep parity's fp32 prefill of 4 x 1024
+# tokens, in the time
+MISTRAL_FP32_LAYERS = 8
+# bf16 serving: a spec token may differ from the continuous run's only
+# where the reference's top-2 logit margin is within this many bf16 ulps
+# of its top logit.  The logits come out of a bf16 GEMM (an ulp of 2 at
+# the top logits of 256-512 that random weights give); a verify call of 5
+# lanes and a decode step of one run their GEMMs on other shapes, which may
+# round each layer's output to the neighbouring bf16 value and so move a
+# logit by a few ulps after 40 layers.  A larger margin that flips is a
+# fault of the verify path.
+BF16_FLIP_ULPS = 8
+
+
+def widths_check_phase(torch):
+    """Kernels 6-9 at head widths 16, 112 and 192 against their plain
+    versions, each at the heads of the config that uses it (WIDTHS), HYFT16
+    and HYFT32 (kernels 3-5 at these widths are cases of
+    ``flash_check_phase``): 6 and 8 over a dense cache of 8 slots x 2048
+    keys (the model drafter's is one, fp32, at D 16) with ragged lengths,
+    decode and chunks of K + 1 = 5 and of 128 lanes ending at each length;
+    7 and 9 over pages of 16 (a shuffled table, null pages past each
+    length), the same rows; fp32, bf16 and fp2fx8 K/V, each within the
+    ``out`` bound of ``out_errors``.  Then kernel 7 at a GQA group of 24
+    rows (D 128, 48 / 2 heads), which takes two clusters of 16 rows: within
+    the ``out`` bound, and each cluster's rows bitwise a launch of those
+    rows alone.  Returns {(entry, d): the worst HYFT16 max_abs_err};
+    ``hyft16_zero`` in each line says whether that error is 0."""
+    from repro_torch.core.hyft import HYFT16, HYFT32
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    errors = {}
+    lens = torch.tensor(SLOT_LENGTHS, device="cuda")
+    dmask = (torch.arange(SERVE_LEN, device="cuda")[None] < lens[:, None]).float()
+
+    def hold(entry, d, cfg, got, err, **info):
+        emit({"phase": "widths_check", "kernel": entry, "d_head": d, "cfg": cfg.io_dtype,
+              **info, **err, "hyft16_zero": cfg is HYFT16 and err["max_abs_err"] == 0.0})
+        assert torch.isfinite(got).all(), f"{entry} at D {d}: non-finite output"
+        assert err["out"] <= 1, f"{entry} at D {d} disagrees with its plain version"
+        if cfg is HYFT16:
+            errors[(entry, d)] = max(errors.get((entry, d), 0.0), err["max_abs_err"])
+
+    for d, (hq, hkv, _) in WIDTHS.items():
+        g = hq // hkv
+        q1 = torch.randn(SLOTS * hkv, g, d, generator=gen, device="cuda")
+        chunks = [(sq, torch.randn(SLOTS * hkv, g * sq, d, generator=gen, device="cuda"),
+                   _chunk_mask(torch, lens, sq)) for sq in (SPEC_LANES, CHUNK64)]
+        for cache_dtype in ("float32", "bfloat16", "fp2fx8"):
+            k, v, sc, vf = _cache_kv(torch, gen, cache_dtype, (SLOTS * hkv, SERVE_LEN, d))
+            flat = (k, v, sc.get("k_scale"), sc.get("v_scale"))
+            cases = [("hyft_splitk_decode", q1, dmask, None)] + [
+                ("hyft_splitk_verify", qc, m, sq) for sq, qc, m in chunks]
+            for cfg in (HYFT16, HYFT32):
+                kw = dict(cfg=cfg, sm_scale=d ** -0.5, bk=256, hkv=hkv)
+                for entry, q3, m, sq in cases:
+                    got = fa._splitk_attention_cuda(q3, *flat, m, **kw, sq=sq)
+                    err = fa.out_errors(got, fa.splitk_tiles_plain(q3, *flat, m, **kw, sq=sq),
+                                        cfg, float(vf.abs().max()))
+                    hold(entry, d, cfg, got, err, kv=cache_dtype, sq=sq or 1)
+            del k, v, sc, flat
+            k, v, sc, vf, bt, mask, _ = _paged_case(torch, gen, PAGE, cache_dtype,
+                                                    SLOT_LENGTHS, d, hkv)
+            cases = [("hyft_paged_decode", q1, mask, None)] + [
+                ("hyft_paged_verify", qc, m, sq) for sq, qc, m in chunks]
+            for cfg in (HYFT16, HYFT32):
+                kw = dict(cfg=cfg, sm_scale=d ** -0.5, hkv=hkv)
+                for entry, q3, m, sq in cases:
+                    args = (q3, k, v, sc.get("k_scale"), sc.get("v_scale"), bt, m)
+                    got = fa._paged_attention_cuda(*args, **kw, sq=sq)
+                    err = fa.out_errors(got, fa.paged_tiles_plain(*args, **kw, sq=sq), cfg,
+                                        float(vf.abs().max()))
+                    hold(entry, d, cfg, got, err, kv=cache_dtype, sq=sq or 1,
+                         page_size=PAGE)
+            del k, v, sc
+            torch.cuda.synchronize()
+    # kernel 7 at a group of 24 rows: two clusters of 16 rows in one launch
+    hq, hkv = GROUP24
+    g = hq // hkv
+    for cache_dtype in ("float32", "fp2fx8", "bfloat16"):
+        k, v, sc, vf, bt, mask, _ = _paged_case(torch, gen, PAGE, cache_dtype, SLOT_LENGTHS,
+                                                D, hkv)
+        q3 = torch.randn(SLOTS * hkv, g, D, generator=gen, device="cuda")
+        for cfg in (HYFT16, HYFT32):
+            kw = dict(cfg=cfg, sm_scale=D ** -0.5, hkv=hkv, sq=None)
+            tail = (k, v, sc.get("k_scale"), sc.get("v_scale"), bt, mask)
+            got = fa._paged_attention_cuda(q3, *tail, **kw)
+            err = fa.out_errors(got, fa.paged_tiles_plain(q3, *tail, **kw), cfg,
+                                float(vf.abs().max()))
+            alone = all(torch.equal(fa._paged_attention_cuda(q3[:, r0:r0 + 16].contiguous(),
+                                                             *tail, **kw),
+                                    got[:, r0:r0 + 16]) for r0 in range(0, g, 16))
+            hold("hyft_paged_decode", D, cfg, got, err, kv=cache_dtype, group=g,
+                 clusters_bitwise_alone=alone)
+            assert alone, "a group of 24 is not its 16-row launches"
+        del k, v, sc
+    torch.cuda.synchronize()
+    return errors
+
+
+def _attend_row(torch, entry, d, hq, hkv, cache_dtype, sq, live, gen):
+    """Inputs, timing, plain timing and bound of kernel 6, 7, 8 or 9 at head
+    width d: 8 slots of ``live`` keys each (of SERVE_LEN), decode or a chunk
+    of ``sq`` lanes ending at the length, HYFT16."""
+    from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import flash_attention as fa
+
+    g = hq // hkv
+    rows = g * (sq or 1)
+    BH = SLOTS * hkv
+    lens = torch.full((SLOTS,), live, device="cuda")
+    paged = "paged" in entry
+    if paged:
+        k, v, sc, vf, bt, mask, _ = _paged_case(torch, gen, PAGE, cache_dtype,
+                                                [live] * SLOTS, d, hkv)
+        kernel, plain, tiles = (fa._paged_attention_cuda, fa.paged_attention_plain,
+                                fa.paged_tiles_plain)
+        kw = dict(cfg=HYFT16, sm_scale=d ** -0.5, hkv=hkv, sq=sq)
+        operands = (k, v, sc.get("k_scale"), sc.get("v_scale"), bt)
+    else:
+        k, v, sc, vf = _cache_kv(torch, gen, cache_dtype, (BH, SERVE_LEN, d))
+        mask = (torch.arange(SERVE_LEN, device="cuda")[None] < lens[:, None]).float()
+        kernel, plain, tiles = (fa._splitk_attention_cuda, fa.splitk_attention_plain,
+                                fa.splitk_tiles_plain)
+        kw = dict(cfg=HYFT16, sm_scale=d ** -0.5, bk=256, hkv=hkv, sq=sq)
+        operands = (k, v, sc.get("k_scale"), sc.get("v_scale"))
+    if sq is not None:
+        mask = _chunk_mask(torch, lens, sq)
+    q3 = torch.randn(BH, rows, d, generator=gen, device="cuda")
+    err = fa.out_errors(kernel(q3, *operands, mask, **kw), tiles(q3, *operands, mask, **kw),
+                        HYFT16, float(vf.abs().max()))
+    assert err["out"] <= 1, f"{entry} at D {d}, {sq} lanes, disagrees with its plain version"
+
+    def call(attend):
+        return lambda i: attend(q3, *operands, mask, **kw)
+    reps = 200
+    event_ms = _event_ms(torch, call(kernel), reps)
+    timing = _kernel_ms(torch, call(kernel), reps,
+                        "decode_kernel" if sq is None else "verify_kernel", event_ms)
+    plain_ms = _event_ms(torch, call(plain), 20)
+    kv_bytes = {"fp2fx8": 1, "bfloat16": 2}.get(cache_dtype, 4)
+    keys = BH * live
+    nbytes = (2 * BH * rows * d * 4 + 2 * keys * d * kv_bytes
+              + (2 * keys * 4 if cache_dtype == "fp2fx8" else 0) + mask.numel() * 4
+              + (SLOTS * bt.shape[1] * 4 if paged else 0))
+    lanes = sq or 1
+    attended = lanes * (live - lanes) + lanes * (lanes + 1) // 2   # per (b, query head)
+    flops = 4 * d * SLOTS * hq * attended
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return {"max_abs_err": err["max_abs_err"], "out_ratio": err["out"],
+            **timing, "kernel_ms": event_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "library_ms": None}
+
+
+_ENTRY_SOURCES = {
+    "hyft_splitk_decode": ("hyft_splitk.cu", ":541", "_decode_fwd_kernel"),
+    "hyft_splitk_verify": ("hyft_splitk.cu", ":804", "_verify_fwd_kernel"),
+    "hyft_paged_decode": ("hyft_paged.cu", ":660", "_paged_decode_kernel"),
+    "hyft_paged_verify": ("hyft_paged.cu", ":823", "_verify_paged_kernel")}
+
+
+def widths_kernels_phase(torch, errors, flash_errs, spec):
+    """The kernels line's rows of kernels 3-9 at head widths 16, 112 and
+    192 (WIDTHS' heads, HYFT16): 6 and 8 over a dense fp32 cache of 8 x 2048
+    keys, decode and a chunk of 5 lanes ending at the length; 7 and 9 over
+    an fp2fx8 pool of pages of 16, the same rows; 3-5 at batch 2, S 512,
+    causal, fp32; and kernels 8 and 9 at the 5 lanes of a spec step at
+    mistral-nemo-12b's heads (D 128, 32 / 8) over 1024 keys a slot: 8 over
+    the dense fp32 cache of the fp32 exactness runs, 9 over the fp2fx8 pool
+    of the bf16 runs.  ``launches``: the spec phase's launches at that
+    width and lane count (``spec``: (entry, d, lanes) -> count).
+    ``errors``: ``widths_check_phase``'s; ``flash_errs``:
+    ``flash_check_phase``'s."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    rows = []
+    shapes = [(d, hq, hkv, what) for d, (hq, hkv, what) in WIDTHS.items()]
+    for d, hq, hkv, what in shapes + [(D, 32, 8, SPEC_ARCH + ": 32 / 8 heads")]:
+        spec_shape = d == D
+        for entry in _ENTRY_SOURCES:
+            decode = entry.endswith("decode")
+            if spec_shape and decode:
+                continue
+            sq = None if decode else SPEC_LANES
+            cache_dtype = "fp2fx8" if "paged" in entry else "float32"
+            live = SPEC_LIVE if spec_shape else SERVE_LEN
+            src, line, tpu = _ENTRY_SOURCES[entry]
+            timing = _attend_row(torch, entry, d, hq, hkv, cache_dtype, sq, live, gen)
+            key = (entry, d, sq or 1)
+            by_lanes = {q: n for (e, dd, q), n in spec["tally"].items() if e == entry and dd == d}
+            row = {"name": f"{entry}[d{d},{cache_dtype},sq{sq or 1}]", "route": "cuda",
+                   "source": f"src/repro_torch/kernels/csrc/{src}",
+                   "instantiated_in": f"src/repro_torch/kernels/csrc/hyft_attend_d{d}.cu",
+                   "replaces": f"src/repro/kernels/flash_attention.py{line}",
+                   "tpu_kernel": tpu, "heads": [hq, hkv], "what": what,
+                   "launches": spec["tally"].get(key, 0),
+                   "launches_are": spec["runs"].get(key, "no path launches it at this width "
+                                                    "and lane count"),
+                   "launches_by_lanes": by_lanes,
+                   "widths_check_max_abs_err": errors.get((entry, d)),
+                   **timing}
+            rows.append(row)
+        if spec_shape:
+            continue
+        zero = dict.fromkeys(("hyft_flash_fwd", "hyft_flash_bwd_dq", "hyft_flash_bwd_dkv"), 0)
+        for row in _flash_rows(torch, gen, torch.float32, WIDTH_FLASH_B, hq, hkv, WIDTH_FLASH_S,
+                               d, True, flash_errs, zero, f"[f32,d{d}]", f"[d{d}]"):
+            row.update(what=what, launches_are="no path launches it at this width "
+                                               "(checked and timed here)")
+            rows.append(row)
+    return rows
+
+
+# --------------------------------------------------------------------------
+# olmo-1b, and speculative decoding with mistral-nemo-12b
+# --------------------------------------------------------------------------
+
+
+def olmo_phase(torch):
+    """olmo-1b at full width (configs/olmo_1b.py: 16 layers, d_model 2048,
+    16 / 16 heads of 128, non-parametric LayerNorm, tied embeddings, vocab
+    50304), random weights from the seed, hyft16, kernel mode, bf16
+    compute: ``serve_phase`` (generate at batch 4, prompt 1024, 32 new
+    tokens, per cache; exactly 16 chunk and 16 x 31 decode launches), then
+    ``parity_phase`` (fp32, HYFT32, kernel against unfused) within
+    PARITY_BOUND."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("olmo-1b")
+    params = build_model(cfg).init(SEED, device=DEV)
+    emit({"phase": "init", "arch": cfg.name,
+          "params": sum(t.numel() for t in _leaves(params))})
+    serve_phase(torch, params, cfg)
+    parity_phase(torch, params, cfg)
+    del params
+
+
+def _cut(params, n_layers):
+    """The first ``n_layers`` layers of a param tree (views, no copy)."""
+    from repro_torch.tree import tree_map
+    return {**params, "blocks": tree_map(lambda t: t[:n_layers], params["blocks"])}
+
+
+@contextlib.contextmanager
+def _launch_shapes(fa):
+    """Tally every split-K and paged launch by (entry, head width, query
+    lanes) while inside: wraps the CUDA wrappers, whose own counts
+    (``fa.LAUNCHES``) stay the record."""
+    import collections
+    tally = collections.Counter()
+    orig = fa._splitk_attention_cuda, fa._paged_attention_cuda
+
+    def wrap(fn, kind):
+        def call(q3, *args, sq=None, **kw):
+            out = fn(q3, *args, sq=sq, **kw)
+            tally[(f"hyft_{kind}_{'decode' if sq is None else 'verify'}", q3.shape[-1],
+                   sq or 1)] += 1
+            return out
+        return call
+    fa._splitk_attention_cuda = wrap(orig[0], "splitk")
+    fa._paged_attention_cuda = wrap(orig[1], "paged")
+    try:
+        yield tally
+    finally:
+        fa._splitk_attention_cuda, fa._paged_attention_cuda = orig
+
+
+def _flip_margins(torch, model, params, reqs, ref, got, seen):
+    """Per request whose spec tokens ``got`` differ from the continuous
+    run's ``ref``: the first differing index, both tokens, and the top-2
+    margin of the next-token logits there, from a fresh bf16 prefill of the
+    prompt and the reference's tokens before it (fp2fx8 cache), with the
+    tolerance of BF16_FLIP_ULPS ulps of its top logit.  ``seen`` keeps the
+    margins by (request, index) across calls."""
+    import numpy as np
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serve.engine import build_prefill_chunk
+
+    out = []
+    for r in reqs:
+        a, b = ref[r.rid], got[r.rid]
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        if (r.rid, i) in seen:
+            out.append(dict(seen[r.rid, i], spec=b[i]))
+            continue
+        ctx = np.concatenate([np.asarray(r.tokens, np.int32), np.asarray(a[:i], np.int32)])
+        n = len(ctx)
+        cache = model.init_cache(params, 1, n + 1, "fp2fx8", device=DEV)
+        last, _ = build_prefill_chunk(model, ServeConfig(max_len=n + 1), n)(
+            params, cache, torch.tensor(ctx[None], device=DEV),
+            torch.zeros(1, dtype=torch.int32, device=DEV),
+            torch.full((1,), n, dtype=torch.int32, device=DEV),
+            torch.ones(1, dtype=torch.bool, device=DEV))
+        top = torch.topk(last[0], 2).values.tolist()
+        ulp = 2.0 ** (math.floor(math.log2(max(abs(top[0]), 2.0 ** -126))) - 7)
+        seen[r.rid, i] = {"rid": r.rid, "index": i, "continuous": a[i], "spec": b[i],
+                          "recomputed_argmax": int(last[0].argmax()), "top_logit": top[0],
+                          "margin": top[0] - top[1], "tolerance": BF16_FLIP_ULPS * ulp}
+        out.append(seen[r.rid, i])
+        del cache, last
+    return out
+
+
+def spec_phase(torch):
+    """Speculative decoding on the card: mistral-nemo-12b at its published
+    width and depth (configs/mistral_nemo_12b.py: 40 layers, d_model 5120,
+    32 / 8 heads of 128, d_ff 14336, vocab 131072, bf16 params), random
+    weights from the seed, hyft16, kernel mode, bf16 compute, served by
+    ``SlotPoolEngine`` over a paged fp2fx8 pool (pages of 16, prefix cache,
+    8 slots, max_len 2048, prefill chunks of 256): the 24 chat requests of
+    the continuous phase, three times,
+      * ``continuous`` (bursts of 8), the reference;
+      * ``spec`` with the n-gram drafter, draft_k 4;
+      * ``spec`` with the model drafter ``draft_model="qwen2-1.5b"``: its
+        smoke config (2 layers, 4 / 2 heads of 16) at the target's vocab,
+        random weights seeded 1, a dense fp32 cache, in kernel mode: its
+        syncs run kernel 8 and its draft loops kernel 6, at D 16;
+    per run (the bf16 ones after a warm-up run): the launch gates of ``_serve_run`` (a
+    spec step launches kernel 9 once a layer at 5 lanes), the acceptance
+    rate, tokens per model call, spec steps, the drafter's model calls,
+    tokens/s, TTFT and TBT p50/p99, peak pages and memory, and the launches
+    by head width and lanes.  Verification is exact: a spec token may
+    differ from the reference's only where bf16 GEMMs of 5 lanes and of one
+    round differently, so each request's first differing token is printed
+    with the reference's top-2 margin there, which must be within
+    BF16_FLIP_ULPS ulps.  Then the same three runs in fp32 compute (TF32
+    off) at MISTRAL_FP32_LAYERS layers over a dense fp32 cache (kernels 6
+    and 8; 8 at 5 lanes), where both spec runs must emit the reference's
+    tokens on every request; then ``parity_phase`` at that depth.  Returns
+    the launch tallies the kernels line reads.  Beside them, a profiled
+    run of 4 requests at once (16 new tokens) per drafter: wall, device
+    busy time and idle share, launches, the top kernels."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+
+    cfg = get_config(SPEC_ARCH).with_(softmax_impl="hyft16")
+    model = build_model(cfg)
+    params = model.init(SEED, device=DEV)
+    emit({"phase": "init", "arch": cfg.name,
+          "params": sum(t.numel() for t in _leaves(params)),
+          "bytes": sum(t.numel() * t.element_size() for t in _leaves(params))})
+    reqs = _chat_requests(np, cfg.vocab)
+    warm = [dataclasses.replace(r, arrival=0.0, max_new=8) for r in reqs[:2]]
+    modes = [("continuous", dict(scheduler="continuous")),
+             ("spec_ngram", dict(scheduler="spec", spec_mode="ngram", draft_k=SPEC_K)),
+             ("spec_model", dict(scheduler="spec", spec_mode="model", draft_k=SPEC_K,
+                                 draft_model=SPEC_DRAFTER))]
+    result = {"tally": {}, "runs": {}}
+
+    def serve_all(model, params, cfg, layout, tag, warm_up):
+        outs = {}
+        for name, kw in modes:
+            if layout == "paged":
+                scfg = _serve_config(cache_dtype="fp2fx8", **kw)
+            else:
+                scfg = _serve_config(cache_dtype="float32", kv_layout="dense",
+                                     prefix_cache=False, **kw)
+            if warm_up:
+                _serve_run(torch, model, params, scfg, warm, cfg)
+            with _launch_shapes(fa) as tally:
+                rec, done = _serve_run(torch, model, params, scfg, reqs, cfg)
+            for entry, n in rec["launches"].items():
+                assert sum(c for (e, _, _), c in tally.items() if e == entry) == n
+            rec["launches_by_width_and_lanes"] = {
+                f"{e}[d{d},sq{q}]": n for (e, d, q), n in sorted(tally.items())}
+            if scfg.scheduler == "spec":
+                steps = rec["stats"]["spec_steps"]
+                verify = "hyft_paged_verify" if layout == "paged" else "hyft_splitk_verify"
+                at5 = tally[(verify, cfg.d_head, SPEC_LANES)]
+                rec[f"{verify}_at_{SPEC_LANES}_lanes"] = at5
+                rec[f"{verify}_per_spec_step"] = at5 / max(1, steps)
+                assert steps > 0 and at5 == cfg.n_layers * steps, \
+                    f"{verify} at {SPEC_LANES} lanes: {at5} != {cfg.n_layers} x {steps}"
+                if name == "spec_model":
+                    d16 = {e for (e, d, _), n in tally.items() if d == 16 and n}
+                    assert {"hyft_splitk_decode", "hyft_splitk_verify"} <= d16, \
+                        "the model drafter did not run kernels 6 and 8 at D 16"
+            for key, n in tally.items():
+                if n and key not in result["tally"]:
+                    result["tally"][key] = n
+                    result["runs"][key] = (f"per {name}{tag} run of the spec phase "
+                                           f"({cfg.n_layers}-layer target)")
+            emit({"phase": "spec", "part": f"{name}{tag}", "arch": cfg.name,
+                  "n_layers": cfg.n_layers, "compute": cfg.compute_dtype, **rec})
+            outs[name] = {rid: c.tokens for rid, c in done.items()}
+            del done
+            torch.cuda.empty_cache()
+        return outs
+
+    outs = serve_all(model, params, cfg, "paged", "", True)
+    # where a spec step's time goes: 4 requests at once, 16 new tokens each
+    short = [dataclasses.replace(r, arrival=0.0, max_new=16) for r in reqs[:4]]
+    for name, kw in modes[1:]:
+        runs = []
+        events, wall = _profiled(torch, lambda: runs.append(_serve_run(
+            torch, model, params, _serve_config(cache_dtype="fp2fx8", **kw), short, cfg)[0]))
+        kern = sorted(_device_events(torch, events), key=_self_device_us, reverse=True)
+        busy = sum(map(_self_device_us, kern)) / 1e3
+        st = runs[0]["stats"]
+        emit({"phase": "profile", "part": f"{name}_4_requests_16_tokens", "arch": cfg.name,
+              "wall_ms": wall * 1e3, "device_busy_ms": busy,
+              "device_idle_share": 1.0 - busy / (wall * 1e3),
+              "launches": sum(e.count for e in kern), "spec_steps": st["spec_steps"],
+              "prefills": st["prefills"], "model_calls": st["model_calls"],
+              "top_kernels": [{"name": e.key[:90], "count": e.count,
+                               "device_ms": _self_device_us(e) / 1e3} for e in kern[:12]]})
+    seen = {}
+    for name in ("spec_ngram", "spec_model"):
+        flips = _flip_margins(torch, model, params, reqs, outs["continuous"], outs[name], seen)
+        same = sum(outs[name][r.rid] == outs["continuous"][r.rid] for r in reqs)
+        emit({"phase": "spec", "part": f"{name}_vs_continuous", "compute": "bfloat16",
+              "requests_identical": same, "requests": len(reqs), "first_differences": flips,
+              "flip_ulps": BF16_FLIP_ULPS})
+        for f in flips:
+            assert f["margin"] <= f["tolerance"], \
+                f"{name}: request {f['rid']} flipped a token at margin {f['margin']}"
+    # fp32 (TF32 off): exact verification must give the reference's tokens
+    cfg32 = cfg.with_(n_layers=MISTRAL_FP32_LAYERS, compute_dtype="float32")
+    outs32 = serve_all(build_model(cfg32), _cut(params, MISTRAL_FP32_LAYERS), cfg32, "dense",
+                       "_fp32", False)
+    for name in ("spec_ngram", "spec_model"):
+        bad = [r.rid for r in reqs if outs32[name][r.rid] != outs32["continuous"][r.rid]]
+        emit({"phase": "spec", "part": f"{name}_fp32_vs_continuous", "compute": "float32",
+              "n_layers": MISTRAL_FP32_LAYERS, "requests_identical": len(reqs) - len(bad),
+              "requests": len(reqs), "differing": bad})
+        assert not bad, f"{name} in fp32 is not the continuous run's tokens: {bad}"
+    # lockstep parity, kernel against unfused, at the depth that fits
+    parity_phase(torch, _cut(params, MISTRAL_FP32_LAYERS),
+                 cfg.with_(n_layers=MISTRAL_FP32_LAYERS))
+    del params
+    return result
+
+
 def main():
     import torch
 
@@ -1996,6 +2512,7 @@ def main():
     errors = check_phase(torch)
     flash_errs = flash_check_phase(torch)
     paged_errs = paged_check_phase(torch)
+    width_errs = widths_check_phase(torch)
     softmax_errs = softmax_check_phase(torch)
 
     from repro_torch.configs import get_config
@@ -2023,11 +2540,16 @@ def main():
     torch.cuda.empty_cache()
     tables_phase(torch)
     torch.cuda.empty_cache()
+    olmo_phase(torch)
+    torch.cuda.empty_cache()
+    spec = spec_phase(torch)
+    torch.cuda.empty_cache()
     emit({"kernels": kernels_phase(torch, errors, launches)
           + paged_kernels_phase(torch, paged_errs, paged_launches)
           + flash_kernels_phase(torch, flash_errs, train_launches, bert_launches)
           + softmax_kernels_phase(torch, softmax_errs, unfused_launches,
-                                  unfused_train_launches)})
+                                  unfused_train_launches)
+          + widths_kernels_phase(torch, width_errs, flash_errs, spec)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
 

@@ -20,7 +20,8 @@ name and power limit):
   over 28 caches as a decode step does) and the causal prompt (Sq 1024
   over 1057 keys), fp32 and fp2fx8; and the paged decode and the paged
   chunk of 256 lanes from key 768 at the continuous-serving shape (8
-  slots, 128 pages of 16).  Per variant: ``event_ms``, CUDA events per
+  slots, 128 pages of 16); each at D 128 (Hkv 2) and again at D 64 (bert-base's
+  12 / 12 heads, a GQA group of 1).  Per variant: ``event_ms``, CUDA events per
   call over many calls (the wrapper's host time included), ``device_ms``,
   the device time per call of every kernel the call launched
   (torch.profiler), and a sha256 of the output of the first call, so that
@@ -36,10 +37,12 @@ name and power limit):
 With ``--flash`` it times the training path's flash kernels instead:
 
 * ``flash_kernels``: the forward, dq and dk/dv kernels at the training shape
-  (B 4, Hq 12, Hkv 2, S 1024, D 128, causal, fp32 q/k/v, HYFT16),
+  (B 4, Hq 12, Hkv 2, S 1024, D 128, causal, fp32 q/k/v, HYFT16) and at
+  bert-base's (B 32, 12 / 12 heads, S 128, D 64, non-causal, bf16),
   ``event_ms`` and ``device_ms`` as above;
 * ``flash_bits``: on fixed seeded inputs (fp32 and bf16, HYFT16, the
-  training shape) a sha256 of the bytes of o, m, l, dq, dk and dv, and of
+  training shape, and bert-base's at D 64: B 32, 12 / 12 heads, S 128,
+  non-causal) a sha256 of the bytes of o, m, l, dq, dk and dv, and of
   ``dq_full``, dq with the causal skip turned off where the tree's wrapper
   has ``skip_masked`` (else its dq, which walks every key), so that two
   trees can be compared bit for bit; the elements of dq that the skip
@@ -137,6 +140,15 @@ def kernels(torch, card):
         def contiguous(*args, **kw):
             return fa._splitk_combine(*fa._splitk_tiles_cuda(*args, **kw), kw["cfg"])
     gen = torch.Generator(device="cuda").manual_seed(3)
+    for d, hkv in ((D, HKV), (64, HQ)):
+        _kernels_at(torch, card, fa, contiguous, gen, d, hkv)
+
+
+def _kernels_at(torch, card, fa, contiguous, gen, D, HKV):
+    """The split-K and paged rows of ``kernels`` at head width D over HKV
+    KV heads (of HQ query heads)."""
+    from repro_torch.core.hyft import HYFT16
+
     BH, g = B * HKV, HQ // HKV
     kw = dict(cfg=HYFT16, sm_scale=D ** -0.5, hkv=HKV)
     for kind in ("decode", "verify"):
@@ -157,7 +169,8 @@ def kernels(torch, card):
             calls = 200 if kind == "decode" else 10
             ms, launches = _device_ms(torch, fn, calls)
             emit({"part": "kernels", "card": card, "kernel": f"hyft_splitk_{kind}",
-                  "kv": dtype, "event_ms": _event_ms(torch, fn, calls), "device_ms": ms,
+                  "d_head": D, "kv": dtype, "event_ms": _event_ms(torch, fn, calls),
+                  "device_ms": ms,
                   "launches_per_call": launches, "sha256": _sha(fn(0))})
             del bufs
     nb = SERVE_LEN // PAGE
@@ -183,7 +196,8 @@ def kernels(torch, card):
             calls = 200 if sq is None else 10
             ms, launches = _device_ms(torch, fn, calls)
             emit({"part": "kernels", "card": card, "kernel": f"hyft_paged_{kind}",
-                  "kv": dtype, "event_ms": _event_ms(torch, fn, calls), "device_ms": ms,
+                  "d_head": D, "kv": dtype, "event_ms": _event_ms(torch, fn, calls),
+                  "device_ms": ms,
                   "launches_per_call": launches, "sha256": _sha(fn(0))})
             del pools
 
@@ -223,13 +237,15 @@ def generate_profile(torch, card):
 
 
 FLASH_S = 1024
+# (batch, hkv, S, d, causal): the training shape, and bert-base's at D 64
+FLASH_SHAPES = {"train": (B, HKV, FLASH_S, D, True), "bert_d64": (32, HQ, 128, 64, False)}
 
 
-def _flash_operands(torch, gen, dtype):
-    q3 = torch.randn(B * HQ, FLASH_S, D, generator=gen, device="cuda").to(dtype)
-    k3 = torch.randn(B * HKV, FLASH_S, D, generator=gen, device="cuda").to(dtype)
-    v3 = torch.randn(B * HKV, FLASH_S, D, generator=gen, device="cuda").to(dtype)
-    do3 = torch.randn(B * HQ, FLASH_S, D, generator=gen, device="cuda")
+def _flash_operands(torch, gen, dtype, batch=B, hkv=HKV, S=FLASH_S, d=D):
+    q3 = torch.randn(batch * HQ, S, d, generator=gen, device="cuda").to(dtype)
+    k3 = torch.randn(batch * hkv, S, d, generator=gen, device="cuda").to(dtype)
+    v3 = torch.randn(batch * hkv, S, d, generator=gen, device="cuda").to(dtype)
+    do3 = torch.randn(batch * HQ, S, d, generator=gen, device="cuda")
     return q3, k3, v3, do3
 
 
@@ -238,50 +254,63 @@ def flash_kernels(torch, card):
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    q3, k3, v3, do3 = _flash_operands(torch, gen, torch.float32)
-    kw = dict(cfg=HYFT16, sm_scale=D ** -0.5, causal=True, bk=128, group=HQ // HKV,
-              q_offset=0)
-    o, m, l = fa._flash_fwd_cuda(q3, k3, v3, None, **kw)
-    args = (q3, k3, v3, None, do3, fa._flash_delta(do3, o).contiguous(), m, l)
-    for name, fn in (("hyft_flash_fwd", lambda i: fa._flash_fwd_cuda(q3, k3, v3, None, **kw)),
-                     ("hyft_flash_bwd_dq", lambda i: fa._flash_bwd_dq_cuda(*args, **kw)),
-                     ("hyft_flash_bwd_dkv", lambda i: fa._flash_bwd_dkv_cuda(*args, **kw))):
-        ms, launches = _device_ms(torch, fn, 20)
-        emit({"part": "flash_kernels", "card": card, "kernel": name,
-              "event_ms": _event_ms(torch, fn, 20), "device_ms": ms,
-              "launches_per_call": launches})
+    for shape, (batch, hkv, S, d, causal) in FLASH_SHAPES.items():
+        dtype = torch.float32 if shape == "train" else torch.bfloat16
+        q3, k3, v3, do3 = _flash_operands(torch, gen, dtype, batch, hkv, S, d)
+        kw = dict(cfg=HYFT16, sm_scale=d ** -0.5, causal=causal, bk=128, group=HQ // hkv,
+                  q_offset=0)
+        o, m, l = fa._flash_fwd_cuda(q3, k3, v3, None, **kw)
+        args = (q3, k3, v3, None, do3, fa._flash_delta(do3, o).contiguous(), m, l)
+        for name, fn in (
+                ("hyft_flash_fwd", lambda i: fa._flash_fwd_cuda(q3, k3, v3, None, **kw)),
+                ("hyft_flash_bwd_dq", lambda i: fa._flash_bwd_dq_cuda(*args, **kw)),
+                ("hyft_flash_bwd_dkv", lambda i: fa._flash_bwd_dkv_cuda(*args, **kw))):
+            ms, launches = _device_ms(torch, fn, 20)
+            emit({"part": "flash_kernels", "card": card, "kernel": name, "shape": shape,
+                  "event_ms": _event_ms(torch, fn, 20), "device_ms": ms,
+                  "launches_per_call": launches})
 
 
 def flash_bits(torch, card):
     from repro_torch.core.hyft import HYFT16
     from repro_torch.kernels import flash_attention as fa
 
-    kw = dict(cfg=HYFT16, sm_scale=D ** -0.5, causal=True, bk=128, group=HQ // HKV,
-              q_offset=0)
-    for dtype in (torch.float32, torch.bfloat16):
-        gen = torch.Generator(device="cuda").manual_seed(11)
-        q3, k3, v3, do3 = _flash_operands(torch, gen, dtype)
-        o, m, l = fa._flash_fwd_cuda(q3, k3, v3, None, **kw)
-        args = (q3, k3, v3, None, do3, fa._flash_delta(do3, o).contiguous(), m, l)
-        dq = fa._flash_bwd_dq_cuda(*args, **kw)
-        dk, dv = fa._flash_bwd_dkv_cuda(*args, **kw)
-        if "skip_masked" in inspect.signature(fa._flash_bwd_dq_cuda).parameters:
-            dq_full = fa._flash_bwd_dq_cuda(*args, **kw, skip_masked=False)
-        else:   # a dq kernel that walks every key
-            dq_full = dq
-        out = {"o": o, "m": m, "l": l, "dq": dq, "dk": dk, "dv": dv, "dq_full": dq_full}
-        gerr = fa.grad_errors((dq, dk, dv), (dq, *fa._flash_bwd_dkv_plain(*args, **kw)),
-                              HYFT16)
-        emit({"part": "flash_bits", "card": card, "dtype": str(dtype).split(".")[1],
-              "sha256": {k: _sha(t) for k, t in out.items()},
-              "dq_skip_differing": int((dq != dq_full).sum()),
-              "dq_skip_vs_full": fa.grad_errors((dq,), (dq_full,), HYFT16)["dq"],
-              "dkv_vs_plain": {k: gerr[k] for k in ("dk", "dv", "dk_max_abs_err",
-                                                      "dv_max_abs_err")}})
-        if ARGS.save:
-            ARGS.save.mkdir(parents=True, exist_ok=True)
-            torch.save({k: t.cpu() for k, t in out.items()},
-                       ARGS.save / f"{ARGS.label.replace('/', '_')}_{dtype}.pt")
+    for shape, (batch, hkv, S, d, causal) in FLASH_SHAPES.items():
+        kw = dict(cfg=HYFT16, sm_scale=d ** -0.5, causal=causal, bk=128, group=HQ // hkv,
+                  q_offset=0)
+        for dtype in (torch.float32, torch.bfloat16):
+            _flash_bits_at(torch, card, fa, kw, dtype, shape, batch, hkv, S, d)
+
+
+def _flash_bits_at(torch, card, fa, kw, dtype, shape, batch, hkv, S, d):
+    """One ``flash_bits`` line: one input type at one shape."""
+    from repro_torch.core.hyft import HYFT16
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q3, k3, v3, do3 = _flash_operands(torch, gen, dtype, batch, hkv, S, d)
+    o, m, l = fa._flash_fwd_cuda(q3, k3, v3, None, **kw)
+    args = (q3, k3, v3, None, do3, fa._flash_delta(do3, o).contiguous(), m, l)
+    dq = fa._flash_bwd_dq_cuda(*args, **kw)
+    dk, dv = fa._flash_bwd_dkv_cuda(*args, **kw)
+    if "skip_masked" in inspect.signature(fa._flash_bwd_dq_cuda).parameters:
+        dq_full = fa._flash_bwd_dq_cuda(*args, **kw, skip_masked=False)
+    else:   # a dq kernel that walks every key
+        dq_full = dq
+    out = {"o": o, "m": m, "l": l, "dq": dq, "dk": dk, "dv": dv, "dq_full": dq_full}
+    gerr = fa.grad_errors((dq, dk, dv), (dq, *fa._flash_bwd_dkv_plain(*args, **kw)),
+                          HYFT16)
+    emit({"part": "flash_bits", "card": card, "shape": shape,
+          "dtype": str(dtype).split(".")[1],
+          "sha256": {k: _sha(t) for k, t in out.items()},
+          "dq_skip_differing": int((dq != dq_full).sum()),
+          "dq_skip_vs_full": fa.grad_errors((dq,), (dq_full,), HYFT16)["dq"],
+          "dkv_vs_plain": {k: gerr[k] for k in ("dk", "dv", "dk_max_abs_err",
+                                                  "dv_max_abs_err")}})
+    if ARGS.save:
+        ARGS.save.mkdir(parents=True, exist_ok=True)
+        tag = "" if shape == "train" else f"_{shape}"
+        torch.save({k: t.cpu() for k, t in out.items()},
+                   ARGS.save / f"{ARGS.label.replace('/', '_')}{tag}_{dtype}.pt")
 
 
 def train_step(torch, card, softmax="hyft16", attn_mode="kernel", kernels="flash_"):

@@ -110,12 +110,11 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """The serving knobs of the lockstep ``generate`` path and of the
-    slot-pool scheduler (``repro_torch.serve.scheduler``), with the JAX
-    defaults.  The speculative (``spec_mode``, ``draft_k``, ...),
-    sequence-parallel and telemetry fields come with the slices that port
-    those layers (ROADMAP queue 1: speculative decoding, obs/, distributed
-    and the mesh)."""
+    """The serving knobs of the lockstep ``generate`` path, of the
+    slot-pool scheduler (``repro_torch.serve.scheduler``) and of its
+    speculative mode (``repro_torch.serve.spec``), with the JAX defaults.
+    The sequence-parallel and telemetry fields come with the slices that
+    port those layers (ROADMAP queue 1: obs/, distributed and the mesh)."""
 
     max_len: int = 256
     # KV-cache storage: a dtype name, or "fp2fx8" = int8 FP2FX raws +
@@ -137,7 +136,7 @@ class ServeConfig:
     n_slots: int = 8
     # "continuous" = admit queued requests into freed slots mid-decode;
     # "lockstep" = drain the whole pool before admitting the next group;
-    # "spec" (speculative bursts) is not ported yet and raises
+    # "spec" = continuous admission + speculative decode bursts
     scheduler: str = "lockstep"
     # masked decode steps per burst between host admission checks
     decode_burst: int = 8
@@ -160,6 +159,20 @@ class ServeConfig:
     # pack every prefilling slot into one chunk call; False = one prompt at
     # a time in arrival order
     pack_prefill: bool = True
+    # --- speculative decoding (repro_torch/serve/spec.py) ---
+    # drafter for scheduler="spec": "ngram" = deterministic prompt-lookup
+    # self-drafting (no second model: greedy outputs provably unchanged);
+    # "model" = a small zoo model sharing the slot pool (inject it via
+    # SlotPoolEngine(draft=(model, params)))
+    spec_mode: str = "ngram"
+    # draft tokens verified per slot per spec step (the verify chunk is
+    # draft_k + 1 lanes: [last_token, draft_1..draft_k])
+    draft_k: int = 4
+    # longest trailing n-gram the prompt-lookup drafter matches
+    ngram_max: int = 3
+    # zoo arch name for spec_mode="model" launched from the CLI (random
+    # init unless params are injected: a demo drafter, not a good one)
+    draft_model: Optional[str] = None
     # --- serving robustness ---
     # recompute page-pool/radix-trie refcounts from live slots + trie edges
     # after every admission / finish / preemption checkpoint

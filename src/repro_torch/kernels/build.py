@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -63,18 +64,23 @@ def library_path() -> Path:
     return BUILD_DIR / f"libhyft_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run(procs) -> str:
-    """Wait for every (cmd, Popen); raise with nvcc's output on a failure."""
-    log = ""
-    failed = []
-    for cmd, proc in procs:
+def _run(procs, t0: float, seconds: dict) -> str:
+    """Wait for every (cmd, Popen), reading all their outputs at once (a
+    verbose nvcc's would otherwise fill its pipe and stall it); record in
+    ``seconds`` when each source's compile ended, after ``t0``; raise with
+    nvcc's output on a failure."""
+    def wait(cmd_proc):
+        cmd, proc = cmd_proc
         out, _ = proc.communicate()
-        log += out
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        src = Path(cmd[-1])
+        seconds[src.name if src.suffix == ".cu" else "link"] = round(time.perf_counter() - t0, 1)
+        return cmd, proc.returncode, out
+    with ThreadPoolExecutor(max(1, len(procs))) as pool:
+        done = list(pool.map(wait, procs))
+    failed = [f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}" for cmd, rc, out in done if rc]
     if failed:
         raise RuntimeError("\n".join(failed))
-    return log
+    return "".join(out for _, _, out in done)
 
 
 def build(verbose: bool = False) -> dict:
@@ -83,16 +89,17 @@ def build(verbose: bool = False) -> dict:
     One ``nvcc -c`` per source, all started together, then one link.
     ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills of
     each kernel) and forces a rebuild so the report is printed.  Returns
-    {"path", "seconds", "log"}; raises RuntimeError with nvcc's output if
+    {"path", "seconds", "log", "seconds_by_source"} (when each source's
+    compile ended, and the link); raises RuntimeError with nvcc's output if
     the build fails.
     """
     out = library_path()
     if out.exists() and not verbose:
-        return {"path": str(out), "seconds": 0.0, "log": ""}
+        return {"path": str(out), "seconds": 0.0, "log": "", "seconds_by_source": {}}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    compiles, objects = [], []
+    compiles, objects, seconds = [], [], {}
     for src in sorted(CSRC.glob("*.cu")):
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
         cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
@@ -101,16 +108,17 @@ def build(verbose: bool = False) -> dict:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         objects.append(obj)
     try:
-        log = _run(compiles)
+        log = _run(compiles, t0, seconds)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         link = [nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
         log += _run([(link, subprocess.Popen(
-            link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))])
+            link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))], t0, seconds)
         os.replace(tmp, out)
     finally:
         for obj in objects:
             obj.unlink(missing_ok=True)
-    return {"path": str(out), "seconds": time.perf_counter() - t0, "log": log}
+    return {"path": str(out), "seconds": time.perf_counter() - t0, "log": log,
+            "seconds_by_source": seconds}
 
 
 def load() -> ctypes.CDLL:

@@ -26,8 +26,16 @@
 // torch combine give, whatever the address policy, so a sequential block
 // table over pages of bk keys gives the contiguous kernels' bits.  Every
 // split is merged, also the null-page blocks past a sequence's length, as
-// JAX does: their alpha is tiny but not zero.  Head widths D = 64 and 128,
-// a template parameter of every kernel; others are refused.
+// JAX does: their alpha is tiny but not zero.
+//
+// Head widths D = 16, 64, 112, 128 and 192, a template parameter of every
+// kernel; others are refused.  The thread layouts are built for kDP, D
+// rounded up to 64 (Width<D>): the verify thread's float4 column groups,
+// the decode lanes' columns and the ranks' slices.  Every q.k chain runs
+// over the D real columns only; the staged K/V tiles' columns D..kDP-1
+// are zeroed in shared memory and never loaded (decode: their lanes
+// idle), so the padded columns' PV sums are zero and are never stored.  No
+// operand is padded in device memory.  At D = 64 and 128, kDP is D.
 //
 // verify_kernel is bound by fp32 FMAs.  A block owns 64 query rows of one
 // (b, kv head) and walks the splits in order twice.  Sweep 1 computes the
@@ -36,10 +44,10 @@
 // rescaled terms into the block's running (acc, l) in registers; only the
 // (rows, D) output is written.  The query tile is staged once per block;
 // K/V come through shared memory 64 keys at a time; each thread holds a
-// 4 x 4 score tile and a 4 x D / 16 output tile (one float4 of columns at
-// D = 64, two at 128), so one float4 load feeds four FMAs.  At D = 64 the
-// block takes half the shared memory, so that two blocks share an SM at
-// every split size.  A 64-key tile whose mask is zero for every row of the
+// 4 x 4 score tile and a 4 x kDP / 16 output tile (one float4 of columns
+// at D = 64, two at 128, three at 192), so one float4 load feeds four
+// FMAs.  At D = 64 the block takes half the shared memory, so that two
+// blocks share an SM at every split size.  A 64-key tile whose mask is zero for every row of the
 // block skips K and QK in both sweeps: its raws are the fixed-point minimum whatever
 // the dots are, and the running max starts there.  Such a tile also gives
 // every row the same probabilities, so its PV is one chain per column,
@@ -61,13 +69,15 @@
 // shared memory; each rank then takes its splits' Hyft stats (a split of
 // more than 32 keys with one thread per key and row, its l_loc from an
 // integer count where that is exact) and PV, and pushes each split's
-// rescaled terms to the rank that owns the term's D / 8 output columns (16
-// at D = 128, 8 at 64); at the end of a round every rank adds its columns'
-// terms of the round's splits, in split order, to a running sum, and after the last
-// round writes them finalized.  A sequence that needs more than one round
-// has its scores computed twice (the maxima first, then a round at a time),
-// so that no length is refused: K is then read twice.  The GQA group's
-// rows only are computed (at most 16).
+// rescaled terms to the rank that owns the term's kDP / 8 output columns
+// (16 at D = 128, 8 at 64, 24 at 192); at the end of a round every rank
+// adds its columns' terms of the round's splits, in split order, to a
+// running sum, and after the last round writes them finalized.  A sequence
+// that needs more than one round has its scores computed twice (the maxima
+// first, then a round at a time), so that no length is refused: K is then
+// read twice.  The GQA group's rows only are computed, at most 16 by a
+// cluster: a larger group takes one cluster per 16 rows (grid z), each
+// reading the splits on its own.
 //
 // Why this layout for the contiguous decode too (kernel 6): it is kernel
 // 7's, so that both serve any length from one source and a sequential
@@ -121,16 +131,18 @@ constexpr size_t kMaxSmem = 232448;  // dynamic shared memory of one block
 // a decode block that keeps within this shares its SM with another
 constexpr size_t kHalfSmem = 112 * 1024;
 
-// What the head width D (64 or 128) fixes: the pitch of q and K/V rows in
-// shared memory (float4 aligned; D + 4 puts 8 neighbouring rows on 8
-// banks), the float4 column groups of a verify thread, and the output
-// columns a decode rank sums.
+// What the head width D fixes: the layouts' width kDP (D rounded up to 64),
+// the pitch of q and K/V rows in shared memory (float4 aligned; kDP + 4
+// puts 8 neighbouring rows on 8 banks), the float4 column groups of a
+// verify thread, the columns of a decode lane (4, or 8 past 128, so that
+// a row's lanes fit a warp) and the output columns a decode rank sums.
 template <int D>
 struct Width {
-  static_assert(D == 64 || D == 128, "the thread layouts cover 64 or 128 columns");
-  static constexpr int kPitch = D + 4;
-  static constexpr int kCG = D / 64;
-  static constexpr int kSlice = D / kRanks;
+  static constexpr int kDP = hyft::Wide<D>::kDP;
+  static constexpr int kPitch = kDP + 4;
+  static constexpr int kCG = kDP / 64;
+  static constexpr int kCols = kDP > 128 ? 8 : 4;
+  static constexpr int kSlice = kDP / kRanks;
 };
 
 // Where the keys of one (b, kv head) live: pages of PS keys through the
@@ -254,14 +266,18 @@ __device__ __forceinline__ int row_tile(int y, int ntiles, int rows, int sq) {
 
 // Grid (B * Hkv, ceil(rows / 64)).  Thread (ty, tx) = (tid / 16, tid % 16)
 // holds the scores of rows ty*4 + i and keys tx + 16 jj of a 64-key tile,
-// and the outputs of rows ty*4 + i, columns 64g + tx*4 + c (g < D / 64).
+// and the outputs of rows ty*4 + i, columns 64g + tx*4 + c (g < kDP / 64;
+// those past D are computed on zeroed V columns and not stored).
 // Shared memory (dynamic): s_q [64][kPitch], s_kv [64][kPitch], s_z
 // [kChunk][kZPitch] (a chunk's raws, then its probabilities, key-major).
 // Two blocks share an SM where the shared memory allows it (a chunk of at
 // most 128 keys, or D = 64: 102 KB at PS 256); at D = 128 and PS 256 one
-// block holds an SM and may take 255 registers.
+// block holds an SM and may take 255 registers, as at kDP = 192 (three
+// column groups: 136 KB at PS 128).
 template <typename KV, int D, int PS, bool kPaged>
-__global__ void __launch_bounds__(kThreads, PS > 128 && D > 64 ? 1 : 2) verify_kernel(
+__global__ void __launch_bounds__(kThreads,
+                                  Width<D>::kDP > 128 || (PS > 128 && D > 64) ? 1 : 2)
+    verify_kernel(
     const float* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     const int* __restrict__ block_table, const float* __restrict__ mask,
@@ -270,7 +286,7 @@ __global__ void __launch_bounds__(kThreads, PS > 128 && D > 64 ? 1 : 2) verify_k
   constexpr int kChunk = PS > kSub ? PS : kSub;   // keys of one pass of the stats
   constexpr int kPages = kChunk / PS;             // splits of one chunk
   constexpr int kSeg = PS < kSub ? PS : kSub;     // keys between split boundaries
-  constexpr int kPitch = Width<D>::kPitch, kCG = Width<D>::kCG;
+  constexpr int kPitch = Width<D>::kPitch, kCG = Width<D>::kCG, kDP = Width<D>::kDP;
   extern __shared__ float4 smem4[];
   float* s_q = reinterpret_cast<float*>(smem4);
   float* s_kv = s_q + kRowsV * kPitch;
@@ -282,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, PS > 128 && D > 64 ? 1 : 2) verify_k
   __shared__ float s_lloc[kPages][kRowsV];
   __shared__ float s_lt[kPages][kRowsV];    // l terms
   __shared__ float s_lg[kRowsV];
-  __shared__ float s_vs[kPages][D];    // a masked chunk's PV, shared by its rows
+  __shared__ float s_vs[kPages][kDP];  // a masked chunk's PV, shared by its rows
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int row0 = row_tile(blockIdx.y, gridDim.y, rows, sq) * kRowsV;
@@ -297,6 +313,7 @@ __global__ void __launch_bounds__(kThreads, PS > 128 && D > 64 ? 1 : 2) verify_k
     s_q[(i / D) * kPitch + i % D] =
         row < rows ? q[(static_cast<long>(bh) * rows + row) * D + i % D] : 0.0f;
   }
+  hyft::zero_tail<D, kPitch>(s_kv, kSub);   // stage() writes the D real columns only
 
   const float* mrow[4];   // the mask row of each of this thread's rows
 #pragma unroll
@@ -438,7 +455,7 @@ __global__ void __launch_bounds__(kThreads, PS > 128 && D > 64 ? 1 : 2) verify_k
       __syncthreads();
       const int nkt = min(kSub, nk - c0 - s0);
       if (!live) {
-        if (tid < D)
+        if (tid < kDP)
           for (int seg = 0; seg < nkt; seg += kSeg) {
             const int jv = c0 + s0 + seg;
             if (jv % PS == 0) vs = 0.0f;
@@ -514,8 +531,9 @@ __global__ void __launch_bounds__(kThreads, PS > 128 && D > 64 ? 1 : 2) verify_k
     float* dst = out + (static_cast<long>(bh) * rows + row) * D;
 #pragma unroll
     for (int g = 0; g < kCG; ++g)
-      *reinterpret_cast<float4*>(dst + 64 * g + tx * 4) =
-          make_float4(o[4 * g], o[4 * g + 1], o[4 * g + 2], o[4 * g + 3]);
+      if (D == kDP || 64 * g + tx * 4 < D)
+        *reinterpret_cast<float4*>(dst + 64 * g + tx * 4) =
+            make_float4(o[4 * g], o[4 * g + 1], o[4 * g + 2], o[4 * g + 3]);
   }
 }
 
@@ -600,7 +618,8 @@ __device__ __forceinline__ void fetch(unsigned char* slot, const KV* __restrict_
   cp_async_commit();
 }
 
-// Grid (8, B * Hkv), clusters of 8 along x.  The splits go in rounds of 8 *
+// Grid (8, B * Hkv, ceil(rows / 16)), clusters of 8 along x; cluster z
+// computes rows 16z.. of the group.  The splits go in rounds of 8 *
 // P; rank r owns splits [r * P, (r + 1) * P) of each round (fewer at the
 // end).  The work items, in the order the ring streams them: with more
 // than one round, every round's K tiles (sweep 1, the maxima); then per
@@ -608,17 +627,18 @@ __device__ __forceinline__ void fetch(unsigned char* slot, const KV* __restrict_
 // A K tile without a valid key skips its math.
 // Shared memory (dynamic): s_q [16][kPitch] f32; the ring; s_z [P * PS]
 // [rows] (the keys' raws, then their probabilities); s_recv [8 P][rows]
-// [D / 8] (the acc terms of this rank's D / 8 columns, pushed by each
+// [kDP / 8] (the acc terms of this rank's kDP / 8 columns, pushed by each
 // split's owner);
 // s_lrecv [8 P][rows] (every split's l term, pushed likewise); s_mloc,
 // s_alpha, s_lq [P][rows]; s_bt [nround * P] (paged: this rank's pages).
 template <typename KV, int D, int PS, bool kPaged>
-__global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
+__global__ void __cluster_dims__(kRanks, 1, 1)
+    __launch_bounds__(kThreads, Width<D>::kDP > 128 ? 1 : 2)
     decode_kernel(const float* __restrict__ q, const KV* __restrict__ k,
                   const KV* __restrict__ v, const float* __restrict__ k_scale,
                   const float* __restrict__ v_scale, const int* __restrict__ block_table,
                   const float* __restrict__ mask, float* __restrict__ out, int hkv,
-                  int rows, int nb, int sk, int P, int nround, float sm_scale,
+                  int rows_all, int nb, int sk, int P, int nround, float sm_scale,
                   HyftParams h) {
   using R = Raw<KV, D>;
   constexpr int kTile = R::kTile;
@@ -628,6 +648,10 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
   const int tid = threadIdx.x;
   const int rank = static_cast<int>(cluster.block_rank());
   const int bh = blockIdx.y, b = bh / hkv, hh = bh % hkv;
+  // this cluster's rows of the group, r0 .. r0 + rows - 1
+  const int r0 = blockIdx.z * kRowsD, rows = min(kRowsD, rows_all - r0);
+  q += (static_cast<long>(bh) * rows_all + r0) * D;
+  out += (static_cast<long>(bh) * rows_all + r0) * D;
   const Keys<PS, kPaged> keys{nullptr, static_cast<long>(bh) * sk, hkv, hh, sk};
   const float* mask_row = mask + static_cast<long>(b) * sk;
   const int lo = -(1 << (h.total - 1));
@@ -654,8 +678,7 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
   auto tiles = [&](int r) { return (own(r) * PS + kTile - 1) / kTile; };
 
   for (int i = tid; i < kRowsD * D; i += kThreads)
-    s_q[(i / D) * kPitch + i % D] =
-        i / D < rows ? q[(static_cast<long>(bh) * rows + i / D) * D + i % D] : 0.0f;
+    s_q[(i / D) * kPitch + i % D] = i / D < rows ? q[i] : 0.0f;
   if constexpr (kPaged)
     for (int i = tid; i < nround * P; i += kThreads) {
       const int pg = first_split(i / P) + i % P;
@@ -775,15 +798,21 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
   // term; PV of the V tiles, each split's rescaled terms pushed to the rank
   // that sums their columns; then, the round's terms all in, every rank
   // adds its columns' terms in split order
-  // PV: splits per tile, warps per split; the lanes of one row (D / 4: a
-  // lane takes 4 columns), the rows a warp takes at once (2 at D = 64, whose
-  // row fills half a warp), and the rows of one thread
+  // PV: splits per tile, warps per split; the lanes of one row (kDP /
+  // kCols: a lane takes kCols columns), the rows a warp takes at once (2 at
+  // D = 64, whose row fills half a warp), and the rows of one thread.  A
+  // lane whose columns lie past D idles, and so do a warp's last 8 lanes at
+  // kDP = 192 (24 lanes a row)
+  constexpr int kCols = Width<D>::kCols, kDP = Width<D>::kDP;
   constexpr int kWpp = kThreads / 32 / (kTile / kSeg);
-  constexpr int kLanes = D / 4, kHalves = 32 / kLanes;
+  constexpr int kLanes = kDP / kCols, kHalves = 32 / kLanes;
   constexpr int kRowsW = (kRowsD + kWpp * kHalves - 1) / (kWpp * kHalves);
-  const int warp = tid / 32, c0 = (tid % kLanes) * 4, half = tid % 32 / kLanes;
-  // of (row tid / kSlice, column tid % kSlice), tid < rows * kSlice
-  float acc = 0.0f, l = 0.0f;
+  const int warp = tid / 32, c0 = (tid % 32 % kLanes) * kCols, half = tid % 32 / kLanes;
+  const bool pv_lane = (D == kDP || c0 < D) && (kLanes * kHalves == 32 || half < kHalves);
+  // the running sums of (row i / kSlice, column i % kSlice) for i = tid +
+  // o kThreads < rows * kSlice, o < kOwn (2 at kDP = 192)
+  constexpr int kOwn = (kRowsD * kSlice + kThreads - 1) / kThreads;
+  float acc[kOwn] = {}, l[kOwn] = {};
   const int q0 = rank * P;   // the round's index of this rank's first split
   // split pg's alpha (kept) and l term (to every rank, which sums every l)
   auto push_l = [&](int it, int pg, int rr, float l_loc) {
@@ -846,32 +875,36 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
     // or longer, the tile's part of its split) and every kWpp-th row from w
     // % kWpp, the half h of its lanes the h-th of each kHalves of them;
     // lane l the columns 4l..4l+3 of its row (l mod D / 4)
-    float part[kRowsW][4];
+    float part[kRowsW][kCols];
     for (int i = 0; i < tiles(r); ++i, ++t) {
       const unsigned char* slot = next_slot();
       const int j0 = i * kTile;
       const float* sc = reinterpret_cast<const float*>(slot + R::kScales);
       const int nk = min(kTile, nown - j0);
       const int seg = (warp / kWpp) * kSeg;
-      if (seg < nk) {
+      if (seg < nk && pv_lane) {
         const int jo = j0 + seg;   // the segment's first own key
         if (jo % PS == 0)
 #pragma unroll
           for (int a = 0; a < kRowsW; ++a)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) part[a][c] = 0.0f;
+            for (int c = 0; c < kCols; ++c) part[a][c] = 0.0f;
 #pragma unroll 4
         for (int j = 0; j < kSeg; ++j) {
-          float vd[4];
-          load4<KV>(slot + (seg + j) * R::kRowBytes + c0 * static_cast<int>(sizeof(KV)),
-                    std::is_same<KV, int8_t>::value ? sc[seg + j] : 1.0f, vd);
+          float vd[kCols / 4][4];
+#pragma unroll
+          for (int c = 0; c < kCols / 4; ++c)
+            load4<KV>(slot + (seg + j) * R::kRowBytes +
+                          (c0 + 4 * c) * static_cast<int>(sizeof(KV)),
+                      std::is_same<KV, int8_t>::value ? sc[seg + j] : 1.0f, vd[c]);
 #pragma unroll
           for (int a = 0; a < kRowsW; ++a) {
             const int rr = warp % kWpp + kWpp * (kHalves * a + half);
             if (rr < rows) {
               const float p = s_z[(jo + j) * rows + rr];
 #pragma unroll
-              for (int c = 0; c < 4; ++c) part[a][c] = fmaf(p, vd[c], part[a][c]);
+              for (int c = 0; c < kCols; ++c)
+                part[a][c] = fmaf(p, vd[c / 4][c % 4], part[a][c]);
             }
           }
         }
@@ -883,9 +916,13 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
             const int rr = warp % kWpp + kWpp * (kHalves * a + half);
             if (rr < rows) {
               const float alpha = s_alpha[pg * rows + rr];
-              *reinterpret_cast<float4*>(dst + ((q0 + pg) * rows + rr) * kSlice + c0 % kSlice) =
-                  make_float4(__fmul_rn(part[a][0], alpha), __fmul_rn(part[a][1], alpha),
-                              __fmul_rn(part[a][2], alpha), __fmul_rn(part[a][3], alpha));
+#pragma unroll
+              for (int c = 0; c < kCols; c += 4)
+                *reinterpret_cast<float4*>(dst + ((q0 + pg) * rows + rr) * kSlice +
+                                           (c0 + c) % kSlice) =
+                    make_float4(__fmul_rn(part[a][c], alpha), __fmul_rn(part[a][c + 1], alpha),
+                                __fmul_rn(part[a][c + 2], alpha),
+                                __fmul_rn(part[a][c + 3], alpha));
             }
           }
         }
@@ -893,22 +930,28 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kThreads, 2)
       __syncthreads();   // the slot is read: it may be refilled
     }
     cluster.sync();   // every split's terms of the round have arrived
-    if (tid < rows * kSlice) {
-      const int rr = tid / kSlice, c = tid % kSlice;
-      const int nq = min(per_round, nb - r * per_round);
-      for (int qq = 0; qq < nq; ++qq) {
-        const float a = s_recv[(qq * rows + rr) * kSlice + c], lt = s_lrecv[qq * rows + rr];
-        const bool first = r == 0 && qq == 0;
-        acc = first ? a : __fadd_rn(acc, a);
-        l = first ? lt : __fadd_rn(l, lt);
+#pragma unroll
+    for (int o = 0; o < kOwn; ++o) {
+      const int i = tid + o * kThreads;
+      if (i < rows * kSlice) {
+        const int rr = i / kSlice, c = i % kSlice;
+        const int nq = min(per_round, nb - r * per_round);
+        for (int qq = 0; qq < nq; ++qq) {
+          const float a = s_recv[(qq * rows + rr) * kSlice + c], lt = s_lrecv[qq * rows + rr];
+          const bool first = r == 0 && qq == 0;
+          acc[o] = first ? a : __fadd_rn(acc[o], a);
+          l[o] = first ? lt : __fadd_rn(l[o], lt);
+        }
       }
     }
     if (r + 1 < nround) cluster.sync();   // read: the next round's terms may come
   }
-  if (tid < rows * kSlice) {
-    const int rr = tid / kSlice, c = tid % kSlice;
-    out[(static_cast<long>(bh) * rows + rr) * D + rank * kSlice + c] =
-        hyft_finalize(acc, l, h.mant);
+#pragma unroll
+  for (int o = 0; o < kOwn; ++o) {
+    const int i = tid + o * kThreads;
+    const int rr = i / kSlice, c = rank * kSlice + i % kSlice;
+    if (i < rows * kSlice && (D == kDP || c < D))
+      out[static_cast<long>(rr) * D + c] = hyft_finalize(acc[o], l[o], h.mant);
   }
 }
 
@@ -927,6 +970,8 @@ cudaError_t allow_smem(Kern kern, size_t smem, size_t& allowed) {
   return err;
 }
 
+}  // namespace
+
 // One launch's operands: bt is null for a contiguous cache; nb splits of
 // PS keys, sk keys that exist (nb * PS for a pool).
 struct Args {
@@ -934,9 +979,11 @@ struct Args {
   void* out;
   int bh, hkv, rows, nb, sk, sq;
   float scale;
-  HyftParams h;
+  hyft::Params h;
   cudaStream_t stream;
 };
+
+namespace {
 
 template <typename KV, int D, int PS, bool kPaged>
 cudaError_t launch_verify(const Args& a) {
@@ -966,9 +1013,9 @@ cudaError_t launch_decode(const Args& a) {
   const int ppr = (a.nb + kRanks - 1) / kRanks;
   const size_t fixed = sizeof(float) * kRowsD * Width<D>::kPitch + R::kStages * R::kBytes +
                        (kPaged ? sizeof(int) * (ppr + 1) : 0);
+  const size_t rows = std::min(a.rows, kRowsD);   // of one cluster
   const size_t per_split =
-      sizeof(float) * (static_cast<size_t>(a.rows) * (PS + 3) +
-                       static_cast<size_t>(kRanks) * a.rows * (Width<D>::kSlice + 1)) +
+      sizeof(float) * (rows * (PS + 3) + kRanks * rows * (Width<D>::kSlice + 1)) +
       (kPaged ? sizeof(int) : 0);
   auto fit = [&](size_t budget) {
     return budget > fixed ? static_cast<int>(std::min<size_t>(ppr, (budget - fixed) / per_split))
@@ -976,12 +1023,12 @@ cudaError_t launch_decode(const Args& a) {
   };
   int P = fit(kHalfSmem);
   if (P < ppr) P = fit(kMaxSmem - 1024);   // the static shared memory besides
-  if (a.rows > kRowsD || P < 1) return cudaErrorInvalidValue;
+  if (P < 1) return cudaErrorInvalidValue;
   const int nround = (a.nb + kRanks * P - 1) / (kRanks * P);
   const size_t smem = fixed + per_split * P;
   static size_t allowed = 0;
   if (cudaError_t err = allow_smem(kern, smem, allowed)) return err;
-  const dim3 grid(kRanks, a.bh);
+  const dim3 grid(kRanks, a.bh, (a.rows + kRowsD - 1) / kRowsD);
   kern<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const KV*>(a.k),
       static_cast<const KV*>(a.v), static_cast<const float*>(a.ks),
@@ -991,8 +1038,7 @@ cudaError_t launch_decode(const Args& a) {
   return cudaGetLastError();
 }
 
-// the K/V type switch of one head width and split (page) size; the sources
-// that include this pick the width and the size
+// the K/V type switch of one head width and split (page) size
 template <bool kDecode, bool kPaged, int D, int PS>
 cudaError_t launch(const Args& a, int kv_type) {
 #define HYFT_LAUNCH(T) \
@@ -1004,11 +1050,59 @@ cudaError_t launch(const Args& a, int kv_type) {
   return cudaErrorInvalidValue;
 }
 
+// every launch of one head width: the split size of a contiguous cache
+// (64, 128 or 256 keys) or the page size of a pool (8 to 256)
+template <int D>
+int launch_width(const Args& a, bool decode, bool paged, int split, int kv_type) {
+#define HYFT_SPLIT(PS)                                                         \
+  case PS:                                                                     \
+    if (paged)                                                                 \
+      return decode ? launch<true, true, D, PS>(a, kv_type)                    \
+                    : launch<false, true, D, PS>(a, kv_type);                  \
+    if constexpr (PS >= 64)                                                    \
+      return decode ? launch<true, false, D, PS>(a, kv_type)                   \
+                    : launch<false, false, D, PS>(a, kv_type);                 \
+    return cudaErrorInvalidValue;
+  switch (split) {
+    HYFT_SPLIT(8) HYFT_SPLIT(16) HYFT_SPLIT(32) HYFT_SPLIT(64) HYFT_SPLIT(128)
+    HYFT_SPLIT(256)
+    default: return cudaErrorInvalidValue;
+  }
+#undef HYFT_SPLIT
+}
+
+}  // namespace
+
 // the shared argument checks (the head width is checked by the switch on it)
 inline bool valid(const Args& a) {
   return a.bh > 0 && a.hkv > 0 && a.rows > 0 && a.nb > 0 && a.sk > 0 && a.sq > 0 &&
          a.rows % a.sq == 0 && a.h.step >= 1 && a.h.mant <= a.h.frac;
 }
 
-}  // namespace
+// The launches of each head width live in a source of their own,
+// hyft_attend_d<D>.cu (HYFT_ATTEND_WIDTH), so that nvcc builds the widths
+// in parallel; hyft_splitk.cu and hyft_paged.cu switch on the width.
+#define HYFT_WIDTHS(X) X(16) X(64) X(112) X(128) X(192)
+#define HYFT_DECLARE(D) int launch_d##D(const Args&, bool, bool, int, int);
+HYFT_WIDTHS(HYFT_DECLARE)
+#undef HYFT_DECLARE
+#define HYFT_ATTEND_WIDTH(D)                                                       \
+  int hyft_attend::launch_d##D(const Args& a, bool decode, bool paged, int split, \
+                               int kv_type) {                                      \
+    return launch_width<D>(a, decode, paged, split, kv_type);                      \
+  }
+
+// the launch of head width d (16, 64, 112, 128 or 192), else
+// cudaErrorInvalidValue
+inline int launch_any(const Args& a, int d, bool decode, bool paged, int split,
+                      int kv_type) {
+#define HYFT_CASE(D) \
+  case D: return launch_d##D(a, decode, paged, split, kv_type);
+  switch (d) {
+    HYFT_WIDTHS(HYFT_CASE)
+    default: return cudaErrorInvalidValue;
+  }
+#undef HYFT_CASE
+}
+
 }  // namespace hyft_attend

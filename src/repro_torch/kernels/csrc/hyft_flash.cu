@@ -37,10 +37,15 @@
 // All three are register-tiled: a thread holds a few rows x a few keys of
 // scores (and rows x columns or keys x columns of sums) and reads its
 // operands from shared memory as float4, each output's chain kept in its
-// order.  They take head widths D = 64 and 128 (a template parameter): the
-// 16 threads of a row group own D / 16 columns each, one float4 at 64 and
-// two (4tx.. and 64 + 4tx..) at 128, so a thread's sums halve at 64 and no
-// column is left idle.  The forward takes 64 query rows per block, two
+// order.  They take head widths D = 16, 64, 112, 128 and 192 (a template
+// parameter): the 16 threads of a row group own kDP / 16 columns each, kDP
+// being D rounded up to 64, one float4 at 64 and two (4tx.. and 64 + 4tx..)
+// at 128, three at 192, so a thread's sums halve at 64 and no column is left
+// idle there.  At 16 and 112 the columns past D are summed over zeros (the
+// staged rows' tails, zeroed in shared memory and never loaded, or zeros
+// in registers) and never stored; each q.k chain runs over the D real
+// columns, the last K slice of the forward holding 16 of them.  No operand
+// is padded in device memory.  The forward takes 64 query rows per block, two
 // blocks per SM: 4 rows x 8 keys of scores and 4 rows x D / 16 columns of PV
 // a thread (32 FMAs per 3 float4 loads at 128, per 2 at 64).  K is staged
 // in D / 32 slices of 32 d and V in 4 slices of 32 keys through a two-slot
@@ -63,7 +68,9 @@
 // order; the longest causal row tiles first.  Shared memory per block (fp32
 // inputs, D = 128 / 64): forward 103 / 87 KB, dq 109 / 61 KB; the forward
 // and dq keep two blocks per SM at both widths, where the register cap of
-// 128 binds.  On an H100 at the training
+// 128 binds.  At D = 192 every kernel holds an SM alone (forward 135 KB, dq
+// 161 KB, dk/dv 172 KB in fp32 with one ring slot, two in bf16) and may
+// take 255 registers.  On an H100 at the training
 // shape the three run at about 36-41% of the fp32 peak; 128-row forward
 // tiles of 8 x 8 (one block per SM) and dk/dv sub-tiles of 32 rows (two
 // blocks per SM) measured slower, dq with a two-slot ring (one block per
@@ -164,6 +171,17 @@ __device__ __forceinline__ void fetch_rows(T* dst, const T* __restrict__ base, l
   }
 }
 
+// blocks an SM of the forward and dq: one past kDP = 128, where the shared
+// memory holds one
+template <int D>
+constexpr int kBlocksPerSm = Wide<D>::kDP > 128 ? 1 : 2;
+
+// may a thread whose columns start at c store (or load) them: c < D
+template <int D>
+__device__ __forceinline__ bool real_cols(int c) {
+  return D == Wide<D>::kDP || c < D;
+}
+
 // four consecutive elements of a global tensor as fp32
 template <typename T>
 __device__ __forceinline__ float4 load4(const T* p, long i) {
@@ -196,9 +214,9 @@ constexpr int kVItems = kKeys / kSlice;  // V slices of a KV block
 
 template <typename T, int D>
 struct FwdSmem {
-  static_assert(D == 64 || D == 128, "the thread layout covers 64 or 128 columns");
-  static constexpr int kCG = D / 64;                   // float4 columns of a thread
-  static constexpr int kKItems = D / kSlice;           // K slices of a KV block
+  static constexpr int kCG = Wide<D>::kDP / 64;        // float4 columns of a thread
+  static constexpr int kKItems = (D + kSlice - 1) / kSlice;  // K slices of a KV block
+  static constexpr int kKLast = D - (kKItems - 1) * kSlice;  // d of the last one
   static constexpr int kItems = kKItems + kVItems;     // ring items of a live block
   static constexpr int kQP = D + 4;                    // s_q pitch (fp32)
   static constexpr int kKP = kSlice + 16 / sizeof(T);  // K slice pitch (T)
@@ -212,9 +230,10 @@ struct FwdSmem {
 };
 
 // pv[r][c] = fmaf(p[j][kR ty + r], v[j][c], pv[r][c]) over keys j0 .. j0 + nj -
-// 1 of s_p in order, columns 64g + 4tx.. (g < kCG); vs holds V rows j0 ..;
-// kMasked: every key has its row's probability of key 0
-template <bool kMasked, int kCG, int kVP, int kPP, typename T>
+// 1 of s_p in order, columns 64g + 4tx.. (g < kCG; V columns past D read as
+// zero); vs holds V rows j0 ..; kMasked: every key has its row's
+// probability of key 0
+template <bool kMasked, int D, int kCG, int kVP, int kPP, typename T>
 __device__ __forceinline__ void pv_keys(float (&pv)[kR][4 * kCG], const T* vs,
                                         const float* s_p, int j0, int nj, int tx, int ty) {
   float4 p_row[kR / 4];
@@ -228,7 +247,9 @@ __device__ __forceinline__ void pv_keys(float (&pv)[kR][4 * kCG], const T* vs,
       p4[g] = kMasked ? p_row[g] : ld4(s_p + (j0 + j) * kPP + kR * ty + 4 * g);
     float4 vv[kCG];
 #pragma unroll
-    for (int g = 0; g < kCG; ++g) vv[g] = ld4(vs + j * kVP + 64 * g + 4 * tx);
+    for (int g = 0; g < kCG; ++g)
+      vv[g] = real_cols<D>(64 * g + 4 * tx) ? ld4(vs + j * kVP + 64 * g + 4 * tx)
+                                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
       const float p = f4(p4[r / 4], r % 4);
@@ -240,14 +261,33 @@ __device__ __forceinline__ void pv_keys(float (&pv)[kR][4 * kCG], const T* vs,
   }
 }
 
+// dot[r][u] += q[kR ty + r][d0 + d] k[tx + 16u][d] over the kN d of one K
+// slice, in order
+template <int kN, int kQP, int kKP, typename T>
+__device__ __forceinline__ void qk_slice(float (&dot)[kR][8], const float* s_q, const T* ks,
+                                         int d0, int tx, int ty) {
+#pragma unroll
+  for (int d4 = 0; d4 < kN; d4 += 4) {
+    float4 qa[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) qa[r] = ld4(s_q + (kR * ty + r) * kQP + d0 + d4);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const float4 kk = ld4(ks + (tx + 16 * u) * kKP + d4);
+#pragma unroll
+      for (int r = 0; r < kR; ++r) dot[r][u] = fma4(qa[r], kk, dot[r][u]);
+    }
+  }
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm<D>) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ mask, float* __restrict__ o, int* __restrict__ m_out,
     float* __restrict__ l_out, int sq, int sk, int bk, int group, int hq_per_b,
     int q_offset, int causal, int skip, float scale, Params h) {
   using S = FwdSmem<T, D>;
-  constexpr int kCG = S::kCG, kKItems = S::kKItems, kItems = S::kItems;
+  constexpr int kCG = S::kCG, kKItems = S::kKItems, kKLast = S::kKLast, kItems = S::kItems;
   extern __shared__ __align__(16) unsigned char fwd_smem[];
   float* s_q = reinterpret_cast<float*>(fwd_smem);
   unsigned char* ring = fwd_smem + S::kQBytes;
@@ -281,8 +321,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
       i = kKItems + (t - kItems * kb_live) % kVItems;
     }
     const long key0 = kv0 + static_cast<long>(kb) * bk;
-    if (i < kKItems)
+    if (i < kKItems - 1 || (kKLast == kSlice && i < kKItems))
       fetch_rows<T, kSlice, S::kKP>(dst, k, key0 * D + i * kSlice, D, kKeys, bk);
+    else if (i < kKItems)   // the last slice of a width that is no multiple of 32
+      fetch_rows<T, kKLast, S::kKP>(dst, k, key0 * D + i * kSlice, D, kKeys, bk);
     else
       fetch_rows<T, D, S::kVP>(dst, v, (key0 + (i - kKItems) * kSlice) * D, D, kSlice,
                                bk - (i - kKItems) * kSlice);
@@ -345,18 +387,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
         for (int u = 0; u < 8; ++u) dot[r][u] = 0.0f;
       for (int i = 0; i < kKItems; ++i) {
         const T* ks = begin(t0 + i);
-#pragma unroll
-        for (int d4 = 0; d4 < kSlice; d4 += 4) {
-          float4 qa[kR];
-#pragma unroll
-          for (int r = 0; r < kR; ++r) qa[r] = ld4(s_q + (kR * ty + r) * S::kQP + i * kSlice + d4);
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            const float4 kk = ld4(ks + (tx + 16 * u) * S::kKP + d4);
-#pragma unroll
-            for (int r = 0; r < kR; ++r) dot[r][u] = fma4(qa[r], kk, dot[r][u]);
-          }
-        }
+        if (kKLast == kSlice || i + 1 < kKItems)
+          qk_slice<kSlice, S::kQP, S::kKP>(dot, s_q, ks, i * kSlice, tx, ty);
+        else
+          qk_slice<kKLast, S::kQP, S::kKP>(dot, s_q, ks, i * kSlice, tx, ty);
         __syncthreads();
       }
 
@@ -431,9 +465,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
       const T* vs = begin(t0 + (kb < kb_live ? kKItems : 0) + i);
       const int j0 = i * kSlice, nj = min(kSlice, bk - j0);
       if (kb < kb_live)
-        pv_keys<false, kCG, S::kVP, S::kPP>(pv, vs, s_p, j0, nj, tx, ty);
+        pv_keys<false, D, kCG, S::kVP, S::kPP>(pv, vs, s_p, j0, nj, tx, ty);
       else  // a masked block's probabilities are one per row, kept in registers
-        pv_keys<true, kCG, S::kVP, S::kPP>(pv, vs, s_p, j0, nj, tx, ty);
+        pv_keys<true, D, kCG, S::kVP, S::kPP>(pv, vs, s_p, j0, nj, tx, ty);
       __syncthreads();
     }
 
@@ -471,8 +505,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
     for (int c = 0; c < 4 * kCG; ++c) res[c] = hyft_finalize(acc[r][c], l_run[r], h.mant);
 #pragma unroll
     for (int g = 0; g < kCG; ++g)
-      *reinterpret_cast<float4*>(orow + 64 * g + 4 * tx) =
-          make_float4(res[4 * g], res[4 * g + 1], res[4 * g + 2], res[4 * g + 3]);
+      if (real_cols<D>(64 * g + 4 * tx))
+        *reinterpret_cast<float4*>(orow + 64 * g + 4 * tx) =
+            make_float4(res[4 * g], res[4 * g + 1], res[4 * g + 2], res[4 * g + 3]);
     if (tx == 0) {
       m_out[ri] = m_run[r];
       l_out[ri] = l_run[r];
@@ -488,10 +523,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
 // of the block split the work: per sub-tile, half 0 runs the q.k chains and
 // the probabilities p, half 1 the do.v chains and ds = p (dp - delta), each
 // thread 4 rows (ry + 16i) x 4 keys (kx + 8u); then half 0 sums dv += p^T do
-// and half 1 dk += ds^T q, each thread 4 keys (4kq..) x D / 16 columns
-// (64g + 4cx.., g < D / 64).  Shared memory (dynamic):
+// and half 1 dk += ds^T q, each thread 4 keys (4kq..) x kDP / 16 columns
+// (64g + 4cx.., g < kDP / 64).  Shared memory (dynamic):
 //   s_k, s_v   [32][D + 4]                      the block's keys and values, fp32
-//   ring       kStages x (q [64][D + pad] of T, do [64][D + 4], m, l, delta [64])
+//   ring       kSt x (q [64][kDP + pad] of T, do [64][kDP + 4], m, l, delta [64]),
+//              the columns past D zeroed once; kSt = 2 slots where they fit,
+//              else 1 (fp32 at D = 192: the next sub-tile loads after the sums)
 //   s_p, s_ds  [64][32 + 8]                     p and ds
 // --------------------------------------------------------------------------
 constexpr int kDkvKeys = 32;              // keys of a dk/dv block
@@ -500,19 +537,22 @@ constexpr int kDkvRT = kDkvRows / 16;     // rows of a score thread
 
 template <typename T, int D>
 struct DkvSmem {
-  static_assert(D == 64 || D == 128, "the thread layout covers 64 or 128 columns");
-  static constexpr int kCG = D / 64;                 // float4 columns of a sum thread
+  static constexpr int kDP = Wide<D>::kDP;
+  static constexpr int kCG = kDP / 64;               // float4 columns of a sum thread
   // blocks an SM: the shared memory holds one at 128, two at 64
-  static constexpr int kMinBlocks = D == 64 ? 2 : 1;
+  static constexpr int kMinBlocks = kDP == 64 ? 2 : 1;
   static constexpr int kKP = D + 4;                  // s_k, s_v pitch (fp32)
-  static constexpr int kQP = D + 16 / sizeof(T);     // q pitch (T)
-  static constexpr int kOP = D + 4;                  // do pitch (fp32)
+  static constexpr int kQP = kDP + 16 / sizeof(T);   // q pitch (T)
+  static constexpr int kOP = kDP + 4;                // do pitch (fp32)
   static constexpr int kPP = kDkvKeys + 8;           // s_p, s_ds pitch
   static constexpr int kQBytes = kDkvRows * kQP * sizeof(T);
   static constexpr int kOBytes = kDkvRows * kOP * 4;
   static constexpr int kStage = kQBytes + kOBytes + 3 * kDkvRows * 4;
   static constexpr int kKVBytes = 2 * kDkvKeys * kKP * 4;
-  static constexpr size_t kBytes = kKVBytes + kStages * kStage + 2 * kDkvRows * kPP * 4;
+  static constexpr size_t kFixed = kKVBytes + 2 * kDkvRows * kPP * 4;
+  // ring slots: two where they fit in a block's 227 KB, else one
+  static constexpr int kSt = kFixed + kStages * kStage <= 232448 ? kStages : 1;
+  static constexpr size_t kBytes = kFixed + kSt * kStage;
 };
 
 // acc[i][u] = one fmaf chain over d in order of a[row ry + 16i] . b[key kx +
@@ -570,12 +610,12 @@ __global__ void __launch_bounds__(kThreads, DkvSmem<T, D>::kMinBlocks) flash_bwd
     int sq, int sk, int group, int hq_per_b, int q_offset, int causal, int skip,
     float scale, Params h) {
   using S = DkvSmem<T, D>;
-  constexpr int kCG = S::kCG;
+  constexpr int kCG = S::kCG, kSt = S::kSt;
   extern __shared__ __align__(16) unsigned char dkv_smem[];
   float* s_k = reinterpret_cast<float*>(dkv_smem);
   float* s_v = s_k + kDkvKeys * S::kKP;
   unsigned char* ring = dkv_smem + S::kKVBytes;
-  float* s_p = reinterpret_cast<float*>(ring + kStages * S::kStage);
+  float* s_p = reinterpret_cast<float*>(ring + kSt * S::kStage);
   float* s_ds = s_p + kDkvRows * S::kPP;
 
   const int tid = threadIdx.x, lane = tid % 32;
@@ -629,6 +669,11 @@ __global__ void __launch_bounds__(kThreads, DkvSmem<T, D>::kMinBlocks) flash_bwd
     cp_async_commit();
   };
 
+  for (int st = 0; st < kSt; ++st) {   // the cp.async copies fill columns < D only
+    zero_tail<D, S::kQP>(reinterpret_cast<T*>(ring + st * S::kStage), kDkvRows);
+    zero_tail<D, S::kOP>(reinterpret_cast<float*>(ring + st * S::kStage + S::kQBytes),
+                         kDkvRows);
+  }
   int g = 0, s = first_sub(0);
   settle(g, s);
   if (g < group) issue(g, s, 0);
@@ -650,12 +695,14 @@ __global__ void __launch_bounds__(kThreads, DkvSmem<T, D>::kMinBlocks) flash_bwd
   for (int t = 0; g < group; ++t) {
     int gn = g, sn = s + 1;
     settle(gn, sn);
-    if (gn < group) issue(gn, sn, (t + 1) % kStages);
-    else cp_async_commit();  // an empty group keeps the count of groups fixed
-    cp_async_wait<kStages - 1>();
+    if constexpr (kSt == kStages) {
+      if (gn < group) issue(gn, sn, (t + 1) % kStages);
+      else cp_async_commit();  // an empty group keeps the count of groups fixed
+    }
+    cp_async_wait<kSt - 1>();
     __syncthreads();
 
-    const unsigned char* st = ring + (t % kStages) * S::kStage;
+    const unsigned char* st = ring + (t % kSt) * S::kStage;
     const T* s_q = reinterpret_cast<const T*>(st);
     const float* s_do = reinterpret_cast<const float*>(st + S::kQBytes);
     const int* s_m = reinterpret_cast<const int*>(st + S::kQBytes + S::kOBytes);
@@ -707,6 +754,8 @@ __global__ void __launch_bounds__(kThreads, DkvSmem<T, D>::kMinBlocks) flash_bwd
     else
       sum_rows<kCG, S::kPP, S::kQP>(acc, s_ds, s_q, nrows, kq, cx);
     __syncthreads();
+    if constexpr (kSt == 1)   // the one slot is read: the next sub-tile loads
+      if (gn < group) issue(gn, sn, 0);
     g = gn;
     s = sn;
   }
@@ -724,8 +773,9 @@ __global__ void __launch_bounds__(kThreads, DkvSmem<T, D>::kMinBlocks) flash_bwd
     for (int c = 0; c < 4 * kCG; ++c) r[c] = half == 0 ? acc[kk][c] : __fmul_rn(acc[kk][c], f);
 #pragma unroll
     for (int g = 0; g < kCG; ++g)
-      *reinterpret_cast<float4*>(out + gi + 64 * g) =
-          make_float4(r[4 * g], r[4 * g + 1], r[4 * g + 2], r[4 * g + 3]);
+      if (real_cols<D>(64 * g + 4 * cx))
+        *reinterpret_cast<float4*>(out + gi + 64 * g) =
+            make_float4(r[4 * g], r[4 * g + 1], r[4 * g + 2], r[4 * g + 3]);
   }
 }
 
@@ -739,12 +789,12 @@ __global__ void __launch_bounds__(kThreads, DkvSmem<T, D>::kMinBlocks) flash_bwd
 // block split the score work: half 0 runs the q.k chains and the
 // probabilities p, half 1 the do.v chains and then ds = p (dp - delta),
 // each thread 4 rows (ry + 16i) x 4 keys (kx + 8u); then every thread sums
-// dq += ds k for 4 rows (4rq..) x D / 16 columns (64g + 4cx.., g < D / 64),
-// keys in order.  Shared memory (dynamic):
+// dq += ds k for 4 rows (4rq..) x kDP / 16 columns (64g + 4cx.., g < kDP /
+// 64), keys in order.  Shared memory (dynamic):
 //   s_q    [64][D + pad]          the query rows, T
 //   s_do   [64][D + 4]            their output gradient, fp32
-//   s_k    [32][D + pad]          the sub-tile's keys, T
-//   s_v    [32][D + pad]          its values, T
+//   s_k    [32][kDP + pad]        the sub-tile's keys, T (the columns past D zeroed)
+//   s_v    [32][kDP + pad]        its values, T
 //   s_ds   [32][64 + 4]           p, then ds, key-major
 //   stats  [5][64]                m, e_b, m_b, delta, the masked probability
 // --------------------------------------------------------------------------
@@ -753,11 +803,10 @@ constexpr int kDqKeys = 32;  // keys of one staged sub-tile
 
 template <typename T, int D>
 struct DqSmem {
-  static_assert(D == 64 || D == 128, "the thread layout covers 64 or 128 columns");
-  static constexpr int kCG = D / 64;              // float4 columns of a sum thread
+  static constexpr int kCG = Wide<D>::kDP / 64;   // float4 columns of a sum thread
   static constexpr int kQP = D + 16 / sizeof(T);  // s_q pitch (T)
   static constexpr int kOP = D + 4;               // s_do pitch (fp32)
-  static constexpr int kKP = D + 16 / sizeof(T);  // K, V pitch (T)
+  static constexpr int kKP = Wide<D>::kDP + 16 / sizeof(T);  // K, V pitch (T)
   static constexpr int kSP = kDqRows + 4;         // s_ds pitch (fp32)
   static constexpr int kQBytes = kDqRows * kQP * sizeof(T);
   static constexpr int kOBytes = kDqRows * kOP * 4;
@@ -767,7 +816,7 @@ struct DqSmem {
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm<D>) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ delta,
     const int* __restrict__ m_in, const float* __restrict__ l_in,
@@ -811,6 +860,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(
     cp_async_commit();
   };
 
+  zero_tail<D, S::kKP>(s_k, kDqKeys);   // the copies fill columns < D only
   // q and do go with the first sub-tile's group
   const long qbase = (static_cast<long>(bh) * sq + row0) * D;
   fetch_rows<T, D, S::kQP>(s_q, q, qbase, D, kDqRows, nvalid);
@@ -911,8 +961,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(
     for (int c = 0; c < 4 * kCG; ++c) o[c] = __fmul_rn(acc[r][c], scale);
 #pragma unroll
     for (int g = 0; g < kCG; ++g)
-      *reinterpret_cast<float4*>(out + 64 * g) =
-          make_float4(o[4 * g], o[4 * g + 1], o[4 * g + 2], o[4 * g + 3]);
+      if (real_cols<D>(64 * g + 4 * cx))
+        *reinterpret_cast<float4*>(out + 64 * g) =
+            make_float4(o[4 * g], o[4 * g + 1], o[4 * g + 2], o[4 * g + 3]);
   }
 }
 
@@ -999,10 +1050,13 @@ bool valid_shape(int bh, int sq, int sk, int group, int hq_per_b, int step, int 
 }  // namespace
 
 // return LAUNCH<T, D>(...) for the inputs' type (in_type 0 f32, 1 bf16) and
-// the head width d (64 or 128); any other pair is refused
+// the head width d (16, 64, 112, 128 or 192); any other pair is refused
 #define HYFT_WIDTHS(LAUNCH, T, ...)                  \
+  if (d == 16) return LAUNCH<T, 16>(__VA_ARGS__);    \
   if (d == 64) return LAUNCH<T, 64>(__VA_ARGS__);    \
-  if (d == 128) return LAUNCH<T, 128>(__VA_ARGS__);
+  if (d == 112) return LAUNCH<T, 112>(__VA_ARGS__);  \
+  if (d == 128) return LAUNCH<T, 128>(__VA_ARGS__);  \
+  if (d == 192) return LAUNCH<T, 192>(__VA_ARGS__);
 #define HYFT_DISPATCH(LAUNCH, ...)                                             \
   if (in_type == 0) { HYFT_WIDTHS(LAUNCH, float, __VA_ARGS__) }                \
   if (in_type == 1) { HYFT_WIDTHS(LAUNCH, __nv_bfloat16, __VA_ARGS__) }        \
@@ -1011,7 +1065,7 @@ bool valid_shape(int bh, int sq, int sk, int group, int hq_per_b, int step, int 
 extern "C" {
 
 // Forward: q (BH, sq, D), k/v (BH / group, sk, D) of in_type (0 f32, 1 bf16)
-// with D = d, 64 or 128; mask (B, sk) f32 with B = BH / hq_per_b, or null;
+// with D = d, one of 16, 64, 112, 128 and 192; mask (B, sk) f32 with B = BH / hq_per_b, or null;
 // sk a multiple of bk (bk <= 128); k and v 16-byte aligned.  skip != 0 drops the causally
 // masked KV blocks under the guard of the note above.  Writes o (BH, sq, D)
 // f32, m (BH, sq) i32, l (BH, sq) f32.  Returns the cudaError_t of the

@@ -13,29 +13,17 @@
 // the kernels (decode_kernel, verify_kernel) and what bounds them are in
 // hyft_attend.cuh, shared with the contiguous cache (hyft_splitk.cu): a
 // sequential table over pages of bk keys gives that cache's bits.  Page
-// sizes 8, 16, 32, 64, 128 and 256, head widths 64 and 128; anything else
-// is refused (cudaErrorInvalidValue, which the wrapper raises), as is a GQA
-// group of more than 16 rows in decode.  Any number of pages is served.
+// sizes 8, 16, 32, 64, 128 and 256, head widths 16, 64, 112, 128 and 192;
+// anything else is refused (cudaErrorInvalidValue, which the wrapper
+// raises).  Any number of pages and any GQA group is served.  The kernels
+// of each head width are built in hyft_attend_d<D>.cu; this source holds
+// the entries.
 
 #include "hyft_attend.cuh"
 
 namespace {
 
 using namespace hyft_attend;
-
-// the page size of one head width: 8 to 256 keys
-template <bool kDecode, int D>
-int by_page(const Args& a, int ps, int kv_type) {
-  switch (ps) {
-    case 8: return launch<kDecode, true, D, 8>(a, kv_type);
-    case 16: return launch<kDecode, true, D, 16>(a, kv_type);
-    case 32: return launch<kDecode, true, D, 32>(a, kv_type);
-    case 64: return launch<kDecode, true, D, 64>(a, kv_type);
-    case 128: return launch<kDecode, true, D, 128>(a, kv_type);
-    case 256: return launch<kDecode, true, D, 256>(a, kv_type);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 template <bool kDecode>
 int dispatch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
@@ -45,19 +33,15 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks, const 
   const Args a{q,  k,    v,  ks, vs, bt, mask,  out, bh, hkv, rows, nb, nb * ps, sq,
                scale, {frac, total, mant, acc_bits, step}, static_cast<cudaStream_t>(stream)};
   if (!valid(a)) return cudaErrorInvalidValue;
-  switch (d) {
-    case 64: return by_page<kDecode, 64>(a, ps, kv_type);
-    case 128: return by_page<kDecode, 128>(a, ps, kv_type);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch_any(a, d, kDecode, true, ps, kv_type);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Decode (Sq = 1): q (BH, rows, D) f32 with rows = the GQA group (at most
-// 16) and D = d, 64 or 128; k, v pools (n_pages + 1, Hkv, ps, D) of kv_type (0 f32, 1 bf16, 2
+// Decode (Sq = 1): q (BH, rows, D) f32 with rows = the GQA group and D =
+// d, one of 16, 64, 112, 128 and 192; k, v pools (n_pages + 1, Hkv, ps, D) of kv_type (0 f32, 1 bf16, 2
 // int8 with f32 scales (n_pages + 1, Hkv, ps)), 16-byte aligned; bt (B, nb)
 // i32 physical page of each virtual block; mask (B, nb * ps) f32 over the
 // virtual KV axis.  Writes out (BH, rows, D) f32, the finalized attention.

@@ -1,7 +1,8 @@
 // Shared-memory staging and float4 helpers of the attention kernels
 // (hyft_attend.cuh's split-K kernels and hyft_flash.cu's flash kernels):
-// cp.async copies from global into shared memory, and float4 reads of a
-// shared tile with one in-order fmaf chain over their four elements.
+// cp.async copies from global into shared memory, float4 reads of a shared
+// tile with one in-order fmaf chain over their four elements, and the
+// padded width that both kernel families lay their threads out for.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +38,27 @@ __device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
   const uint2 w = *reinterpret_cast<const uint2*>(p);
   return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
                      __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+}
+
+// The attention kernels' thread layouts are built for kDP, the head width
+// D rounded up to the 64 columns of a row group's float4 groups: D = 16
+// and 112 run with idle columns past D, which no operand holds in device
+// memory.
+template <int D>
+struct Wide {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 192,
+                "the thread layouts cover multiples of 16 up to 192 columns");
+  static constexpr int kDP = (D + 63) / 64 * 64;
+};
+
+// zero columns D..kDP-1 of n rows of a shared tile of pitch kPitch, so that
+// the columns past D read as zero (nothing when kDP = D)
+template <int D, int kPitch, typename T>
+__device__ __forceinline__ void zero_tail(T* s, int n) {
+  constexpr int kTail = Wide<D>::kDP - D;
+  if constexpr (kTail > 0)
+    for (int i = threadIdx.x; i < n * kTail; i += blockDim.x)
+      s[(i / kTail) * kPitch + D + i % kTail] = T(0.0f);
 }
 
 // dot = fmaf(a[d], b[d], dot) for d = 0..3 of one float4 pair, in order

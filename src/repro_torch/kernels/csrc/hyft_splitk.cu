@@ -20,24 +20,14 @@
 // cp.async ring.  A causal prompt (Sq = 1024, rows = 6144) is bound by
 // fp32 FMAs over the keys each row attends to (12.9 GFLOP per layer):
 // register tiles fed by float4 loads, and 64-key tiles masked for a whole
-// block skipped.  No tensor cores and no TF32.
+// block skipped.  No tensor cores and no TF32.  The kernels of each head
+// width are built in hyft_attend_d<D>.cu; this source holds the entries.
 
 #include "hyft_attend.cuh"
 
 namespace {
 
 using namespace hyft_attend;
-
-// the split size of one head width: 64, 128 or 256 keys
-template <bool kDecode, int D>
-int by_split(const Args& a, int bk, int kv_type) {
-  switch (bk) {
-    case 64: return launch<kDecode, false, D, 64>(a, kv_type);
-    case 128: return launch<kDecode, false, D, 128>(a, kv_type);
-    case 256: return launch<kDecode, false, D, 256>(a, kv_type);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 template <bool kDecode>
 int dispatch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
@@ -47,20 +37,16 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks, const 
   const Args a{q, k, v, ks, vs, nullptr, mask, out, bh, hkv, rows,
                bk > 0 ? (sk + bk - 1) / bk : 0, sk, sq, scale,
                {frac, total, mant, acc_bits, step}, static_cast<cudaStream_t>(stream)};
-  if (!valid(a)) return cudaErrorInvalidValue;
-  switch (d) {
-    case 64: return by_split<kDecode, 64>(a, bk, kv_type);
-    case 128: return by_split<kDecode, 128>(a, bk, kv_type);
-    default: return cudaErrorInvalidValue;
-  }
+  if (!valid(a) || (bk != 64 && bk != 128 && bk != 256)) return cudaErrorInvalidValue;
+  return launch_any(a, d, kDecode, false, bk, kv_type);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Decode (Sq = 1): q (BH, rows, D) f32 with rows = the GQA group (at most
-// 16) and D = d, 64 or 128; k, v (BH, sk, D) of kv_type (0 f32, 1 bf16, 2 int8 with f32 scales
+// Decode (Sq = 1): q (BH, rows, D) f32 with rows = the GQA group and D =
+// d, one of 16, 64, 112, 128 and 192; k, v (BH, sk, D) of kv_type (0 f32, 1 bf16, 2 int8 with f32 scales
 // (BH, sk)), 16-byte aligned; mask (B, sk) f32 shared by every row; splits
 // of bk keys.  Writes out (BH, rows, D) f32, the finalized attention.
 // Returns the cudaError_t of the launch.

@@ -72,7 +72,9 @@ LAUNCHES = {"hyft_splitk_decode": 0, "hyft_splitk_verify": 0,
 
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _IN_TYPES = {torch.float32: 0, torch.bfloat16: 1}   # the flash kernels' q/k/v
-_HEAD_DIMS = (64, 128)  # head widths the CUDA kernels are instantiated for
+# head widths the CUDA kernels are instantiated for: every width of the
+# configs (the smoke models' 16, bert's 64, zamba2's 112, 128, nemotron's 192)
+_HEAD_DIMS = (16, 64, 112, 128, 192)
 # split sizes the contiguous kernels, and page sizes the paged kernels, are
 # built for
 _SPLIT_SIZES = (64, 128, 256)

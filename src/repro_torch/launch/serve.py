@@ -17,16 +17,23 @@ over a slot pool (dense or paged KV cache), on the card.
       --n-slots 8 --batch 24 --prefill 512 --max-new 64 --prefill-chunk 256 \
       --attn-mode kernel --cache-dtype fp2fx8
 
-  # either at smoke size on the CPU (plain PyTorch versions of the kernels)
+  # speculative decoding: n-gram self-drafting (or --spec-mode model with
+  # --draft-model, a random smoke drafter), one verify call per step
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+      --scheduler spec --draft-k 4 --kv-layout paged --n-slots 8 --batch 24 \
+      --attn-mode kernel --cache-dtype fp2fx8
+
+  # any of them at smoke size on the CPU (plain PyTorch versions of the
+  # kernels)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \
       --device cpu --scheduler continuous --kv-layout paged --prefix-cache \
       --attn-mode kernel --cache-dtype fp2fx8
 
 Weights are random, made from ``--seed``.  The paged layout, the prefix
-cache and chunked prefill live in the slot-pool scheduler, so those flags
-route through it under ``--scheduler lockstep`` too.  The speculative,
-chaos and observability flags of the JAX launcher come with the slices
-that port those layers.
+cache, speculative decoding and chunked prefill live in the slot-pool
+scheduler, so those flags route through it under ``--scheduler lockstep``
+too.  The chaos and observability flags of the JAX launcher come with the
+slices that port those layers.
 """
 import argparse
 
@@ -44,11 +51,25 @@ def build_parser() -> argparse.ArgumentParser:
                          "(int8 FP2FX raws + per-head scales)")
     ap.add_argument("--decode-loop", default="scan", choices=["scan", "host"])
     ap.add_argument("--scheduler", default="lockstep",
-                    choices=["lockstep", "continuous"],
+                    choices=["lockstep", "continuous", "spec"],
                     help="'continuous' = slot-pool continuous batching with "
                          "ragged prompts and EOS early-exit; 'lockstep' = "
                          "one rectangular batch (or, with the slot-pool "
-                         "flags, a pool drained before each admission)")
+                         "flags, a pool drained before each admission); "
+                         "'spec' = continuous admission + speculative "
+                         "decode steps (draft K tokens, verify in one model "
+                         "call)")
+    ap.add_argument("--spec-mode", default="ngram", choices=["ngram", "model"],
+                    help="drafter for --scheduler spec: 'ngram' = "
+                         "deterministic prompt-lookup self-drafting; "
+                         "'model' = a small zoo model (--draft-model)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="draft tokens verified per slot per spec step")
+    ap.add_argument("--ngram-max", type=int, default=3,
+                    help="longest trailing n-gram the lookup drafter matches")
+    ap.add_argument("--draft-model", default=None,
+                    help="zoo arch for --spec-mode model (random init: a "
+                         "demo drafter, whose acceptance floor is chance)")
     ap.add_argument("--n-slots", type=int, default=4,
                     help="slot-pool size of the continuous scheduler")
     ap.add_argument("--eos-id", type=int, default=None,
@@ -137,10 +158,12 @@ def main(argv=None):
                        kv_layout=args.kv_layout, page_size=args.page_size,
                        n_pages=args.n_pages, prefix_cache=args.prefix_cache,
                        prefill_chunk=args.prefill_chunk,
-                       pack_prefill=args.pack_prefill, audit=args.audit,
+                       pack_prefill=args.pack_prefill, spec_mode=args.spec_mode,
+                       draft_k=args.draft_k, ngram_max=args.ngram_max,
+                       draft_model=args.draft_model, audit=args.audit,
                        max_queue=args.max_queue, max_retries=args.max_retries)
 
-    if (args.scheduler == "continuous" or args.kv_layout != "dense"
+    if (args.scheduler in ("continuous", "spec") or args.kv_layout != "dense"
             or args.prefix_cache or args.prefill_chunk > 0):
         rng = np.random.default_rng(args.seed)
         reqs = []
@@ -167,6 +190,14 @@ def main(argv=None):
                    else f" FAILED({c.failure.reason})")
             print(f"[{rid}] prompt={c.prompt_len} new={len(c.tokens)}"
                   f"{tag} {c.tokens}")
+        if args.scheduler == "spec":
+            st = eng.stats
+            acc = st["accepted_tokens"] / max(1, st["draft_tokens"])
+            print(f"spec: steps={st['spec_steps']} "
+                  f"drafted={st['draft_tokens']} "
+                  f"accepted={st['accepted_tokens']} (rate {acc:.2f}) "
+                  f"tokens/model-call="
+                  f"{st['tokens_emitted'] / max(1, st['model_calls']):.2f}")
         print(f"stats: {eng.stats}")
         return
 

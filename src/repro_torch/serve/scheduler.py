@@ -21,18 +21,25 @@ for the attention (dense) family.  Three pieces, as in the JAX package:
 
 ``ServeConfig.scheduler``: ``continuous`` admits into freed slots
 mid-decode and honours ``eos_id``; ``lockstep`` drains the pool before the
-next group and ignores EOS.  ``ServeConfig.kv_layout``: ``dense`` (one
-``max_len`` stripe per slot) or ``paged`` (``serve.kvpool`` pages with
-per-slot block tables; decode appends pages, exhaustion preempts the
-latest arrival and requeues it with its tokens folded into the prompt;
-``prefix_cache`` shares the pages of cached prompt prefixes).
+next group and ignores EOS; ``spec`` admits as ``continuous`` does and
+replaces each burst by one speculative step (``repro_torch.serve.spec``):
+draft up to ``draft_k`` tokens per slot on the host (n-gram lookup, or a
+small draft model with its own dense cache), verify ``draft_k + 1`` lanes
+per slot in one ``prefill_chunk`` call, emit the longest accepted prefix
+(EOS and budget on accepted tokens only), then roll back: dense slots by
+length alone, paged slots also by giving back their tail pages.
+``ServeConfig.kv_layout``: ``dense`` (one ``max_len`` stripe per slot) or
+``paged`` (``serve.kvpool`` pages with per-slot block tables; decode
+appends pages, exhaustion preempts the latest arrival and requeues it with
+its tokens folded into the prompt; ``prefix_cache`` shares the pages of
+cached prompt prefixes).
 
 Requests end in a definite outcome: finished, cancelled, or a structured
 failure (``invalid``, ``queue_full``, ``deadline``, ``retries_exhausted``).
-Not ported yet (ROADMAP queue 1, the items "speculative decoding", "the
-quarantine ladder, then chaos" and "obs/"): the speculative scheduler, the
-chaos harness, the numeric quarantine ladder and the ``obs`` layer.  Until
-the ladder comes, non-finite logits in an active slot raise RuntimeError.
+Not ported yet (ROADMAP queue 1, the items "the quarantine ladder, then
+chaos" and "obs/"): the chaos harness, the numeric quarantine ladder and
+the ``obs`` layer.  Until the ladder comes, non-finite logits in an active
+slot raise RuntimeError.
 
 Time is read from one injectable clock (``clock``, seconds, default
 ``time.perf_counter``) through ``_now``, so arrivals and deadlines can be
@@ -161,8 +168,8 @@ _STAT_KEYS = (
     "admitted", "bursts", "prefills", "burst_steps", "slot_steps_active",
     "peak_active", "tokens_emitted", "prompt_tokens", "prefill_tokens",
     "cached_tokens", "prefix_hits", "preemptions", "pages_peak",
-    "model_calls", "rejected", "expired", "cancelled", "failures",
-    "stragglers", "audits")
+    "model_calls", "spec_steps", "draft_tokens", "accepted_tokens",
+    "rejected", "expired", "cancelled", "failures", "stragglers", "audits")
 
 
 class SlotPoolEngine:
@@ -172,11 +179,13 @@ class SlotPoolEngine:
     the KV cache never leaves the device and is updated in place.
     ``device`` (None = the card) is where the cache lives; ``params`` must
     live there too.  ``generator`` draws the samples when temperature > 0.
+    ``draft``: an optional (model, params) pair, the drafter of
+    ``spec_mode="model"`` (its params on ``device`` too).
     """
 
     def __init__(self, model, params, scfg: ServeConfig,
                  generator: Optional[torch.Generator] = None, device=None,
-                 clock: Callable[[], float] = time.perf_counter):
+                 clock: Callable[[], float] = time.perf_counter, draft=None):
         self.device = resolve_device(device)
         self.model = resolve_attn_mode(model, scfg.attn_mode)
         self.params = params
@@ -188,14 +197,23 @@ class SlotPoolEngine:
             raise ValueError("max_queue must be >= 0 (0 = unbounded)")
         if scfg.max_retries < 0:
             raise ValueError("max_retries must be >= 0")
-        if scfg.scheduler == "spec":
-            raise NotImplementedError(
-                "scheduler='spec' (speculative bursts, serve/spec.py) is not "
-                "ported yet: ROADMAP queue 1, speculative decoding")
-        if scfg.scheduler not in ("continuous", "lockstep"):
+        if scfg.scheduler not in ("continuous", "lockstep", "spec"):
             raise ValueError(f"unknown scheduler {scfg.scheduler!r}")
         if scfg.kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {scfg.kv_layout!r}")
+        self.spec = scfg.scheduler == "spec"
+        self.drafter = None
+        if self.spec:
+            if scfg.temperature > 0:
+                raise ValueError(
+                    "scheduler='spec' is greedy-only (temperature == 0): "
+                    "sampled speculative acceptance needs distribution-"
+                    "level rejection sampling, not the top-k/top-p filters")
+            if scfg.draft_k < 1:
+                raise ValueError("draft_k must be >= 1")
+            from repro_torch.serve import spec as spec_mod
+            self.drafter = spec_mod.make_drafter(scfg, self.model.cfg, draft=draft,
+                                                 device=self.device)
         self.paged = scfg.kv_layout == "paged"
         self.trie = None
         if self.paged:
@@ -238,8 +256,12 @@ class SlotPoolEngine:
         self.completions: dict[int, Completion] = {}
         self._queue: deque = deque()   # arrived, waiting (bounded)
         self._pending: deque = deque()  # submitted, not yet arrived
-        self._burst = build_burst(self.model, scfg, max(1, scfg.decode_burst))
-        self._eos = scfg.eos_id if scfg.scheduler == "continuous" else None
+        if self.spec:
+            self._spec_step = spec_mod.build_spec_step(self.model, scfg, scfg.draft_k)
+        else:
+            self._burst = build_burst(self.model, scfg, max(1, scfg.decode_burst))
+        self._eos = (scfg.eos_id if scfg.scheduler in ("continuous", "spec")
+                     else None)
         self.retries: dict[int, int] = {}        # requeues per rid
         self._cancels: set = set()               # rids to cancel next check
         # burst wall-time EMA: the per-step estimate behind the device TTL
@@ -291,8 +313,15 @@ class SlotPoolEngine:
         self.active[s] = False
         self.prefilling[s] = True
         self.budget[s] = r.max_new
+        self._drafter_reset(s)
         self._count("prompt_tokens", len(r.tokens))
         self._count("prefill_tokens", len(r.tokens) - start)
+
+    def _drafter_reset(self, s: int) -> None:
+        """Slot ``s`` changed owner: wipe the drafter's state tied to it (the
+        model drafter's synced length; the n-gram drafter has none)."""
+        if self.drafter is not None:
+            self.drafter.reset_slot(s)
 
     def admit(self, reqs: list[Request], now: float) -> None:
         """Admit ``reqs`` into free slots: host bookkeeping only (paged:
@@ -593,7 +622,11 @@ class SlotPoolEngine:
         """One burst of ``decode_burst`` masked steps, then host
         bookkeeping: append emitted tokens, finish freed slots.  Paged mode
         first appends the pages the burst will write (possibly preempting)
-        and refreshes the device block tables."""
+        and refreshes the device block tables.  In spec mode the burst is
+        ONE speculative step (``_spec_burst``)."""
+        if self.spec:
+            self._spec_burst(now)
+            return
         if self.paged:
             self._ensure_burst_pages(max(1, self.scfg.decode_burst))
             if not self.active.any():  # everyone preempted: nothing to run
@@ -642,6 +675,105 @@ class SlotPoolEngine:
                     self._finish(rid, now)
                     self._free_slot(s)
         self._audit_check()
+
+    # -- speculative decode (repro_torch/serve/spec.py) -----------------
+
+    def _spec_burst(self, now: float) -> None:
+        """One speculative step over the whole pool: host-side drafting
+        (ragged per slot), ONE verify call scoring ``draft_k + 1`` lanes per
+        slot, longest-accepted-prefix emission with EOS and budget on
+        accepted tokens only, then the rollback: dense slots rewind by
+        length alone; paged slots also give back the tail pages the
+        rejected lanes wrote into."""
+        scfg = self.scfg
+        K = scfg.draft_k
+        if self.paged:
+            # verify writes lanes L..L+m (m <= min(K, budget - 1)): cover the
+            # worst case before the call, preempting on pool exhaustion
+            self._ensure_burst_pages(K + 1)
+            if not self.active.any():  # everyone preempted: nothing to run
+                return
+            self.cache["block_tables"] = self._to_device(self.block_tables)
+        n = scfg.n_slots
+        want = np.zeros(n, np.int32)
+        contexts: list = [None] * n
+        for s in range(n):
+            if not self.active[s]:
+                continue
+            # drafts past budget - 1 can never be emitted, and the verify
+            # write frontier must stay inside max_len
+            want[s] = max(0, min(K, int(self.budget[s]) - 1,
+                                 scfg.max_len - 1 - int(self.lengths[s])))
+            rid = self.slot_rid[s]
+            contexts[s] = np.concatenate(
+                [np.asarray(self.requests[rid].tokens, np.int32),
+                 np.asarray(self.outputs[rid], np.int32)])
+        calls0 = self.drafter.model_calls
+        draft, n_draft = self.drafter.draft_batch(contexts, want, K)
+        # the model drafter's syncs and draft loops count too, so tokens per
+        # model call never overstates the amortization
+        self._count("model_calls", self.drafter.model_calls - calls0)
+
+        was_active = self.active.copy()
+        t_in = self._now()
+        emitted, self.cache, tok, lengths, active, budget, n_acc, ok, _ = self._spec_step(
+            self.params, self.cache, self._to_device(self.last_tok)[:, None],
+            self._to_device(draft), self._to_device(n_draft),
+            self._to_device(self.lengths), self._to_device(self.active),
+            self._to_device(self.budget))
+        # one read back for the whole step
+        host = torch.cat([emitted.reshape(-1), tok[:, 0], lengths, active.to(I32), budget,
+                          n_acc, ok.to(I32)]).cpu().numpy()
+        emitted = host[:n * (K + 1)].reshape(n, K + 1)
+        tail = host[n * (K + 1):].reshape(6, n)
+        self.last_tok = tail[0].copy()
+        self.lengths = tail[1].copy()
+        self.active = tail[2].astype(bool)
+        self.budget = tail[3].copy()
+        n_acc, ok = tail[4], tail[5].astype(bool)
+        self._observe_burst(self._now() - t_in, 1)
+        self._count("bursts")
+        self._count("burst_steps")
+        self._count("spec_steps")
+        self._count("model_calls")
+        for s in np.nonzero(was_active)[0]:
+            if not ok[s]:
+                # non-finite verify logits poison every lane's argmax: no
+                # token of this step can be trusted
+                self._numeric_fault(s, "spec step")
+            row = emitted[s]
+            row = row[row != PAD].tolist()
+            rid = self.slot_rid[s]
+            self.outputs[rid].extend(row)
+            self.out_times[rid].extend([now] * len(row))
+            self._count("tokens_emitted", len(row))
+            self._count("draft_tokens", int(n_draft[s]))
+            self._count("accepted_tokens", int(n_acc[s]))
+            if row:
+                self._count("slot_steps_active")
+            if not self.active[s]:                      # freed on the device
+                self._finish(rid, now)
+                self._free_slot(s)
+        if self.paged:
+            self._rollback_spec_pages()
+        self._audit_check()
+
+    def _rollback_spec_pages(self) -> None:
+        """Give back the tail pages past each active slot's length after
+        acceptance: the rejected verify lanes' pages.  Only pages popped off
+        the slot's OWN table are decref'd, so a page the radix trie also
+        holds keeps the trie's count; and since lengths never shrink, the
+        keep point never reaches back into the prompt's (possibly shared)
+        pages, only into this step's fresh appends."""
+        ps = self.scfg.page_size
+        for s in range(self.scfg.n_slots):
+            if not self.active[s]:
+                continue
+            keep = -(-int(self.lengths[s]) // ps)
+            while len(self.slot_pages[s]) > keep:
+                p = self.slot_pages[s].pop()
+                self.block_tables[s, len(self.slot_pages[s])] = 0
+                self.pool.decref(p)
 
     # -- cancellation, deadlines, shutdown, audits ---------------------
 
@@ -750,7 +882,7 @@ class SlotPoolEngine:
         self._pending = deque(ok_reqs)
         self._queue = deque()
         self._t0 = self.clock()
-        continuous = self.scfg.scheduler == "continuous"
+        continuous = self.scfg.scheduler in ("continuous", "spec")
         while (self._pending or self._queue or self.active.any()
                or self.prefilling.any()):
             now = self._now()
@@ -788,7 +920,9 @@ class SlotPoolEngine:
 
 
 def serve(model, params, requests: list[Request], scfg: ServeConfig,
-          generator=None, device=None) -> dict[int, Completion]:
-    """One-shot entry: build a slot-pool engine, serve, return completions."""
-    eng = SlotPoolEngine(model, params, scfg, generator=generator, device=device)
+          generator=None, device=None, draft=None) -> dict[int, Completion]:
+    """One-shot entry: build a slot-pool engine, serve, return completions.
+    ``draft``: optional (model, params) pair for ``spec_mode="model"``."""
+    eng = SlotPoolEngine(model, params, scfg, generator=generator, device=device,
+                         draft=draft)
     return eng.run(requests)

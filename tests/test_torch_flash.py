@@ -454,20 +454,21 @@ def test_flash_skip_needs_a_live_row_max():
     assert torch.equal(o[live], full[0][live, :SKIP_ROWS])
 
 
-@pytest.mark.parametrize("name", ["hyft16", "hyft32"])
-def test_flash_matches_jax_at_width_64(name):
-    """At head width 64 (bert-base's), non-causal, a GQA group of 1 and of
-    2: the plain forward's (o, m, l) and its VJP against the JAX kernel in
-    interpret mode, at this file's tolerances."""
+def _hold_at_width(name, d, groups, seed, derived=False):
+    """The plain forward's (o, m, l) and its VJP against the JAX kernel in
+    interpret mode at head width ``d``, non-causal, one case per (hq, hkv)
+    of ``groups``, at this file's tolerances; ``derived`` holds the share of
+    moved maxima and the gradients to the bounds that scale with the
+    operands instead (``flash_errors`` alone, and ``grad_errors``)."""
     cj, ct = CONFIGS[name]
-    rng = np.random.default_rng(64)
-    S, d = 40, 64
+    rng = np.random.default_rng(seed)
+    S = 40
     kw = dict(causal=False, block_q=16, block_k=16)
-    for hkv in (HQ, HKV):
-        q = rng.standard_normal((B, HQ, S, d)).astype(np.float32)
+    for hq, hkv in groups:
+        q = rng.standard_normal((B, hq, S, d)).astype(np.float32)
         k = rng.standard_normal((B, hkv, S, d)).astype(np.float32)
         v = rng.standard_normal((B, hkv, S, d)).astype(np.float32)
-        w = rng.standard_normal((B, HQ, S, d)).astype(np.float32)
+        w = rng.standard_normal((B, hq, S, d)).astype(np.float32)
         o_j, m_j, l_j = (np.array(a) for a in jax_flash(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), cj, interpret=True,
             return_stats=True, **kw))
@@ -475,7 +476,7 @@ def test_flash_matches_jax_at_width_64(name):
         o, m, l = tfa.flash_hyft_attention(tq.detach(), tk.detach(), tv.detach(), ct,
                                            return_stats=True, **kw)
         moved = np.abs(m.numpy().astype(np.int64) - m_j)
-        assert moved.max() <= 1 and (moved > 0).mean() <= 0.02
+        assert moved.max() <= 1 and (derived or (moved > 0).mean() <= 0.02)
         np.testing.assert_allclose(o.numpy(), o_j, rtol=0, atol=_tol(ct, v))
         err = tfa.flash_errors((o, m, l), tuple(map(torch.from_numpy, (o_j, m_j, l_j))),
                                ct, float(np.abs(v).max()), 16, S // 16 + 1)
@@ -486,5 +487,31 @@ def test_flash_matches_jax_at_width_64(name):
         ref = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
         out = tfa.flash_hyft_attention(tq, tk, tv, ct, **kw)
         (out * torch.from_numpy(w)).sum().backward()
+        if derived:
+            gerr = tfa.grad_errors((tq.grad, tk.grad, tv.grad),
+                                   tuple(torch.from_numpy(np.asarray(r)) for r in ref), ct)
+            assert max(gerr["dq"], gerr["dk"], gerr["dv"]) <= 1, gerr
+            continue
         for got, want in zip((tq.grad, tk.grad, tv.grad), ref):
             np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("name", ["hyft16", "hyft32"])
+def test_flash_matches_jax_at_width_64(name):
+    """At head width 64 (bert-base's), non-causal, a GQA group of 1 and of
+    2: the plain forward's (o, m, l) and its VJP against the JAX kernel in
+    interpret mode, at this file's tolerances."""
+    _hold_at_width(name, 64, [(HQ, HQ), (HQ, HKV)], 64)
+
+
+@pytest.mark.parametrize("name", ["hyft16", "hyft32"])
+@pytest.mark.parametrize("d, groups", [(112, [(HQ, HQ)]), (192, [(12, 1)])],
+                         ids=["d112-group1", "d192-group12"])
+def test_flash_matches_jax_at_widths_112_and_192(name, d, groups):
+    """The configs' other widths beside this file's 16: zamba2-7b's 112 (a
+    GQA group of 1) and nemotron-4-340b's 192 (a group of 12), as at 64 but
+    with the bounds derived from the operands: the fixed 2% share of moved
+    maxima and the absolute gradient tolerance of the narrow cases do not
+    scale with D (fp32 dot products of 112 or 192 terms in torch's order
+    and the kernel's move 3-4% of the maxima by one raw)."""
+    _hold_at_width(name, d, groups, d, derived=True)

@@ -266,20 +266,23 @@ def test_paged_kernel_rejects_bad_input():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows, nb", [(17, NB)], ids=["group-of-17"])
-def test_paged_decode_kernel_refuses_shapes_it_does_not_take(rows, nb):
-    """Kernel 7 computes at most 16 rows: a larger GQA group is refused by
-    the launch.  Any number of pages is served (``test_decode_kernels_serve_
-    long_sequences``)."""
+@pytest.mark.parametrize("cache_dtype", ["float32", "fp2fx8", "bfloat16"])
+@pytest.mark.parametrize("rows", [17, 24, 40], ids=["group-of-17", "group-of-24", "group-of-40"])
+def test_paged_decode_kernel_serves_groups_past_16(rows, cache_dtype):
+    """A cluster of kernel 7 computes at most 16 rows; a larger GQA group
+    takes one cluster per 16 rows in the same launch, each row within the
+    ``out`` bound of the plain version, and each row bitwise what a group
+    of those rows alone gives."""
     gen = _card()
-    P = nb + 1
-    k = torch.randn(P, HKV, 16, D, generator=gen, device="cuda")
-    bt = torch.arange(1, B * nb + 1, dtype=torch.int32, device="cuda").reshape(B, nb) % P
+    k, v, sc, vf, bt, mask, _ = _paged(gen, 16, cache_dtype)
     q3 = torch.randn(B * HKV, rows, D, generator=gen, device="cuda")
-    mask = torch.ones(B, nb * 16, device="cuda")
-    with pytest.raises(RuntimeError, match="hyft_paged_decode failed"):
-        fa._paged_attention_cuda(q3, k, k, None, None, bt.contiguous(), mask,
-                                 cfg=HYFT16, sm_scale=D ** -0.5, hkv=HKV, sq=None)
+    got = _hold_paged(HYFT16, q3, k, v, sc, bt, mask, None, vf)
+    kw = dict(cfg=HYFT16, sm_scale=D ** -0.5, hkv=HKV, sq=None)
+    for r0 in range(0, rows, 16):
+        part = q3[:, r0:r0 + 16].contiguous()
+        alone = fa._paged_attention_cuda(part, k, v, sc.get("k_scale"), sc.get("v_scale"),
+                                         bt, mask, **kw)
+        assert torch.equal(alone, got[:, r0:r0 + 16])
 
 
 @pytest.mark.gpu
@@ -597,23 +600,261 @@ def test_flash_kernels_match_plain_at_width_64(case, hq, hkv, dtype, cfg):
 
 @pytest.mark.gpu
 def test_kernels_refuse_width_96():
-    """A CUDA tensor of a head width the kernels are not built for raises a
-    ValueError that names the widths they take: flash, split-K and paged."""
+    """A CUDA tensor of a head width the kernels are not built for (96 lies
+    between the configs' 64 and 112) raises a ValueError that names the
+    widths they take: flash, split-K and paged."""
     _card()
     q3 = torch.zeros(4, 8, 96, device="cuda")
-    with pytest.raises(ValueError, match=r"head dim 96 not in \(64, 128\)"):
+    with pytest.raises(ValueError, match=r"head dim 96 not in \(16, 64, 112, 128, 192\)"):
         fa._flash_fwd_cuda(q3, q3[:2], q3[:2], None, cfg=HYFT16, sm_scale=0.1,
                            causal=False, bk=8, group=2, q_offset=0)
     mask = torch.ones(2, 8, device="cuda")
     q1 = q3[:, :1].contiguous()
-    with pytest.raises(ValueError, match=r"head dim 96 not in \(64, 128\)"):
+    with pytest.raises(ValueError, match=r"head dim 96 not in \(16, 64, 112, 128, 192\)"):
         fa._splitk_attention_cuda(q1, q3, q3, None, None, mask, cfg=HYFT16,
                                   sm_scale=0.1, bk=64, hkv=2, sq=None)
     pool = torch.zeros(5, 2, 8, 96, device="cuda")
     bt = torch.ones(2, 1, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match=r"head dim 96 not in \(64, 128\)"):
+    with pytest.raises(ValueError, match=r"head dim 96 not in \(16, 64, 112, 128, 192\)"):
         fa._paged_attention_cuda(q1, pool, pool, None, None, bt, mask, cfg=HYFT16,
                                  sm_scale=0.1, hkv=2, sq=None)
+
+
+# --------------------------------------------------------------------------
+# head widths 16 (the smoke models, so the model drafter), 112 (zamba2-7b)
+# and 192 (nemotron-4-340b): kernels 3-9, laid out at D rounded up to 64
+# --------------------------------------------------------------------------
+
+# (d, hq, hkv): the drafter's 4 / 2 heads; zamba2's group of 1 (32 / 32 cut
+# to 4 / 4); nemotron's group of 12 (96 / 8 cut to 24 / 2)
+WIDTHS = [(16, 4, 2), (112, 4, 4), (192, 24, 2)]
+WIDTH_IDS = ["d16", "d112", "d192"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [HYFT16, HYFT32], ids=["hyft16", "hyft32"])
+@pytest.mark.parametrize("cache_dtype", ["float32", "fp2fx8", "bfloat16"])
+@pytest.mark.parametrize("d, hq, hkv", WIDTHS, ids=WIDTH_IDS)
+def test_split_k_kernels_match_plain_at_new_widths(d, hq, hkv, cache_dtype, cfg):
+    """Kernels 6 and 8 at D = 16, 112 and 192 against their plain versions
+    (ragged lengths over 600 keys in splits of 256, a chunk of 5 lanes and
+    one of 40), within the ``out`` bound; chunk attention at Sq = 1 is
+    decode bit for bit."""
+    gen = _card()
+    Sk = 600
+    k, v, sc, vf = _kv_pool(gen, (B, hkv, Sk, d), cache_dtype)
+    lengths = torch.tensor([Sk, Sk // 3 + 1], device="cuda")
+    mask = (torch.arange(Sk, device="cuda")[None] < lengths[:, None]).float()
+    flat = [t.reshape(B * hkv, Sk, *t.shape[3:]) if t is not None else None
+            for t in (k, v, sc.get("k_scale"), sc.get("v_scale"))]
+    kw = dict(cfg=cfg, sm_scale=d ** -0.5, bk=256, hkv=hkv)
+    g = hq // hkv
+    q1 = torch.randn(B, hq, 1, d, generator=gen, device="cuda")
+    cases = [(q1.reshape(B * hkv, g, d), mask, None)]
+    for Sq in (5, 40):
+        lane = (torch.arange(Sk, device="cuda")[None, None]
+                <= (lengths[:, None, None] - Sq + torch.arange(Sq, device="cuda")[None, :, None]))
+        qc = torch.randn(B * hkv, g * Sq, d, generator=gen, device="cuda")
+        cases.append((qc, lane.float().contiguous(), Sq))
+    for q3, m, sq in cases:
+        got = fa._splitk_attention_cuda(q3, *flat, m, **kw, sq=sq)
+        err = fa.out_errors(got, fa.splitk_tiles_plain(q3, *flat, m, **kw, sq=sq), cfg,
+                            float(vf.abs().max()))
+        assert torch.isfinite(got).all() and err["out"] <= 1, err
+    out = fa.flash_hyft_decode(q1, k, v, cfg, kv_len_mask=mask, **sc)
+    one = fa.flash_hyft_verify(q1, k, v, mask[:, None], cfg, **sc)
+    assert torch.equal(one, out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", ["float32", "fp2fx8", "bfloat16"])
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("d, hq, hkv", WIDTHS, ids=WIDTH_IDS)
+def test_paged_kernels_match_plain_at_new_widths(d, hq, hkv, ps, cache_dtype):
+    """Kernels 7 and 9 at D = 16, 112 and 192 over a shuffled table (the
+    null page past each length), HYFT16 and HYFT32, against their plain
+    versions within the ``out`` bound; over a sequential table of pages of
+    64 they equal the contiguous kernels at bk = 64 bit for bit."""
+    gen = _card()
+    nb, Sq = 6, 5
+    Sk = nb * ps
+    lengths = torch.tensor([Sk - 3, 2 * ps + 1], device="cuda")
+    used = (-(-lengths // ps)).tolist()
+    P = B * nb + 1
+    k, v, sc, vf = _kv_pool(gen, (P, hkv, ps, d), cache_dtype)
+    perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+    bt = torch.zeros(B, nb, dtype=torch.int32, device="cuda")
+    bt[0, :used[0]] = perm[:used[0]].int()
+    bt[1, :used[1]] = perm[used[0]:used[0] + used[1]].int()
+    mask = (torch.arange(Sk, device="cuda")[None] < lengths[:, None]).float()
+    lane = (torch.arange(Sk, device="cuda")[None, None]
+            <= (lengths[:, None, None] - Sq + torch.arange(Sq, device="cuda")[None, :, None]))
+    lane = lane.float().contiguous()
+    g = hq // hkv
+    q1 = torch.randn(B * hkv, g, d, generator=gen, device="cuda")
+    qc = torch.randn(B * hkv, g * Sq, d, generator=gen, device="cuda")
+    for cfg in (HYFT16, HYFT32):
+        kw = dict(cfg=cfg, sm_scale=d ** -0.5, hkv=hkv)
+        for q3, m, sq in ((q1, mask, None), (qc, lane, Sq)):
+            args = (q3, k, v, sc.get("k_scale"), sc.get("v_scale"), bt, m)
+            got = fa._paged_attention_cuda(*args, **kw, sq=sq)
+            err = fa.out_errors(got, fa.paged_tiles_plain(*args, **kw, sq=sq), cfg,
+                                float(vf.abs().max()))
+            assert torch.isfinite(got).all() and err["out"] <= 1, err
+    if ps not in fa._SPLIT_SIZES:
+        return
+    seq = torch.arange(1, B * nb + 1, dtype=torch.int32, device="cuda").reshape(B, nb)
+
+    def contiguous(x):   # the pool's pages 1.. in table order: (B, Hkv, Sk[, D])
+        x = x[1:].reshape(B, nb, hkv, ps, *x.shape[3:]).transpose(1, 2)
+        return x.reshape(B, hkv, Sk, *x.shape[4:]).contiguous()
+    cont = {n: contiguous(t) for n, t in sc.items()}
+    q = qc.reshape(B, hq, Sq, d)
+    paged = fa.flash_hyft_verify(q, k, v, lane, HYFT16, block_tables=seq, **sc)
+    dense = fa.flash_hyft_verify(q, contiguous(k), contiguous(v), lane, HYFT16,
+                                 block_k=ps, **cont)
+    assert torch.equal(dense, paged)
+    q = q1.reshape(B, hq, 1, d)
+    paged = fa.flash_hyft_decode_paged(q, k, v, seq, HYFT16, kv_len_mask=mask, **sc)
+    dense = fa.flash_hyft_decode(q, contiguous(k), contiguous(v), HYFT16, block_k=ps,
+                                 kv_len_mask=mask, **cont)
+    assert torch.equal(dense, paged)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [HYFT16, HYFT32], ids=["hyft16", "hyft32"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d, hq, hkv", WIDTHS, ids=WIDTH_IDS)
+@pytest.mark.parametrize("case", FLASH_CASES64, ids=[c[0] for c in FLASH_CASES64])
+def test_flash_kernels_match_plain_at_new_widths(case, d, hq, hkv, dtype, cfg):
+    """Kernels 3, 4 and 5 at D = 16, 112 and 192 against their plain
+    versions, within ``flash_errors`` and ``grad_errors``; on a causal case
+    the forward that skips the masked blocks equals the full walk, bit for
+    bit."""
+    gen = _card()
+    _, causal, Sq, Sk, mask_kind, q_offset = case
+    q = torch.randn(B, hq, Sq, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, hkv, Sk, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, hkv, Sk, d, generator=gen, device="cuda").to(dtype)
+    q, k, v, maskf, bk = fa.flash_operands(q, k, v, _flash_mask(mask_kind, Sk))
+    q3, k3, v3 = fa._h3(q), fa._h3(k), fa._h3(v)
+    kw = dict(cfg=cfg, sm_scale=d ** -0.5, causal=causal, bk=bk, group=hq // hkv,
+              q_offset=q_offset)
+    got = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw)
+    ref = fa._flash_fwd_plain(q3, k3, v3, maskf, **kw)
+    err = fa.flash_errors(got, ref, cfg, float(v.float().abs().max()), bk, k3.shape[1] // bk)
+    assert err["m"] <= 1 and err["l"] <= 1 and err["o"] <= 1, err
+    do3 = torch.randn(q3.shape, generator=gen, device="cuda")
+    args = (q3, k3, v3, maskf, do3, fa._flash_delta(do3, ref[0]).contiguous(), *ref[1:])
+    gerr = fa.grad_errors(
+        (fa._flash_bwd_dq_cuda(*args, **kw), *fa._flash_bwd_dkv_cuda(*args, **kw)),
+        (fa._flash_bwd_dq_plain(*args, **kw), *fa._flash_bwd_dkv_plain(*args, **kw)),
+        cfg)
+    assert max(gerr["dq"], gerr["dk"], gerr["dv"]) <= 1, gerr
+    if causal:
+        full = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw, skip_masked=False)
+        assert all(map(torch.equal, got, full))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", ["float32", "fp2fx8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+@pytest.mark.parametrize("d, hq, hkv", [(16, 4, 2), (128, 32, 8)], ids=["d16", "d128"])
+def test_verify_lanes_are_decode_at_their_frontier(d, hq, hkv, paged, cache_dtype):
+    """The property that makes speculative decoding exact on the card: lane
+    j of a chunk of 5 (kernel 8, or 9 over pages of 16) is bit for bit the
+    decode kernel (6, or 7) run at lane j's causal frontier L + j."""
+    gen = _card()
+    Sq, ps, nb = 5, 16, 8
+    Sk = nb * ps
+    k, v, sc, _ = _kv_pool(gen, (B, hkv, Sk, d), cache_dtype)
+    base = torch.tensor([Sk - Sq, 37], device="cuda")
+    pos = base[:, None] + torch.arange(Sq, device="cuda")[None]
+    lane = (torch.arange(Sk, device="cuda")[None, None] <= pos[:, :, None]).float()
+    q = torch.randn(B, hq, Sq, d, generator=gen, device="cuda")
+    if paged:
+        def pages(x):    # (B, Hkv, Sk[, D]) -> pages 1.. in order, page 0 null
+            x = x.reshape(B, hkv, nb, ps, *x.shape[3:]).transpose(1, 2)
+            x = x.reshape(B * nb, hkv, ps, *x.shape[4:])
+            return torch.cat([torch.zeros_like(x[:1]), x]).contiguous()
+        k, v = pages(k), pages(v)
+        sc = {n: pages(t) for n, t in sc.items()}
+        bt = torch.arange(1, B * nb + 1, dtype=torch.int32, device="cuda").reshape(B, nb)
+        ver = fa.flash_hyft_verify(q, k, v, lane, HYFT16, block_tables=bt, **sc)
+    else:
+        ver = fa.flash_hyft_verify(q, k, v, lane, HYFT16, **sc)
+    for j in range(Sq):
+        mj = lane[:, j].contiguous()
+        if paged:
+            dec = fa.flash_hyft_decode_paged(q[:, :, j:j + 1], k, v, bt, HYFT16,
+                                             kv_len_mask=mj, **sc)
+        else:
+            dec = fa.flash_hyft_decode(q[:, :, j:j + 1], k, v, HYFT16, kv_len_mask=mj, **sc)
+        assert torch.equal(dec, ver[:, :, j:j + 1]), j
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", ["float32", "fp2fx8", "bfloat16"])
+@pytest.mark.parametrize("d, hq, hkv", [(16, 4, 2), (112, 4, 4)], ids=["d16", "d112"])
+def test_narrow_widths_are_the_padded_layout_bitwise(d, hq, hkv, cache_dtype):
+    """The design of the widths off the 64-column layouts: D 16 and 112 run
+    at kDP = 64 and 128 with the columns past D zeroed, so kernels 3-9 at D
+    equal the same kernels at kDP on operands zero-padded to kDP, bit for
+    bit (the padded columns' outputs are zero), HYFT16 and HYFT32."""
+    gen = _card()
+    dp = -(-d // 64) * 64
+
+    def pad(t):   # zero columns d..dp-1, in device memory (the test's own copy)
+        return torch.nn.functional.pad(t, (0, dp - d)) if t.dtype != torch.int8 else \
+            torch.cat([t, torch.zeros(*t.shape[:-1], dp - d, dtype=t.dtype, device="cuda")], -1)
+    Sk, Sq, ps, nb = 600, 5, 16, 40
+    k, v, sc, _ = _kv_pool(gen, (B * hkv, Sk, d), cache_dtype)
+    lengths = torch.tensor([Sk, Sk // 3 + 1], device="cuda")
+    mask = (torch.arange(Sk, device="cuda")[None] < lengths[:, None]).float()
+    lane = (torch.arange(Sk, device="cuda")[None, None]
+            <= (lengths[:, None, None] - Sq + torch.arange(Sq, device="cuda")[None, :, None]))
+    lane = lane.float().contiguous()
+    kp, vp, scp, _ = _kv_pool(gen, (B * nb + 1, hkv, ps, d), cache_dtype)
+    bt = (torch.randperm(B * nb, generator=gen, device="cuda") + 1).int().reshape(B, nb)
+    pmask = (torch.arange(nb * ps, device="cuda")[None] < lengths[:, None]).float()
+    plane = (torch.arange(nb * ps, device="cuda")[None, None]
+             <= (lengths[:, None, None] - Sq + torch.arange(Sq, device="cuda")[None, :, None]))
+    plane = plane.float().contiguous()
+    g = hq // hkv
+    q1 = torch.randn(B * hkv, g, d, generator=gen, device="cuda")
+    qc = torch.randn(B * hkv, g * Sq, d, generator=gen, device="cuda")
+    for cfg in (HYFT16, HYFT32):
+        for q3, m, pm, sq in ((q1, mask, pmask, None), (qc, lane, plane, Sq)):
+            kw = dict(cfg=cfg, sm_scale=d ** -0.5, hkv=hkv, sq=sq)
+            got = fa._splitk_attention_cuda(q3, k, v, sc.get("k_scale"), sc.get("v_scale"), m,
+                                            bk=256, **kw)
+            ref = fa._splitk_attention_cuda(pad(q3), pad(k), pad(v), sc.get("k_scale"),
+                                            sc.get("v_scale"), m, bk=256, **kw)
+            assert torch.equal(got, ref[..., :d]) and not ref[..., d:].any()
+            got = fa._paged_attention_cuda(q3, kp, vp, scp.get("k_scale"), scp.get("v_scale"),
+                                           bt, pm, **kw)
+            ref = fa._paged_attention_cuda(pad(q3), pad(kp), pad(vp), scp.get("k_scale"),
+                                           scp.get("v_scale"), bt, pm, **kw)
+            assert torch.equal(got, ref[..., :d]) and not ref[..., d:].any()
+    if cache_dtype == "fp2fx8":
+        return
+    dtype = torch.float32 if cache_dtype == "float32" else torch.bfloat16
+    q3 = torch.randn(B * hq, 256, d, generator=gen, device="cuda").to(dtype)
+    k3 = torch.randn(B * hkv, 256, d, generator=gen, device="cuda").to(dtype)
+    v3 = torch.randn(B * hkv, 256, d, generator=gen, device="cuda").to(dtype)
+    do3 = torch.randn(B * hq, 256, d, generator=gen, device="cuda")
+    for cfg in (HYFT16, HYFT32):
+        kw = dict(cfg=cfg, sm_scale=d ** -0.5, causal=True, bk=128, group=g, q_offset=0)
+        o, m, l = fa._flash_fwd_cuda(q3, k3, v3, None, **kw)
+        ref = fa._flash_fwd_cuda(pad(q3), pad(k3), pad(v3), None, **kw)
+        assert torch.equal(o, ref[0][..., :d]) and torch.equal(m, ref[1]) and torch.equal(l, ref[2])
+        args = (q3, k3, v3, None, do3, fa._flash_delta(do3, o).contiguous(), m, l)
+        pargs = (pad(q3), pad(k3), pad(v3), None, pad(do3),
+                 fa._flash_delta(do3, o).contiguous(), m, l)
+        dq, (dk, dv) = fa._flash_bwd_dq_cuda(*args, **kw), fa._flash_bwd_dkv_cuda(*args, **kw)
+        rdq, (rdk, rdv) = fa._flash_bwd_dq_cuda(*pargs, **kw), fa._flash_bwd_dkv_cuda(*pargs, **kw)
+        assert torch.equal(dq, rdq[..., :d]) and torch.equal(dk, rdk[..., :d])
+        assert torch.equal(dv, rdv[..., :d])
 
 
 # --------------------------------------------------------------------------

@@ -36,16 +36,20 @@ from repro_torch.models import attention as tattn
 CONFIGS = {"hyft16": (jhyft.HYFT16, thyft.HYFT16),
            "hyft32": (jhyft.HYFT32, thyft.HYFT32)}
 B, HKV, G, D, NB = 2, 2, 2, 16, 4
+# (ps, d): pages of 4 and 16 at D; then pages of 16 at the configs' other
+# head widths beside 64 and 128, zamba2-7b's 112 and nemotron-4-340b's 192
+PAGES = [pytest.param(4, D, id="4"), pytest.param(16, D, id="16"),
+         pytest.param(16, 112, id="16-d112"), pytest.param(16, 192, id="16-d192")]
 
 
-def _pool(ps, seed, quantized):
+def _pool(ps, seed, quantized, d=D):
     """Random pools of B * NB + 3 pages (page 0 the null page, holding
     values no unmasked read may see), a shuffled block table whose blocks
     past each sequence's length are the null page, and the lengths."""
     rng = np.random.default_rng(seed)
     P = B * NB + 3
-    k = rng.standard_normal((P, HKV, ps, D)).astype(np.float32)
-    v = rng.standard_normal((P, HKV, ps, D)).astype(np.float32)
+    k = rng.standard_normal((P, HKV, ps, d)).astype(np.float32)
+    v = rng.standard_normal((P, HKV, ps, d)).astype(np.float32)
     lengths = np.array([3 * ps - 1, ps + 2])
     used = -(-lengths // ps)
     perm = rng.permutation(np.arange(1, P))
@@ -81,11 +85,11 @@ def _hold(out, ref, name, ct, vmax):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32", "fp2fx8"])
-@pytest.mark.parametrize("ps", [4, 16])
-def test_plain_paged_decode_matches_jax(ps, quantized, name):
+@pytest.mark.parametrize("ps, d", PAGES)
+def test_plain_paged_decode_matches_jax(ps, d, quantized, name):
     cj, ct = CONFIGS[name]
-    k, v, sc, bt, lengths = _pool(ps, 0, quantized)
-    q = np.random.default_rng(1).standard_normal((B, HKV * G, 1, D)).astype(np.float32)
+    k, v, sc, bt, lengths = _pool(ps, 0, quantized, d)
+    q = np.random.default_rng(1).standard_normal((B, HKV * G, 1, d)).astype(np.float32)
     mask = (np.arange(NB * ps)[None] < lengths[:, None]).astype(np.float32)
     (jk, jv, jbt, jsc), (tk, tv, tbt, tsc) = _operands(k, v, sc, bt)
     ref = np.asarray(flash_hyft_decode_paged(
@@ -93,21 +97,21 @@ def test_plain_paged_decode_matches_jax(ps, quantized, name):
         kv_len_mask=jnp.asarray(mask), **jsc))
     out = tfa.flash_hyft_decode_paged(torch.from_numpy(q), tk, tv, tbt, ct,
                                       kv_len_mask=torch.from_numpy(mask), **tsc)
-    assert out.shape == (B, HKV * G, 1, D) and out.dtype == torch.float32
+    assert out.shape == (B, HKV * G, 1, d) and out.dtype == torch.float32
     _hold(out.numpy(), ref, name, ct, _vmax(v, sc))
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 @pytest.mark.parametrize("Sq", [1, 5, 17])
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32", "fp2fx8"])
-@pytest.mark.parametrize("ps", [4, 16])
-def test_plain_paged_verify_matches_jax(ps, quantized, Sq, name):
+@pytest.mark.parametrize("ps, d", PAGES)
+def test_plain_paged_verify_matches_jax(ps, d, quantized, Sq, name):
     """The chunk ends at each sequence's length: lane t sees keys
     ``<= length - Sq + t`` (17 lanes reach back before a short sequence's
     start, where a lane sees nothing but the masked keys)."""
     cj, ct = CONFIGS[name]
-    k, v, sc, bt, lengths = _pool(ps, 2, quantized)
-    q = np.random.default_rng(3).standard_normal((B, HKV * G, Sq, D)).astype(np.float32)
+    k, v, sc, bt, lengths = _pool(ps, 2, quantized, d)
+    q = np.random.default_rng(3).standard_normal((B, HKV * G, Sq, d)).astype(np.float32)
     start = lengths - Sq
     pm = (np.arange(NB * ps)[None, None]
           <= (start[:, None, None] + np.arange(Sq)[None, :, None])).astype(np.float32)
@@ -116,7 +120,7 @@ def test_plain_paged_verify_matches_jax(ps, quantized, Sq, name):
                                        interpret=True, block_tables=jbt, **jsc))
     out = tfa.flash_hyft_verify(torch.from_numpy(q), tk, tv, torch.from_numpy(pm),
                                 ct, block_tables=tbt, **tsc)
-    assert out.shape == (B, HKV * G, Sq, D)
+    assert out.shape == (B, HKV * G, Sq, d)
     _hold(out.numpy(), ref, name, ct, _vmax(v, sc))
 
 

@@ -256,9 +256,16 @@ def test_config_is_validated(setup):
         with pytest.raises(ValueError):
             tsched.SlotPoolEngine(tmodel, tparams, ServeConfig(max_len=32, **kw),
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsched.SlotPoolEngine(tmodel, tparams,
-                              ServeConfig(max_len=32, scheduler="spec"), device="cpu")
+    # the speculative scheduler is ported: it builds, and refuses what JAX's
+    # refuses (tests/test_torch_spec.py holds the rest)
+    eng = tsched.SlotPoolEngine(tmodel, tparams, ServeConfig(max_len=32, scheduler="spec"),
+                                device="cpu")
+    assert eng.spec and eng.drafter is not None
+    for kw in (dict(temperature=0.5), dict(draft_k=0), dict(spec_mode="banana")):
+        with pytest.raises(ValueError):
+            tsched.SlotPoolEngine(tmodel, tparams,
+                                  ServeConfig(max_len=32, scheduler="spec", **kw),
+                                  device="cpu")
 
 
 def test_audit_catches_a_leaked_slot_page(setup):

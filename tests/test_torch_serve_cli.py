@@ -14,14 +14,11 @@ import pytest
 from repro_torch.launch import serve
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-# flags of the JAX launcher whose layers the port does not have yet:
-# speculative decoding, and the observability layer (trace, metrics,
-# telemetry, XLA profile)
-NOT_PORTED = {"--spec-mode", "--draft-k", "--ngram-max", "--draft-model",
-              "--trace", "--metrics-out", "--xla-profile", "--telemetry"}
-# choices of a ported flag that belong to a layer not ported: the
-# speculative scheduler
-NOT_PORTED_CHOICES = {"--scheduler": {"spec"}}
+# flags of the JAX launcher whose layer the port does not have yet: the
+# observability layer (trace, metrics, telemetry, XLA profile)
+NOT_PORTED = {"--trace", "--metrics-out", "--xla-profile", "--telemetry"}
+# choices of a ported flag that belong to a layer not ported: none
+NOT_PORTED_CHOICES: dict = {}
 
 
 def _jax_flags() -> dict:
@@ -118,3 +115,27 @@ def test_launcher_deadline_reaches_each_request(capsys):
                 "--n-slots", "1", "--decode-burst", "1", "--max-new", "20"])
     out = capsys.readouterr().out
     assert out.count("FAILED(deadline)") == 3
+
+
+@pytest.mark.parametrize("mode", [
+    ["--spec-mode", "ngram"],
+    ["--spec-mode", "model", "--draft-model", "qwen2-1.5b", "--draft-k", "3"],
+], ids=["ngram", "model"])
+def test_launcher_serves_spec_paged(mode, capsys):
+    """``--scheduler spec`` over a paged pool in both drafter modes: every
+    request completes, the audit runs, and the launcher prints the JAX
+    launcher's ``spec:`` summary line with the step, draft and acceptance
+    counts."""
+    serve.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
+                "--scheduler", "spec", "--kv-layout", "paged", "--page-size", "8",
+                "--attn-mode", "kernel", "--cache-dtype", "fp2fx8", "--audit",
+                "--batch", "3", "--n-slots", "2", "--prefill", "10", "--max-new", "6",
+                *mode])
+    out = capsys.readouterr().out
+    rows = [ln for ln in out.splitlines() if ln.startswith("[")]
+    assert len(rows) == 3 and "FAILED" not in out and "CANCELLED" not in out
+    spec = [ln for ln in out.splitlines() if ln.startswith("spec: ")]
+    assert len(spec) == 1 and "steps=" in spec[0] and "rate " in spec[0]
+    stats = ast.literal_eval(out.split("stats: ", 1)[1].splitlines()[0])
+    assert stats["spec_steps"] > 0 and stats["audits"] > 0
+    assert stats["draft_tokens"] > 0 or mode[1] == "ngram"

@@ -28,15 +28,21 @@ from repro_torch.kernels import flash_attention as tfa
 
 CONFIGS = {"hyft16": (jhyft.HYFT16, thyft.HYFT16),
            "hyft32": (jhyft.HYFT32, thyft.HYFT32)}
-SHAPES = [(16, 1), (300, 2), (600, 3)]   # (Sk, g): padding, 2 and 3 splits
 B, HKV, D = 2, 2, 32
+# (Sk, g, d): padding, 2 and 3 splits at D; then the head widths of the
+# configs beside 64 and 128: the smoke models' 16, zamba2-7b's 112 (a group
+# of 1) and nemotron-4-340b's 192 (a group of 12)
+SHAPES = [pytest.param(16, 1, D, id="16-1"), pytest.param(300, 2, D, id="300-2"),
+          pytest.param(600, 3, D, id="600-3"), pytest.param(300, 2, 16, id="300-2-d16"),
+          pytest.param(300, 1, 112, id="300-1-d112"),
+          pytest.param(64, 12, 192, id="64-12-d192")]
 
 
-def _inputs(Sk, g, Sq=1, seed=0):
+def _inputs(Sk, g, Sq=1, seed=0, d=D):
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((B, HKV * g, Sq, D)).astype(np.float32)
-    k = rng.standard_normal((B, HKV, Sk, D)).astype(np.float32)
-    v = rng.standard_normal((B, HKV, Sk, D)).astype(np.float32)
+    q = rng.standard_normal((B, HKV * g, Sq, d)).astype(np.float32)
+    k = rng.standard_normal((B, HKV, Sk, d)).astype(np.float32)
+    v = rng.standard_normal((B, HKV, Sk, d)).astype(np.float32)
     return q, k, v
 
 
@@ -71,43 +77,43 @@ def _kv(k, v, quantized):
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32", "fp2fx8"])
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-@pytest.mark.parametrize("Sk,g", SHAPES)
-def test_plain_decode_matches_jax(Sk, g, name, quantized):
+@pytest.mark.parametrize("Sk,g,d", SHAPES)
+def test_plain_decode_matches_jax(Sk, g, d, name, quantized):
     cj, ct = CONFIGS[name]
-    q, k, v = _inputs(Sk, g)
+    q, k, v = _inputs(Sk, g, d=d)
     mask = _ragged_mask(Sk)
     (jk, jv, jsc), (tk, tv, tsc) = _kv(k, v, quantized)
     ref = np.asarray(flash_hyft_decode(jnp.asarray(q), jk, jv, cj,
                                        kv_len_mask=jnp.asarray(mask), **jsc))
     out = tfa.flash_hyft_decode(torch.from_numpy(q), tk, tv, ct,
                                 kv_len_mask=torch.from_numpy(mask), **tsc)
-    assert out.shape == (B, HKV * g, 1, D) and out.dtype == torch.float32
+    assert out.shape == (B, HKV * g, 1, d) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=_tol(ct, v))
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32", "fp2fx8"])
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-@pytest.mark.parametrize("Sk,g", SHAPES)
-def test_plain_verify_matches_jax(Sk, g, name, quantized):
+@pytest.mark.parametrize("Sk,g,d", SHAPES)
+def test_plain_verify_matches_jax(Sk, g, d, name, quantized):
     cj, ct = CONFIGS[name]
     Sq = 5
-    q, k, v = _inputs(Sk, g, Sq=Sq, seed=1)
+    q, k, v = _inputs(Sk, g, Sq=Sq, seed=1, d=d)
     pm = _lane_mask(Sk, Sq)
     (jk, jv, jsc), (tk, tv, tsc) = _kv(k, v, quantized)
     ref = np.asarray(flash_hyft_verify(jnp.asarray(q), jk, jv, jnp.asarray(pm),
                                        cj, **jsc))
     out = tfa.flash_hyft_verify(torch.from_numpy(q), tk, tv,
                                 torch.from_numpy(pm), ct, **tsc)
-    assert out.shape == (B, HKV * g, Sq, D)
+    assert out.shape == (B, HKV * g, Sq, d)
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=_tol(ct, v))
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32", "fp2fx8"])
-@pytest.mark.parametrize("Sk,g", SHAPES)
-def test_verify_at_one_token_is_decode_bitwise(Sk, g, quantized):
+@pytest.mark.parametrize("Sk,g,d", SHAPES)
+def test_verify_at_one_token_is_decode_bitwise(Sk, g, d, quantized):
     """At Sq == 1 the chunk path is the decode path: same splits, same tile,
     same combine; only the mask gained a lane axis."""
-    q, k, v = _inputs(Sk, g, seed=2)
+    q, k, v = _inputs(Sk, g, seed=2, d=d)
     mask = torch.from_numpy(_ragged_mask(Sk))
     _, (tk, tv, tsc) = _kv(k, v, quantized)
     qt = torch.from_numpy(q)
