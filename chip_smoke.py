@@ -108,6 +108,22 @@ script exits non-zero without its last line:
               ``PARITY_BOUND``; and, not gated, the token agreement of the
               paged engine with the dense continuous engine on the same
               requests;
+ 11b. chaos   the continuous cell under the chaos harness, ``audit=True``
+              (``chaos_phase``): bf16 in kernel mode under the JAX
+              package's sweep plan beside a fault-free run (faults by kind,
+              quarantines beside the poisons, tokens/s, TTFT and TBT), and
+              under tick faults alone (squeeze, evict storm and cancel must
+              fire); fp32 at 8 layers with 3 slots poisoned, in kernel mode
+              (printed: the reference's divide hides a NaN V) and unfused
+              through kernel 1 (one quarantine a poison, each request
+              quarantined once emits its fault-free tokens), traced into
+              build/chaos/ (spans, instants, metrics JSONL); one request
+              poisoned twice (the unfused fp32 retry completes it);
+              telemetry off and on (the same tokens, the numerics
+              summary).  Every run: its kernels (7 and 9, or 1) with their
+              counts set to 0 before it, every request ends with an
+              outcome, the pool holds only the trie's pages (and the
+              harness's squeeze) after it;
  12. softmax check  the standalone softmax kernels (forward and backward)
               against their plain versions at the unfused path's shapes:
               training rows (4 x 12 x 1024, 1024) causal, prompt rows
@@ -1051,6 +1067,217 @@ def paged_parity_phase(torch, params, cfg, paged_outs, reqs):
           "token_agreement_paged_vs_dense": same / total,
           "requests_identical": sum(done[r.rid].tokens == paged_outs["fp2fx8"][r.rid]
                                     for r in reqs)})
+
+
+# the chaos phase: the JAX package's sweep plan (tests/test_chaos.py) over the
+# continuous cell's traffic; a plan of tick faults alone at the sweep's
+# squeeze hold, at rates that fire each of them in a run of this traffic;
+# and the depth of its fp32 exactness runs (the spec phase's cut)
+CHAOS_PLAN = dict(seed=1, preempt_rate=0.1, evict_storm_rate=0.1, squeeze_rate=0.1,
+                  squeeze_hold=2, nan_kv_rate=0.1, cancel_rate=0.03, max_faults=8)
+CHAOS_TICK_PLAN = dict(seed=3, evict_storm_rate=0.3, squeeze_rate=0.3, squeeze_hold=2,
+                       cancel_rate=0.1, max_faults=8)
+CHAOS_FP32_LAYERS = 8
+CHAOS_DIR = ROOT / "build" / "chaos"           # the traced run's files
+
+
+def _chaos_run(torch, model, params, scfg, reqs, cfg, plan=None, obs=None):
+    """One ``SlotPoolEngine`` run under an optional ``FaultPlan``: the
+    launch counts set to 0 just before and read just after (kernel mode:
+    kernels 7 and 9 once a layer per burst step and per prefill call;
+    unfused: kernel 1 once a layer per model call, and as many more per
+    layer as an fp32 retry's engine makes; nothing else); every request
+    must end with an outcome, every ok one with its whole budget; the
+    audits (``scfg.audit``) raise on drift inside the run, and after it
+    the pool holds only the trie's pages and what the harness still
+    squeezes.  Returns (record, completions, engine, monkey)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.serve.chaos import ChaosMonkey, FaultPlan
+    from repro_torch.serve.scheduler import SlotPoolEngine
+
+    monkey = ChaosMonkey(FaultPlan(**plan)) if plan else None
+    eng = SlotPoolEngine(model, params, scfg, device=DEV, chaos=monkey, obs=obs)
+    _zero(fa.LAUNCHES, hs.LAUNCHES)
+    done, wall = _timed(torch, lambda: eng.run(reqs))
+    got = {**fa.LAUNCHES, **hs.LAUNCHES}
+    st = eng.stats
+    want = dict.fromkeys(got, 0)
+    if scfg.attn_mode == "unfused":
+        want["hyft_softmax_fwd"] = cfg.n_layers * (st["burst_steps"] + st["prefills"])
+        extra = got["hyft_softmax_fwd"] - want["hyft_softmax_fwd"]
+        if st["fp32_retries"] and extra > 0 and extra % cfg.n_layers == 0:
+            want["hyft_softmax_fwd"] = got["hyft_softmax_fwd"]
+    else:
+        want["hyft_paged_decode"] = cfg.n_layers * st["burst_steps"]
+        want["hyft_paged_verify"] = cfg.n_layers * st["prefills"]
+    assert got == want, f"launch counts {got} != {want}"
+    assert sorted(done) == sorted(r.rid for r in reqs), "a request has no outcome"
+    budget = {r.rid: r.max_new for r in reqs}
+    for rid, c in done.items():
+        assert not c.ok or len(c.tokens) == budget[rid], f"request {rid} ok but short"
+    held = [p for h in eng._extra_holders for p in h]
+    eng.pool.audit(list(eng.slot_pages) + list(eng._extra_holders), eng.trie)
+    assert not any(eng.slot_pages), "a finished slot still holds pages"
+    assert eng.pool.pages_in_use == eng.trie.n_pages() + len(held), \
+        f"{eng.pool.pages_in_use} pages in use, trie {eng.trie.n_pages()}, held {len(held)}"
+    ttft = [c.ttft for c in done.values() if c.ttft is not None]
+    tbt = [t for c in done.values() for t in _tbt(c)]
+    n_tok = sum(len(c.tokens) for c in done.values())
+    rec = {"cache": scfg.cache_dtype, "compute": cfg.compute_dtype, "n_layers": cfg.n_layers,
+           "attn_mode": scfg.attn_mode, "softmax": model.cfg.softmax_impl,
+           "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+           "ttft_p50_s": _pct(ttft, 0.5), "ttft_p99_s": _pct(ttft, 0.99),
+           "tbt_p50_s": _pct(tbt, 0.5), "tbt_p99_s": _pct(tbt, 0.99),
+           "ok": sum(c.ok for c in done.values()),
+           "cancelled": sum(c.cancelled for c in done.values()),
+           "failed": {str(rid): c.failure.reason for rid, c in done.items()
+                      if c.failure is not None},
+           "launches": got, "pages_in_use": eng.pool.pages_in_use,
+           "trie_pages": eng.trie.n_pages(), "pages_held_by_the_harness": len(held),
+           "stats": st}
+    if monkey is not None:
+        rec["faults"] = monkey.summary()
+        rec["nan_kv"] = sum(e["kind"] == "nan_kv" for e in monkey.log)
+    return rec, done, eng, monkey
+
+
+def chaos_phase(torch, params, cfg, reqs, card):
+    """The serving robustness layer on the card (qwen2-1.5b at full width,
+    the continuous cell's 24 chat requests over the paged pool with the
+    prefix cache and ``audit=True``):
+      * bf16, fp2fx8, kernel mode (the continuous cell): a fault-free run,
+        then the JAX package's mixed sweep plan (``CHAOS_PLAN``): faults by
+        kind, quarantines beside the poisoned slots, tokens/s and TTFT/TBT
+        beside the fault-free run's; then, every arrival at 0, tick faults
+        alone (``CHAOS_TICK_PLAN``), which must squeeze the pool, evict the
+        trie and cancel a request;
+      * fp32 compute at CHAOS_FP32_LAYERS layers, float32 pages, every
+        arrival at 0, every burst's first chance poisoned (``nan_kv_rate=1``,
+        3 faults), beside a fault-free run: in kernel mode the quarantines
+        and the poisoned requests whose tokens differ are printed (the
+        reference's ``hyft_finalize`` turns a NaN PV sum into a finite
+        number, ROADMAP queue 3); in the unfused mode through kernel 1 (the
+        JAX config's default mode, where PV is a plain product and a NaN V
+        reaches the logits) the ladder's gates: one quarantine a poison,
+        traced, with a metrics JSONL, and a request quarantined once emits
+        the fault-free tokens (recomputed from its prompt and the tokens
+        before the fault); then one request alone (one slot) poisoned
+        twice, which walks to the unfused fp32 retry and completes its
+        budget;
+      * bf16, fp2fx8, kernel mode, every arrival at 0: telemetry off and on
+        give the same tokens; the numerics monitor's summary.
+    Each run drives its kernels with their counts set to 0 before it
+    (``_chaos_run``)."""
+    import numpy as np
+    from repro_torch.models import build_model
+    from repro_torch.obs import Obs
+
+    model = build_model(cfg.with_(softmax_impl="hyft16"))
+    at0 = [dataclasses.replace(r, arrival=0.0) for r in reqs]
+    runs = {}
+    for name, plan, rs in (("bf16_fault_free", None, reqs),
+                           ("bf16_mixed_plan", CHAOS_PLAN, reqs),
+                           ("bf16_tick_plan", CHAOS_TICK_PLAN, at0)):
+        rec, _, _, _ = _chaos_run(torch, model, params,
+                                  _serve_config(cache_dtype="fp2fx8", audit=True), rs,
+                                  cfg, plan)
+        runs[name] = rec
+        emit({"phase": "chaos", "part": name, "card": card, "plan": plan, **rec})
+        assert rec["stats"]["audits"] > 0
+    ff, mx = runs["bf16_fault_free"], runs["bf16_mixed_plan"]
+    emit({"phase": "chaos", "part": "bf16_mixed_vs_fault_free", "card": card,
+          "faults_by_kind": mx["faults"]["by_kind"], "nan_kv": mx["nan_kv"],
+          "quarantines": mx["stats"]["quarantines"],
+          **{k: [mx[k], ff[k]] for k in ("tokens_per_s", "ttft_p50_s", "ttft_p99_s",
+                                         "tbt_p50_s", "tbt_p99_s", "wall_s")}})
+    assert mx["faults"]["faults"] > 0, "the mixed plan fired no fault"
+    tick = runs["bf16_tick_plan"]["faults"]["by_kind"]
+    assert {"squeeze", "evict_storm", "cancel"} <= set(tick), f"tick faults {tick}"
+
+    # fp32 at CHAOS_FP32_LAYERS layers, three poisons
+    cfg32 = cfg.with_(n_layers=CHAOS_FP32_LAYERS, compute_dtype="float32",
+                      softmax_impl="hyft16")
+    params32 = _cut(params, CHAOS_FP32_LAYERS)
+    poison3 = dict(seed=0, nan_kv_rate=1.0, max_faults=3)
+    model32 = build_model(cfg32)
+    scfg32 = _serve_config(cache_dtype="float32", audit=True)
+    _, base, _, _ = _chaos_run(torch, model32, params32, scfg32, at0, cfg32)
+    rec, done, _, _ = _chaos_run(torch, model32, params32, scfg32, at0, cfg32, poison3)
+    emit({"phase": "chaos", "part": "fp32_kernel_mode_nan_kv_rate_1", "card": card, **rec,
+          "differing_from_fault_free": [r.rid for r in at0
+                                        if done[r.rid].tokens != base[r.rid].tokens]})
+
+    # the ladder, unfused through kernel 1: recovery gives the fault-free tokens
+    cfgu = cfg32.with_(softmax_impl="hyft16_kernel")
+    modelu = build_model(cfgu)
+    scfgu = _serve_config(cache_dtype="float32", audit=True, attn_mode="unfused")
+    ref, base, _, _ = _chaos_run(torch, modelu, params32, scfgu, at0, cfgu)
+    emit({"phase": "chaos", "part": "fp32_unfused_fault_free", "card": card, **ref})
+    CHAOS_DIR.mkdir(parents=True, exist_ok=True)
+    trace, metrics = CHAOS_DIR / "trace.json", CHAOS_DIR / "metrics.jsonl"
+    metrics.unlink(missing_ok=True)
+    obs = Obs.enabled(metrics_path=str(metrics))
+    rec, done, eng, monkey = _chaos_run(torch, modelu, params32, scfgu, at0, cfgu, poison3,
+                                        obs)
+    once = [rid for rid, n in eng.numeric_faults.items() if n == 1]
+    twice = [rid for rid, n in eng.numeric_faults.items() if n > 1]
+    differing = [r.rid for r in at0 if done[r.rid].tokens != base[r.rid].tokens]
+    obs.tracer.write(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = [e["name"] for e in events]
+    lines = [json.loads(ln) for ln in metrics.read_text().splitlines()]
+    emit({"phase": "chaos", "part": "fp32_unfused_nan_kv_rate_1", "card": card, **rec,
+          "quarantined_once": once, "fp32_retried": twice, "differing_from_fault_free": differing,
+          "trace_events": len(events), "trace_event_kinds": {n: names.count(n)
+                                                             for n in sorted(set(names))},
+          "metrics_lines": len(lines)})
+    assert rec["stats"]["quarantines"] == rec["nan_kv"] == 3, \
+        f"{rec['stats']['quarantines']} quarantines for {rec['nan_kv']} poisoned slots"
+    assert len(once) + 2 * len(twice) == 3
+    assert all(done[r.rid].ok for r in at0), "a request did not recover"
+    assert not set(differing) - set(twice), \
+        f"requests {differing} differ from the fault-free run"
+    assert names.count("decode_burst") == rec["stats"]["bursts"]
+    assert names.count("quarantine") == 3 and any(n.startswith("chaos.") for n in names)
+    assert lines and any(m["name"] == "serve.quarantines" and m["value"] == 3
+                         for m in lines[-1]["metrics"])
+    solo = [at0[0]]
+    scfg1 = _serve_config(cache_dtype="float32", audit=True, attn_mode="unfused", n_slots=1)
+    rec, done, eng, _ = _chaos_run(torch, modelu, params32, scfg1, solo, cfgu,
+                                   dict(seed=0, nan_kv_rate=1.0, max_faults=2))
+    c = done[solo[0].rid]
+    agree = sum(a == b for a, b in zip(c.tokens, base[solo[0].rid].tokens))
+    emit({"phase": "chaos", "part": "fp32_unfused_repeat_fault", "card": card, **rec,
+          "token_agreement_with_fault_free": agree / solo[0].max_new})
+    assert rec["stats"]["quarantines"] == 2 and rec["stats"]["fp32_retries"] == 1
+    assert c.ok and len(c.tokens) == solo[0].max_new
+    del params32, base
+    torch.cuda.empty_cache()
+
+    # telemetry changes no token
+    outs, summary = {}, None
+    for tel in (False, True):
+        rec, done, eng, _ = _chaos_run(
+            torch, model, params, _serve_config(cache_dtype="fp2fx8", audit=True,
+                                                telemetry=tel), at0, cfg)
+        outs[tel] = {rid: c.tokens for rid, c in done.items()}
+        summary = eng.obs.numerics.summary()
+        emit({"phase": "chaos", "part": f"bf16_telemetry_{'on' if tel else 'off'}",
+              "card": card, **{k: rec[k] for k in ("wall_s", "tokens_per_s", "tokens",
+                                                   "launches", "stats")}})
+    hist = summary["kv_scale_hist"]
+    emit({"phase": "chaos", "part": "bf16_telemetry_summary", "card": card,
+          "z_max": summary["z_max"], "z_min": summary["z_min"],
+          "zsub_min": summary["zsub_min"], "bursts": summary["bursts"],
+          "kv_scale_exponents": [min(hist), max(hist)] if hist else None,
+          "kv_scale_min": summary["kv_scale_min"], "kv_scale_max": summary["kv_scale_max"],
+          "kv_saturated": summary["kv_saturated"],
+          "kv_saturation_rate": summary["kv_saturation_rate"],
+          "converts": summary["converts"],
+          "tokens_identical": outs[True] == outs[False]})
+    assert outs[True] == outs[False], "telemetry changed the tokens"
+    assert summary["bursts"] > 0 and np.isfinite(summary["z_max"]) and hist
 
 
 def _profiled(torch, fn):
@@ -2526,6 +2753,8 @@ def main():
     profile_phase(torch, params, cfg)
     paged_launches, paged_outs, reqs = continuous_serve_phase(torch, params, cfg)
     paged_parity_phase(torch, params, cfg, paged_outs, reqs)
+    chaos_phase(torch, params, cfg, reqs, info["nvidia_smi"])
+    torch.cuda.empty_cache()
     unfused_launches = unfused_serve_phase(torch, params, cfg)
     profile_phase(torch, params, cfg, softmax="hyft16_kernel", attn_mode="unfused")
     del params                                        # free the serving weights

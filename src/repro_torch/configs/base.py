@@ -113,8 +113,8 @@ class ServeConfig:
     """The serving knobs of the lockstep ``generate`` path, of the
     slot-pool scheduler (``repro_torch.serve.scheduler``) and of its
     speculative mode (``repro_torch.serve.spec``), with the JAX defaults.
-    The sequence-parallel and telemetry fields come with the slices that
-    port those layers (ROADMAP queue 1: obs/, distributed and the mesh)."""
+    The sequence-parallel fields come with the slice that ports that layer
+    (ROADMAP queue 1: distributed and the mesh)."""
 
     max_len: int = 256
     # KV-cache storage: a dtype name, or "fp2fx8" = int8 FP2FX raws +
@@ -180,8 +180,13 @@ class ServeConfig:
     audit: bool = False
     # bounded admission queue: an arrival that would push the waiting queue
     # past this many requests fails with "queue_full" (0 = unbounded;
-    # requeues from preemption are exempt)
+    # requeues from preemption and quarantine are exempt)
     max_queue: int = 0
-    # per-request requeue budget (preemptions): one more requeue fails with
-    # "retries_exhausted" and the partial tokens
+    # per-request requeue budget (preemptions + numeric quarantines): one
+    # more requeue fails with "retries_exhausted" and the partial tokens
     max_retries: int = 32
+    # --- hybrid-format telemetry (repro_torch/obs/numerics.py) ---
+    # per-burst device-side numeric stats (softmax-input exponent range
+    # before and after the max subtraction; fp2fx8 scale histogram and int8
+    # saturation of the cache after the burst), read back once per burst
+    telemetry: bool = False

@@ -34,12 +34,15 @@ F32 = torch.float32
 def fp2fx(x: torch.Tensor, frac_bits: int, total_bits: int) -> torch.Tensor:
     """Float -> fixed point raw (int32), round-to-nearest-even, saturating.
 
-    +-inf saturate; NaN is not special-cased (garbage in, garbage out).
+    +-inf saturate and NaN maps to 0, as XLA's float -> int32 convert does
+    after the JAX reference's clip (a NaN cast to int32 in torch gives
+    -2**31, a raw outside the format).
     """
     lo = float(-(2 ** (total_bits - 1)))
     hi = float(2 ** (total_bits - 1) - 1)
     scaled = x.to(F32) * (2.0 ** frac_bits)
-    return torch.clamp(torch.round(scaled), lo, hi).to(I32)
+    r = torch.clamp(torch.round(scaled), lo, hi)
+    return torch.where(torch.isnan(r), 0.0, r).to(I32)
 
 
 def fx2fp(raw: torch.Tensor, frac_bits: int) -> torch.Tensor:

@@ -42,12 +42,17 @@ __device__ __forceinline__ float pow2_float(int k) {
   return biased <= 0 ? 0.0f : __int_as_float(biased << 23);
 }
 
-// float -> fixed-point raw, round half to even, saturating -- numerics.fp2fx
+// float -> fixed-point raw, round half to even, saturating; NaN -> 0, as
+// XLA's convert and numerics.fp2fx.  __float2int_rn rounds half to even,
+// gives 0 for a NaN and saturates past the int range (cvt.rni.s32.f32);
+// the clamp to the format follows it on ints, because a float clamp first
+// would turn a NaN into lo.  The bounds are the fp32 ones as ints, so
+// finite inputs keep their raws
 __device__ __forceinline__ int fp2fx(float x, int frac, int total) {
   const float lo = -static_cast<float>(1 << (total - 1));
   const float hi = static_cast<float>((1 << (total - 1)) - 1);
-  const float r = rintf(__fmul_rn(x, pow2_float(frac)));
-  return static_cast<int>(fminf(fmaxf(r, lo), hi));
+  const int r = __float2int_rn(__fmul_rn(x, pow2_float(frac)));
+  return min(max(r, static_cast<int>(lo)), static_cast<int>(hi));
 }
 
 // hybrid exponent unit -- numerics.exp_unit (mant <= frac by HyftConfig)

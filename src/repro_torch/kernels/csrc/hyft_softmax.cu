@@ -107,6 +107,17 @@ __device__ long long block_sum(long long v, long long* scratch) {
   return r;
 }
 
+// the block's fp32 sum of its warps' sums (each already over its lanes), in
+// warp order
+__device__ float block_fsum_of_warps(float v, long long* scratch) {
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = __float_as_int(v);
+  __syncthreads();
+  float r = 0.0f;
+  for (int w = 0; w < kWarps; ++w) r = __fadd_rn(r, __int_as_float(static_cast<int>(scratch[w])));
+  __syncthreads();
+  return r;
+}
+
 // Grid: one block per row; dynamic shared memory: cols int32 when kStaged.
 template <typename Tin, typename Tout, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
@@ -340,29 +351,48 @@ __device__ __forceinline__ void stored_pairs(float (&y)[kN]) {
   }
 }
 
+// counts at or past this magnitude (+-inf among them: a NaN or inf dy's
+// product, log_mul reading its all-ones exponent) leave the int64 sum,
+// which 2^23 columns of them could overflow, and are summed in fp32 as the
+// reference sums every count
+constexpr float kWideCount = 0x1p40f;
+
 // The backward of one row by the reference's arithmetic: every count
-// floor(log_mul(dy, s) * 2^acc) summed in int64 after an F2I.S64, every
-// input read again for dz.  Thread t of kStride takes columns t, t +
-// kStride, ...: a block of kThreads sums through block_sum (scratch of
-// kWarps), a warp (kStride 32) by its shuffles alone.  The block kernel's
-// body, and the warp kernel's route for a row off its fast range (not
-// inlined, so that it costs the fast path no registers).
+// floor(log_mul(dy, s) * 2^acc) summed in int64 after an F2I.S64 (the wide
+// ones in fp32, in a fixed order), every input read again for dz.  Thread
+// t of kStride takes columns t, t + kStride, ...: a block of kThreads sums
+// through block_sum (scratch of kWarps), a warp (kStride 32) by its
+// shuffles alone.  The block kernel's body, and the warp kernel's route for
+// a row off its fast range (not inlined, so that it costs the fast path no
+// registers).  A row holding an infinite count gets the reference's dot,
+// +-inf or NaN, whatever the order of its sum.
 template <int kStride, typename Tin, typename Tround, typename Tout>
 __device__ __noinline__ void bwd_row(const Tin* sr, const Tin* dr, Tout* o, int cols,
                                      int mant, int acc, long long* scratch) {
   const int t = threadIdx.x % kStride;
   const float scale = pow2_float(acc);
   long long units = 0;
+  float wide = 0.0f;
   for (int j = t; j < cols; j += kStride) {
     const float p = log_mul(load_f32(dr, j), load_f32(sr, j), mant);
-    units += __float2ll_rz(floorf(__fmul_rn(p, scale)));
+    const float c = floorf(__fmul_rn(p, scale));
+    if (fabsf(c) < kWideCount) {
+      units += __float2ll_rz(c);
+    } else {
+      wide = __fadd_rn(wide, c);
+    }
   }
-  if constexpr (kStride == 32) {
-    for (int off = 16; off > 0; off >>= 1) units += __shfl_xor_sync(0xffffffffu, units, off);
-  } else {
+  for (int off = 16; off > 0; off >>= 1) {
+    if constexpr (kStride == 32) units += __shfl_xor_sync(0xffffffffu, units, off);
+    wide = __fadd_rn(wide, __shfl_xor_sync(0xffffffffu, wide, off));
+  }
+  if constexpr (kStride != 32) {
     units = block_sum(units, scratch);
+    wide = block_fsum_of_warps(wide, scratch);
   }
-  const float dot = __fmul_rn(__ll2float_rn(units), pow2_float(-acc));
+  // +0 where no count was wide: the int64 route's bits
+  const float dot = __fadd_rn(__fmul_rn(__ll2float_rn(units), pow2_float(-acc)),
+                              __fmul_rn(wide, pow2_float(-acc)));
   for (int j = t; j < cols; j += kStride) {
     const float diff = __fsub_rn(fx_quantize(load_f32(dr, j), acc), dot);
     store(o, j, stored_value<Tround, Tout>(log_mul(diff, load_f32(sr, j), mant)));

@@ -29,11 +29,18 @@ over a slot pool (dense or paged KV cache), on the card.
       --device cpu --scheduler continuous --kv-layout paged --prefix-cache \
       --attn-mode kernel --cache-dtype fp2fx8
 
+  # observability: a Chrome trace, metrics JSONL snapshots, the numerics
+  # telemetry summary, and a torch.profiler trace of the serve
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \
+      --device cpu --scheduler continuous --kv-layout paged --cache-dtype fp2fx8 \
+      --telemetry --trace /tmp/t.json --metrics-out /tmp/m.jsonl \
+      --xla-profile /tmp/prof
+
 Weights are random, made from ``--seed``.  The paged layout, the prefix
 cache, speculative decoding and chunked prefill live in the slot-pool
 scheduler, so those flags route through it under ``--scheduler lockstep``
-too.  The chaos and observability flags of the JAX launcher come with the
-slices that port those layers.
+too.  ``--xla-profile`` keeps the JAX launcher's name; here it opens a
+``torch.profiler`` window (``obs/profile.py``).
 """
 import argparse
 
@@ -104,7 +111,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "waiting requests fail with 'queue_full' (0 = "
                          "unbounded)")
     ap.add_argument("--max-retries", type=int, default=32,
-                    help="per-request requeue budget (preemptions) before a "
+                    help="per-request requeue budget (preemptions + numeric "
+                         "quarantines) before a structured "
                          "'retries_exhausted' failure")
     ap.add_argument("--deadline", type=float, default=None,
                     help="per-request TTL in seconds: a request unfinished "
@@ -122,6 +130,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome trace-event JSON of the serve "
+                         "(spans: admit/prefill/burst/spec-verify/compile/"
+                         "preempt/evict/quarantine) to PATH — load it in "
+                         "ui.perfetto.dev")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="append periodic metrics-registry JSONL snapshots "
+                         "to PATH and print the end-of-run metrics report")
+    ap.add_argument("--xla-profile", default=None, metavar="DIR",
+                    help="torch.profiler capture around the serve (the JAX "
+                         "launcher's flag, whose window is jax.profiler's): "
+                         "its Chrome trace lands in DIR/trace.json")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="fold per-burst device-side numeric stats (softmax "
+                         "exponent range, fp2fx8 scale histogram, int8 "
+                         "saturation) into the burst outputs and print the "
+                         "numerics summary")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
@@ -137,6 +162,8 @@ def main(argv=None):
     from repro_torch.configs import ServeConfig, get_config, smoke_config
     from repro_torch.device import resolve_device
     from repro_torch.models import build_model
+    from repro_torch.obs import Obs
+    from repro_torch.obs.profile import TRACE_FILE, xla_profile
     from repro_torch.serve.engine import generate
     from repro_torch.serve.scheduler import Request, SlotPoolEngine
 
@@ -161,7 +188,14 @@ def main(argv=None):
                        pack_prefill=args.pack_prefill, spec_mode=args.spec_mode,
                        draft_k=args.draft_k, ngram_max=args.ngram_max,
                        draft_model=args.draft_model, audit=args.audit,
-                       max_queue=args.max_queue, max_retries=args.max_retries)
+                       max_queue=args.max_queue, max_retries=args.max_retries,
+                       telemetry=args.telemetry)
+    obs = None
+    if args.trace or args.metrics_out:
+        obs = Obs.enabled(metrics_path=args.metrics_out)
+        obs.tracer.enabled = args.trace is not None
+    profile_note = (f"# wrote torch.profiler trace {args.xla_profile}/{TRACE_FILE} "
+                    "(load in ui.perfetto.dev)")
 
     if (args.scheduler in ("continuous", "spec") or args.kv_layout != "dense"
             or args.prefix_cache or args.prefill_chunk > 0):
@@ -174,9 +208,14 @@ def main(argv=None):
                 max_new=int(rng.integers(max(1, args.max_new // 2),
                                          args.max_new + 1)),
                 deadline=args.deadline))
-        eng = SlotPoolEngine(model, params, scfg, generator=gen, device=dev)
+        eng = SlotPoolEngine(model, params, scfg, generator=gen, device=dev, obs=obs)
+        if obs is not None:
+            # build the kernels up front, so the trace separates the build
+            # (its "compile" span) from steady-state serving
+            eng.prewarm()
         try:
-            done = eng.run(reqs)
+            with xla_profile(args.xla_profile):
+                done = eng.run(reqs)
         except KeyboardInterrupt:
             # graceful drain: every unfinished request ends cancelled with
             # its partial tokens
@@ -199,14 +238,36 @@ def main(argv=None):
                   f"tokens/model-call="
                   f"{st['tokens_emitted'] / max(1, st['model_calls']):.2f}")
         print(f"stats: {eng.stats}")
+        if args.trace:
+            eng.obs.tracer.write(args.trace)
+            print(f"# wrote trace {args.trace} ({len(eng.obs.tracer.events)} events; "
+                  "load in ui.perfetto.dev)")
+        if args.metrics_out:
+            print(eng.obs.metrics.report())
+            print(f"# wrote metrics {args.metrics_out}")
+        if args.telemetry:
+            print(f"numerics: {eng.obs.numerics.summary()}")
+        if args.xla_profile:
+            print(profile_note)
         return
 
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prefill),
                            generator=gen, device=dev, dtype=torch.int32)
-    out = generate(model, params, {"tokens": tokens}, scfg,
-                   max_new=args.max_new, generator=gen, device=dev)
+    with xla_profile(args.xla_profile):
+        out = generate(model, params, {"tokens": tokens}, scfg,
+                       max_new=args.max_new, generator=gen, device=dev,
+                       tracer=obs.tracer if obs is not None else None)
     for i, row in enumerate(out.tolist()):
         print(f"[{i}] {row}")
+    if args.xla_profile:
+        print(profile_note)
+    if args.trace:
+        obs.tracer.write(args.trace)
+        print(f"# wrote trace {args.trace} ({len(obs.tracer.events)} events; "
+              "load in ui.perfetto.dev)")
+    if args.metrics_out:
+        print("# --metrics-out: serve.* metrics live in the slot-pool "
+              "scheduler; rerun with --scheduler continuous|spec")
 
 
 if __name__ == "__main__":

@@ -19,6 +19,7 @@ import torch
 from repro_torch.configs.base import ServeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import resolve_attn_mode
+from repro_torch.obs.trace import NULL_TRACER
 
 I32 = torch.int32
 
@@ -80,12 +81,15 @@ def build_prefill_chunk(model, scfg: ServeConfig, width: int):
 
 
 def generate(model, params, batch: dict, scfg: ServeConfig, max_new: int,
-             generator: torch.Generator | None = None, device=None):
+             generator: torch.Generator | None = None, device=None, tracer=None):
     """Prefill the prompt then decode ``max_new`` tokens; returns (B,
     max_new) int32 on ``device`` (None = the card).
 
     ``batch["tokens"]`` (B, S) int; optional ``batch["lengths"]`` (B,)
     bounds ragged prompts.  ``params`` must live on ``device``.
+    ``tracer``: an optional ``obs.trace.Tracer``, which records the decode
+    loop as one span named as the JAX package's (``decode_scan`` or
+    ``decode_host_loop``).
     """
     dev = resolve_device(device)
     model = resolve_attn_mode(model, scfg.attn_mode)
@@ -105,8 +109,10 @@ def generate(model, params, batch: dict, scfg: ServeConfig, max_new: int,
                                 scfg.top_k, scfg.top_p).to(I32)[:, None]
     tok = sample(last)
     out = [tok]
-    for i in range(max_new - 1):
-        logits, cache = model.decode_step(params, cache, tok, S + i)
-        tok = sample(logits[:, -1, :])
-        out.append(tok)
+    span = "decode_scan" if scfg.decode_loop == "scan" else "decode_host_loop"
+    with (tracer or NULL_TRACER).span(span, steps=max_new - 1):
+        for i in range(max_new - 1):
+            logits, cache = model.decode_step(params, cache, tok, S + i)
+            tok = sample(logits[:, -1, :])
+            out.append(tok)
     return torch.cat(out, dim=1)

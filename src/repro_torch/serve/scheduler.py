@@ -35,11 +35,21 @@ its tokens folded into the prompt; ``prefix_cache`` shares the pages of
 cached prompt prefixes).
 
 Requests end in a definite outcome: finished, cancelled, or a structured
-failure (``invalid``, ``queue_full``, ``deadline``, ``retries_exhausted``).
-Not ported yet (ROADMAP queue 1, the items "the quarantine ladder, then
-chaos" and "obs/"): the chaos harness, the numeric quarantine ladder and
-the ``obs`` layer.  Until the ladder comes, non-finite logits in an active
-slot raise RuntimeError.
+failure (``invalid``, ``queue_full``, ``deadline``, ``numeric_fault``,
+``retries_exhausted``).  A slot whose logits go non-finite (a NaN or Inf
+in its KV reaches the PV products) is quarantined: its KV is scrubbed and
+its request walks the ladder of ``_quarantine`` (requeue and recompute;
+on a second fault, one retry on the unfused fp32 dense path; then a
+``numeric_fault`` failure).  ``repro_torch.serve.chaos`` injects such
+faults, and preemptions, eviction storms, pool squeezes, cancellations,
+stragglers and junk drafts, at the engine's injection points.
+
+Observability (``repro_torch.obs``): every engine owns an ``Obs`` bundle.
+The scheduler's counters live in its metrics registry (``stats`` is a
+read-only view with the JAX engine's keys), the tracer records the admit,
+prefill, burst and verify spans and the preempt, expire and quarantine
+instants, and ``ServeConfig.telemetry`` feeds the numerics monitor once a
+burst.
 
 Time is read from one injectable clock (``clock``, seconds, default
 ``time.perf_counter``) through ``_now``, so arrivals and deadlines can be
@@ -58,6 +68,8 @@ import torch
 from repro_torch.configs.base import ServeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import resolve_attn_mode
+from repro_torch.obs import Obs
+from repro_torch.obs import numerics as obs_numerics
 from repro_torch.serve import engine, kvpool
 from repro_torch.train.loop import StragglerMonitor
 
@@ -83,8 +95,11 @@ class Request:
 @dataclasses.dataclass
 class FailureInfo:
     """Why a request ended without running to EOS or its budget: one of
-    ``invalid``, ``queue_full``, ``deadline``, ``retries_exhausted``.  The
-    partial tokens stay on the ``Completion``."""
+    ``invalid``, ``queue_full``, ``deadline``, ``numeric_fault`` (non-finite
+    logits survived the quarantine -> fp32-retry ladder),
+    ``retries_exhausted`` (requeued, by preemption or quarantine, more than
+    ``ServeConfig.max_retries`` times).  The partial tokens stay on the
+    ``Completion``."""
     reason: str
     detail: str = ""
     retries: int = 0
@@ -130,24 +145,28 @@ def _bucket(n: int, lo: int = 4) -> int:
 def build_burst(model, scfg: ServeConfig, steps: int):
     """(params, cache, tok (B, 1), lengths, active, budget, ttl, generator)
     -> (emitted (steps, B), oks (steps, B), cache, tok, lengths, active,
-    budget, ttl), all device tensors.
+    budget, ttl, tstats), all device tensors.
 
     ``steps`` masked decode steps.  Every slot computes every step, but only
     active slots write their KV (``write_mask``), consume budget and TTL,
     advance their length or emit a token (idle rows emit PAD).  EOS (in
     continuous mode), budget exhaustion and TTL expiry clear ``active`` on
     the device.  ``oks`` is False where an active slot's logits went
-    non-finite.  The loop reads nothing back from the device.
+    non-finite.  ``tstats`` is ``{}`` unless ``scfg.telemetry``, else the
+    burst's logit exponent range and the fp2fx8 stats of the cache after
+    it (``obs.numerics``).  The loop reads nothing back from the device.
     """
     eos = scfg.eos_id if scfg.scheduler == "continuous" else None
 
     def burst(params, cache, tok, lengths, active, budget, ttl, generator):
-        emits, oks = [], []
+        emits, oks, zs = [], [], []
         for _ in range(steps):
             logits, cache = model.decode_step(params, cache, tok, lengths,
                                               write_mask=active)
             last = logits[:, -1, :]
             oks.append(torch.isfinite(last).all(-1) | ~active)
+            if scfg.telemetry:
+                zs.append(obs_numerics.logit_stats(last, active))
             nxt = engine._sample(last, generator, scfg.temperature,
                                  scfg.top_k, scfg.top_p).to(I32)
             emits.append(torch.where(active, nxt, PAD))
@@ -158,18 +177,28 @@ def build_burst(model, scfg: ServeConfig, steps: int):
                 alive = alive & (nxt != eos)
             tok = torch.where(active, nxt, tok[:, 0])[:, None]
             active = alive
+        tstats = {}
+        if scfg.telemetry:
+            tstats = dict(obs_numerics.reduce_logit_stats(torch.stack(zs)),
+                          **obs_numerics.format_stats(cache))
         return (torch.stack(emits), torch.stack(oks), cache, tok, lengths,
-                active, budget, ttl)
+                active, budget, ttl, tstats)
 
     return burst
 
 
+# the scheduler's counters and gauges, in the JAX engine's ``stats`` order;
+# each lives in the Obs metrics registry as serve.<key>{scheduler, family},
+# and ``SlotPoolEngine.stats`` is the dict view
 _STAT_KEYS = (
     "admitted", "bursts", "prefills", "burst_steps", "slot_steps_active",
     "peak_active", "tokens_emitted", "prompt_tokens", "prefill_tokens",
     "cached_tokens", "prefix_hits", "preemptions", "pages_peak",
     "model_calls", "spec_steps", "draft_tokens", "accepted_tokens",
-    "rejected", "expired", "cancelled", "failures", "stragglers", "audits")
+    "rejected", "expired", "cancelled", "quarantines", "fp32_retries",
+    "failures", "stragglers", "audits")
+_STAT_GAUGES = ("peak_active", "pages_peak")
+_STAT_COUNTERS = tuple(k for k in _STAT_KEYS if k not in _STAT_GAUGES)
 
 
 class SlotPoolEngine:
@@ -180,18 +209,24 @@ class SlotPoolEngine:
     ``device`` (None = the card) is where the cache lives; ``params`` must
     live there too.  ``generator`` draws the samples when temperature > 0.
     ``draft``: an optional (model, params) pair, the drafter of
-    ``spec_mode="model"`` (its params on ``device`` too).
+    ``spec_mode="model"`` (its params on ``device`` too).  ``chaos``: an
+    optional ``serve.chaos.ChaosMonkey``, consulted at the injection points
+    (None in production).  ``obs``: the observability bundle (default: a
+    fresh one with the tracer off, so engines never share counters).
     """
 
     def __init__(self, model, params, scfg: ServeConfig,
                  generator: Optional[torch.Generator] = None, device=None,
-                 clock: Callable[[], float] = time.perf_counter, draft=None):
+                 clock: Callable[[], float] = time.perf_counter, draft=None,
+                 chaos=None, obs: Optional[Obs] = None):
         self.device = resolve_device(device)
         self.model = resolve_attn_mode(model, scfg.attn_mode)
         self.params = params
         self.scfg = scfg
         self.generator = generator
         self.clock = clock
+        self.obs = obs if obs is not None else Obs()
+        self.chaos = chaos
         n = scfg.n_slots
         if scfg.max_queue < 0:
             raise ValueError("max_queue must be >= 0 (0 = unbounded)")
@@ -263,25 +298,77 @@ class SlotPoolEngine:
         self._eos = (scfg.eos_id if scfg.scheduler in ("continuous", "spec")
                      else None)
         self.retries: dict[int, int] = {}        # requeues per rid
+        self.numeric_faults: dict[int, int] = {}  # quarantines per rid
         self._cancels: set = set()               # rids to cancel next check
+        # page lists held by parties other than slots and trie (the chaos
+        # harness's pool squeeze), folded into the audit
+        self._extra_holders: list = []
         # burst wall-time EMA: the per-step estimate behind the device TTL
         self.straggler = StragglerMonitor()
         self._step_ema = 0.0
         self._t0: Optional[float] = None         # run() epoch
-        self._stats = dict.fromkeys(_STAT_KEYS, 0)
+        # the fp32 fallback engine fails structurally, never recurses
+        self._allow_fp32_retry = True
+        labels = dict(scheduler=scfg.scheduler, family=self.model.cfg.family)
+        reg = self.obs.metrics
+        self._counters = {k: reg.counter(f"serve.{k}", **labels)
+                          for k in _STAT_COUNTERS}
+        self._gauges = {k: reg.gauge(f"serve.{k}", **labels)
+                        for k in _STAT_GAUGES + ("queue_depth", "slot_occupancy",
+                                                 "pages_in_use")}
+        self._hists = {k: reg.histogram(f"serve.{k}", **labels)
+                       for k in ("ttft_s", "tbt_s", "burst_wall_s")}
+        # fp -> fx convert volume: elements quantized per KV-cache token
+        # write (k + v rows of every layer), counted on the host
+        self._converts_per_tok = 0
+        if scfg.cache_dtype == "fp2fx8":
+            cfg = self.model.cfg
+            self._converts_per_tok = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.d_head
+            self.obs.numerics.kv_int8_total = obs_numerics.int8_size(self.cache)
 
     # -- bookkeeping helpers --------------------------------------------
 
     def _count(self, key: str, n: int = 1) -> None:
-        self._stats[key] += n
+        self._counters[key].inc(n)
 
     def _peak(self, key: str, v: int) -> None:
-        self._stats[key] = max(self._stats[key], int(v))
+        self._gauges[key].track_max(v)
 
     @property
     def stats(self) -> dict:
-        """The JAX scheduler's counters, by its names, as a plain dict."""
-        return dict(self._stats)
+        """The JAX scheduler's ``stats``, by its keys in its order: a
+        read-only view over the metrics registry."""
+        return {k: int(self._gauges[k].value) if k in _STAT_GAUGES
+                else self._counters[k].value for k in _STAT_KEYS}
+
+    def _record_completion(self, c: Completion) -> None:
+        """Latency histograms at completion time, TTFT (skipping None) and
+        each TBT gap, so the metrics reconcile with the Completion records
+        by construction."""
+        if c.ttft is not None:
+            self._hists["ttft_s"].observe(c.ttft)
+        tt = c.token_times
+        for i in range(1, len(tt)):
+            self._hists["tbt_s"].observe(tt[i] - tt[i - 1])
+
+    def _count_converts(self, n_tokens: int) -> None:
+        """The fp -> fx convert volume of ``n_tokens`` KV-cache token
+        writes (no-op for an unquantized cache)."""
+        if self._converts_per_tok and n_tokens > 0:
+            self.obs.numerics.add_converts(n_tokens * self._converts_per_tok)
+
+    def prewarm(self) -> None:
+        """Build the CUDA kernels before serving, under the tracer's
+        "compile" span: the port's counterpart of the JAX engine's
+        prewarm, which compiles every executable a run can hit.  Eager
+        PyTorch compiles nothing else; on the CPU there is nothing to
+        build."""
+        if self.device.type != "cuda":
+            return
+        from repro_torch.kernels import build
+        t0 = time.perf_counter()
+        build.load()
+        self.obs.tracer.compile_span("hyft_kernels", time.perf_counter() - t0, "nvcc")
 
     def _now(self) -> float:
         """Seconds since run() started (0 before/outside a run), from the
@@ -316,6 +403,7 @@ class SlotPoolEngine:
         self._drafter_reset(s)
         self._count("prompt_tokens", len(r.tokens))
         self._count("prefill_tokens", len(r.tokens) - start)
+        self._count_converts(len(r.tokens) - start)
 
     def _drafter_reset(self, s: int) -> None:
         """Slot ``s`` changed owner: wipe the drafter's state tied to it (the
@@ -329,12 +417,13 @@ class SlotPoolEngine:
         ``_prefill_step`` calls interleaved with decode bursts."""
         if not reqs:
             return
-        free = [s for s in range(self.scfg.n_slots) if self.slot_rid[s] is None]
-        assert len(reqs) <= len(free), "admitting more requests than slots"
-        if self.paged:
-            self._admit_paged(reqs, free)
-        else:
-            self._admit_dense(reqs, free)
+        with self.obs.tracer.span("admit", n=len(reqs), rids=[r.rid for r in reqs]):
+            free = [s for s in range(self.scfg.n_slots) if self.slot_rid[s] is None]
+            assert len(reqs) <= len(free), "admitting more requests than slots"
+            if self.paged:
+                self._admit_paged(reqs, free)
+            else:
+                self._admit_dense(reqs, free)
 
     def _admit_dense(self, reqs, free):
         # attention rows need no reset: the kv_index <= position mask hides
@@ -349,7 +438,8 @@ class SlotPoolEngine:
             return []
         pages = self.pool.alloc(n)
         if pages is None and self.trie is not None:
-            self.trie.evict(n - self.pool.free_pages)
+            with self.obs.tracer.span("evict", short=n - self.pool.free_pages):
+                self.trie.evict(n - self.pool.free_pages)
             pages = self.pool.alloc(n)
         return pages
 
@@ -434,25 +524,29 @@ class SlotPoolEngine:
             gate[s] = True
         if self.paged:
             self.cache["block_tables"] = self._to_device(self.block_tables)
-        pc = engine.build_prefill_chunk(self.model, scfg, width)
-        last, self.cache = pc(self.params, self.cache, self._to_device(toks),
-                              self._to_device(self.lengths),
-                              self._to_device(n_valid), self._to_device(gate))
+        with self.obs.tracer.span("prefill_chunk", width=width, rows=len(rows)):
+            pc = engine.build_prefill_chunk(self.model, scfg, width)
+            last, self.cache = pc(self.params, self.cache, self._to_device(toks),
+                                  self._to_device(self.lengths),
+                                  self._to_device(n_valid), self._to_device(gate))
+            fin = [s for s in rows if rem[s] <= width]
+            # one read back: every gated row's finiteness, and the first
+            # token of the rows whose prompt is now cached
+            flags = torch.isfinite(last).all(-1).to(I32)[None]
+            if fin:
+                flags = torch.cat([flags, self._first_token(last).to(I32)[None]])
+            flags = flags.cpu().numpy()
         self._count("prefills")
         for s in rows:
             self.lengths[s] += min(rem[s], width)
-        fin = [s for s in rows if rem[s] <= width]
-        # one read back: every gated row's finiteness, and the first token
-        # of the rows whose prompt is now cached
-        flags = torch.isfinite(last).all(-1).to(I32)[None]
-        if fin:
-            flags = torch.cat([flags, self._first_token(last).to(I32)[None]])
-        flags = flags.cpu().numpy()
-        for s in rows:
-            if not flags[0, s]:
-                self._numeric_fault(s, "prefill")
+        # numeric health: a poisoned page or fp2fx8 scale row shows here
+        # before the slot ever decodes, and the quarantine ladder takes it
+        bad = [s for s in rows if not flags[0, s]]
+        for s in bad:
+            self._quarantine(s, now, where="prefill")
         for s in fin:
-            self._finish_prefill(s, int(flags[1, s]), now)
+            if s not in bad:
+                self._finish_prefill(s, int(flags[1, s]), now)
         self._peak("peak_active", int(self.active.sum()))
         self._audit_check()
 
@@ -461,12 +555,6 @@ class SlotPoolEngine:
         a completed prefill, as ``engine.generate`` draws it."""
         return engine._sample(last, self.generator, self.scfg.temperature,
                               self.scfg.top_k, self.scfg.top_p)
-
-    def _numeric_fault(self, s: int, where: str) -> None:
-        raise RuntimeError(
-            f"non-finite logits in slot {s} (request {self.slot_rid[s]}) at "
-            f"{where}: the numeric quarantine ladder is not ported yet "
-            f"(ROADMAP queue 1, the quarantine ladder)")
 
     def _finish_prefill(self, s: int, tok0: int, now: float) -> None:
         """Slot ``s``'s prompt is cached and its first token in hand:
@@ -516,6 +604,7 @@ class SlotPoolEngine:
             failure=FailureInfo(reason=reason, detail=detail,
                                 retries=self.retries.get(rid, 0)))
         self._count("failures")
+        self._record_completion(self.completions[rid])
 
     def _requeue(self, s: int, now: float) -> bool:
         """Push slot ``s``'s request back to the queue front with its
@@ -533,6 +622,9 @@ class SlotPoolEngine:
         done = self.outputs[rid]
         toks = np.concatenate([np.asarray(orig.tokens, np.int32),
                                np.asarray(done, np.int32)])
+        # the remaining budget from the host's tokens, not the device
+        # budget: a quarantined slot's non-finite steps used budget that
+        # the request never received tokens for
         self._queue.appendleft(Request(
             rid=rid, tokens=toks, max_new=orig.max_new - len(done),
             arrival=orig.arrival, deadline=orig.deadline, resume=True))
@@ -547,6 +639,7 @@ class SlotPoolEngine:
             return False
         s = max(cands, key=lambda c: (self.requests[self.slot_rid[c]].arrival,
                                       self.slot_rid[c]))
+        self.obs.tracer.instant("preempt", rid=self.slot_rid[s], slot=s)
         self._requeue(s, self._now())
         self._free_slot(s)
         self._count("preemptions")
@@ -584,6 +677,7 @@ class SlotPoolEngine:
             rid=rid, tokens=self.outputs[rid], prompt_len=len(r.tokens),
             finished_at=now, arrival=r.arrival,
             token_times=list(self.out_times[rid]))
+        self._record_completion(self.completions[rid])
 
     # -- decode --------------------------------------------------------
 
@@ -606,6 +700,10 @@ class SlotPoolEngine:
         return ttl
 
     def _observe_burst(self, dt: float, steps: int) -> None:
+        """Burst wall time into its histogram and the straggler monitor
+        (an outlier is flagged, not folded into the EMA); refresh the
+        per-step estimate behind the deadline TTL."""
+        self._hists["burst_wall_s"].observe(dt)
         if self.straggler.observe(dt):
             self._count("stragglers")
         if self.straggler.ema > 0 and steps > 0:
@@ -614,6 +712,7 @@ class SlotPoolEngine:
     def _expire_slot(self, s: int, now: float) -> None:
         rid = self.slot_rid[s]
         d = self.requests[rid].deadline
+        self.obs.tracer.instant("expire", rid=rid, slot=s)
         self._fail(rid, "deadline", now, detail=f"deadline {d:.3f}s")
         self._free_slot(s)
         self._count("expired")
@@ -623,7 +722,11 @@ class SlotPoolEngine:
         bookkeeping: append emitted tokens, finish freed slots.  Paged mode
         first appends the pages the burst will write (possibly preempting)
         and refreshes the device block tables.  In spec mode the burst is
-        ONE speculative step (``_spec_burst``)."""
+        ONE speculative step (``_spec_burst``).  A slot whose logits went
+        non-finite keeps only its tokens from before the first such step
+        and is quarantined."""
+        if self.chaos is not None:
+            self.chaos.fire(self, "pre_burst")
         if self.spec:
             self._spec_burst(now)
             return
@@ -634,38 +737,48 @@ class SlotPoolEngine:
             self.cache["block_tables"] = self._to_device(self.block_tables)
         was_active = self.active.copy()
         n = self.scfg.n_slots
-        t_in = self._now()
-        emits, oks, self.cache, tok, lengths, active, budget, ttl = self._burst(
-            self.params, self.cache, self._to_device(self.last_tok)[:, None],
-            self._to_device(self.lengths), self._to_device(self.active),
-            self._to_device(self.budget), self._to_device(self._ttl_vector(now)),
-            self.generator)
-        steps = emits.shape[0]
-        # one read back for the whole burst
-        host = torch.cat([emits.reshape(-1), oks.to(I32).reshape(-1), tok[:, 0],
-                          lengths, active.to(I32), budget, ttl]).cpu().numpy()
-        emits = host[:steps * n].reshape(steps, n)
-        oks = host[steps * n:2 * steps * n].reshape(steps, n).astype(bool)
-        tail = host[2 * steps * n:].reshape(5, n)
-        self.last_tok = tail[0].copy()
-        self.lengths = tail[1].copy()
-        self.active = tail[2].astype(bool)
-        self.budget = tail[3].copy()
-        ttl_out = tail[4]
-        self._observe_burst(self._now() - t_in, steps)
+        with self.obs.tracer.span("decode_burst", active=int(self.active.sum())):
+            t_in = self._now()
+            emits, oks, self.cache, tok, lengths, active, budget, ttl, tstats = \
+                self._burst(self.params, self.cache,
+                            self._to_device(self.last_tok)[:, None],
+                            self._to_device(self.lengths), self._to_device(self.active),
+                            self._to_device(self.budget),
+                            self._to_device(self._ttl_vector(now)), self.generator)
+            steps = emits.shape[0]
+            # one read back for the whole burst
+            host = torch.cat([emits.reshape(-1), oks.to(I32).reshape(-1), tok[:, 0],
+                              lengths, active.to(I32), budget, ttl]).cpu().numpy()
+            emits = host[:steps * n].reshape(steps, n)
+            oks = host[steps * n:2 * steps * n].reshape(steps, n).astype(bool)
+            tail = host[2 * steps * n:].reshape(5, n)
+            self.last_tok = tail[0].copy()
+            self.lengths = tail[1].copy()
+            self.active = tail[2].astype(bool)
+            self.budget = tail[3].copy()
+            ttl_out = tail[4]
+            self._observe_burst(self._now() - t_in, steps)
+        if tstats:
+            self.obs.numerics.update(tstats)
         self._count("bursts")
         self._count("burst_steps", steps)
         self._count("model_calls", steps)
-        self._count("slot_steps_active", int((emits != PAD).sum()))
+        n_active_steps = int((emits != PAD).sum())
+        self._count("slot_steps_active", n_active_steps)
+        self._count_converts(n_active_steps)
         for s in np.nonzero(was_active)[0]:
-            if not oks[:, s].all():
-                self._numeric_fault(s, f"burst step {int(np.argmin(oks[:, s]))}")
             col = emits[:, s]
+            bad = np.nonzero(~oks[:, s])[0]
+            # the first non-finite step's sample and all after it are garbage
+            col = col[:int(bad[0])] if bad.size else col
             toks = col[col != PAD].tolist()
             rid = self.slot_rid[s]
             self.outputs[rid].extend(toks)
             self.out_times[rid].extend([now] * len(toks))
             self._count("tokens_emitted", len(toks))
+            if bad.size:
+                self._quarantine(s, now, where="burst")
+                continue
             if not self.active[s]:                      # freed on the device
                 hit_eos = (self._eos is not None and toks
                            and toks[-1] == self._eos)
@@ -713,25 +826,33 @@ class SlotPoolEngine:
         # the model drafter's syncs and draft loops count too, so tokens per
         # model call never overstates the amortization
         self._count("model_calls", self.drafter.model_calls - calls0)
+        if self.chaos is not None:
+            # drafter desync: exact verification rejects junk drafts, so
+            # the outputs cannot change
+            draft, n_draft = self.chaos.corrupt_drafts(self, draft, n_draft, want)
 
         was_active = self.active.copy()
-        t_in = self._now()
-        emitted, self.cache, tok, lengths, active, budget, n_acc, ok, _ = self._spec_step(
-            self.params, self.cache, self._to_device(self.last_tok)[:, None],
-            self._to_device(draft), self._to_device(n_draft),
-            self._to_device(self.lengths), self._to_device(self.active),
-            self._to_device(self.budget))
-        # one read back for the whole step
-        host = torch.cat([emitted.reshape(-1), tok[:, 0], lengths, active.to(I32), budget,
-                          n_acc, ok.to(I32)]).cpu().numpy()
-        emitted = host[:n * (K + 1)].reshape(n, K + 1)
-        tail = host[n * (K + 1):].reshape(6, n)
-        self.last_tok = tail[0].copy()
-        self.lengths = tail[1].copy()
-        self.active = tail[2].astype(bool)
-        self.budget = tail[3].copy()
-        n_acc, ok = tail[4], tail[5].astype(bool)
-        self._observe_burst(self._now() - t_in, 1)
+        with self.obs.tracer.span("spec_verify", active=int(self.active.sum())):
+            t_in = self._now()
+            emitted, self.cache, tok, lengths, active, budget, n_acc, ok, tstats = \
+                self._spec_step(self.params, self.cache,
+                                self._to_device(self.last_tok)[:, None],
+                                self._to_device(draft), self._to_device(n_draft),
+                                self._to_device(self.lengths), self._to_device(self.active),
+                                self._to_device(self.budget))
+            # one read back for the whole step
+            host = torch.cat([emitted.reshape(-1), tok[:, 0], lengths, active.to(I32),
+                              budget, n_acc, ok.to(I32)]).cpu().numpy()
+            emitted = host[:n * (K + 1)].reshape(n, K + 1)
+            tail = host[n * (K + 1):].reshape(6, n)
+            self.last_tok = tail[0].copy()
+            self.lengths = tail[1].copy()
+            self.active = tail[2].astype(bool)
+            self.budget = tail[3].copy()
+            n_acc, ok = tail[4], tail[5].astype(bool)
+            self._observe_burst(self._now() - t_in, 1)
+        if tstats:
+            self.obs.numerics.update(tstats)
         self._count("bursts")
         self._count("burst_steps")
         self._count("spec_steps")
@@ -739,8 +860,10 @@ class SlotPoolEngine:
         for s in np.nonzero(was_active)[0]:
             if not ok[s]:
                 # non-finite verify logits poison every lane's argmax: no
-                # token of this step can be trusted
-                self._numeric_fault(s, "spec step")
+                # token of this step can be trusted, so emit nothing and
+                # quarantine (the finite prefix already emitted stands)
+                self._quarantine(s, now, where="spec")
+                continue
             row = emitted[s]
             row = row[row != PAD].tolist()
             rid = self.slot_rid[s]
@@ -749,6 +872,7 @@ class SlotPoolEngine:
             self._count("tokens_emitted", len(row))
             self._count("draft_tokens", int(n_draft[s]))
             self._count("accepted_tokens", int(n_acc[s]))
+            self._count_converts(len(row))
             if row:
                 self._count("slot_steps_active")
             if not self.active[s]:                      # freed on the device
@@ -775,6 +899,93 @@ class SlotPoolEngine:
                 self.block_tables[s, len(self.slot_pages[s])] = 0
                 self.pool.decref(p)
 
+    # -- robustness: quarantine, scrub, the fp32 retry ------------------
+
+    def _scrub_dense_slot(self, s: int) -> None:
+        """Rewrite slot ``s``'s dense cache rows with ``init_cache``'s
+        values: a NaN or Inf left there would reach the slot's next
+        occupant through the PV products of masked keys (0 * NaN)."""
+        fresh = self.model.init_cache(self.params, 1, self.scfg.max_len,
+                                      self.scfg.cache_dtype, device=self.device)
+        for name, leaf in self.cache["blocks"].items():
+            leaf[:, s] = fresh["blocks"][name][:, 0]
+
+    def _scrub_slot_pages(self, s: int) -> None:
+        """Zero slot ``s``'s exclusive pages (refcount 1) before they go
+        back to the pool, so a poisoned row cannot reach the page's next
+        owner.  Pages the trie shares (refcount > 1) hold clean prefill
+        writes that other requests replay: they stay."""
+        pages = [p for p in self.slot_pages[s] if self.pool.refs[p] == 1]
+        if not pages:
+            return
+        # padded to n_blocks with the null page, which then holds zeros
+        idx = np.full(self.n_blocks, kvpool.NULL_PAGE, np.int64)
+        idx[:len(pages)] = pages
+        idx = self._to_device(idx)
+        for leaf in self.cache["blocks"].values():
+            leaf.index_fill_(1, idx, 0)
+
+    def _quarantine(self, s: int, now: float, where: str = "") -> None:
+        """Slot ``s`` gave non-finite logits: scrub its KV, free it, and walk
+        the ladder.  First fault: requeue and recompute from the prompt and
+        the tokens emitted before it (greedy outputs unchanged); second: ONE
+        retry on the unfused fp32 dense path; past that, a structured
+        ``numeric_fault``.  fp2fx conversion maps NaN to 0 and saturates
+        +-inf, so a bad scale row degrades a score quietly while the logits
+        go non-finite through the PV products: this is where that shows."""
+        rid = self.slot_rid[s]
+        nf = self.numeric_faults.get(rid, 0) + 1
+        self.numeric_faults[rid] = nf
+        self._count("quarantines")
+        # annotated with the latest telemetry burst's readings
+        ev = self.obs.numerics.record_quarantine(rid, where or "burst")
+        self.obs.tracer.instant("quarantine", slot=int(s), fault=nf, **ev)
+        if self.paged:
+            self._scrub_slot_pages(s)
+        else:
+            self._scrub_dense_slot(s)
+        if nf == 1:
+            self._requeue(s, now)  # may fail on the retry budget
+        elif nf == 2 and self._allow_fp32_retry:
+            self._fp32_retry(rid, now)
+        else:
+            self._fail(rid, "numeric_fault", now,
+                       detail=f"non-finite logits at {where} (fault {nf})")
+        self._free_slot(s)
+        self._audit_check()
+
+    def _fp32_retry(self, rid: int, now: float) -> None:
+        """Second numeric fault of ``rid``: run it alone on the unfused fp32
+        dense path (a fresh engine and cache, no prefix cache, no chaos),
+        continuing from the tokens already emitted.  A clean retry completes
+        the request; one that faults again fails with ``numeric_fault``."""
+        self._count("fp32_retries")
+        orig = self.requests[rid]
+        done = list(self.outputs[rid])
+        sched = ("continuous" if self.scfg.scheduler in ("continuous", "spec")
+                 else "lockstep")
+        sub = dataclasses.replace(
+            self.scfg, cache_dtype="float32", attn_mode="unfused",
+            kv_layout="dense", prefix_cache=False, n_slots=1, scheduler=sched,
+            audit=False, max_queue=0, n_pages=0)
+        eng = SlotPoolEngine(self.model, self.params, sub, generator=self.generator,
+                             device=self.device, clock=self.clock)
+        eng._allow_fp32_retry = False   # the fallback never recurses
+        toks = np.concatenate([np.asarray(orig.tokens, np.int32),
+                               np.asarray(done, np.int32)])
+        rem = (orig.deadline - now) if orig.deadline is not None else None
+        comp = eng.run([Request(rid=rid, tokens=toks, max_new=orig.max_new - len(done),
+                                deadline=rem)])[rid]
+        fin = self._now()
+        self.outputs[rid].extend(comp.tokens)
+        self.out_times[rid].extend([fin] * len(comp.tokens))
+        if comp.failure is None:
+            self._finish(rid, fin)
+        else:
+            reason = ("deadline" if comp.failure.reason == "deadline"
+                      else "numeric_fault")
+            self._fail(rid, reason, fin, detail=f"fp32 retry: {comp.failure.reason}")
+
     # -- cancellation, deadlines, shutdown, audits ---------------------
 
     def cancel(self, rid: int) -> None:
@@ -789,6 +1000,7 @@ class SlotPoolEngine:
             prompt_len=len(r.tokens), finished_at=now, arrival=r.arrival,
             token_times=list(self.out_times.get(rid, [])), cancelled=True)
         self._count("cancelled")
+        self._record_completion(self.completions[rid])
 
     def _apply_cancels(self, now: float) -> None:
         if not self._cancels:
@@ -850,8 +1062,9 @@ class SlotPoolEngine:
 
     def _audit_check(self) -> None:
         """With ``ServeConfig.audit`` (paged): recompute the pool and trie
-        refcounts from the live slots and trie edges and cross-check the
-        free list (``kvpool.PagePool.audit``)."""
+        refcounts from the live slots, the trie edges and the chaos
+        harness's squeezed pages, and cross-check the free list
+        (``kvpool.PagePool.audit``)."""
         if not self.scfg.audit or not self.paged:
             return
         self._count("audits")
@@ -859,7 +1072,7 @@ class SlotPoolEngine:
             if self.slot_rid[s] is None and self.slot_pages[s]:
                 raise kvpool.AuditError(
                     f"freed slot {s} still holds pages {self.slot_pages[s]}")
-        self.pool.audit(list(self.slot_pages), self.trie)
+        self.pool.audit(list(self.slot_pages) + list(self._extra_holders), self.trie)
 
     # -- the serving loop ----------------------------------------------
 
@@ -886,6 +1099,8 @@ class SlotPoolEngine:
         while (self._pending or self._queue or self.active.any()
                or self.prefilling.any()):
             now = self._now()
+            if self.chaos is not None:
+                self.chaos.fire(self, "tick")
             self._apply_cancels(now)
             self._expire(now)
             # arrivals enter the bounded queue; requeues bypass the bound
@@ -905,6 +1120,13 @@ class SlotPoolEngine:
             if batch:
                 self.admit(batch, self._now())
                 self._audit_check()
+            # load gauges and the periodic metrics snapshot
+            self._gauges["queue_depth"].set(len(self._queue))
+            self._gauges["slot_occupancy"].set(
+                sum(1 for rid in self.slot_rid if rid is not None))
+            if self.paged:
+                self._gauges["pages_in_use"].set(self.pool.pages_in_use)
+            self.obs.maybe_snapshot()
             if self.prefilling.any():
                 # one chunk per iteration: a long prompt interleaves with
                 # the decode bursts instead of stalling them
@@ -916,13 +1138,15 @@ class SlotPoolEngine:
                 # idle: wait for the next arrival
                 time.sleep(max(0.0, min(self._pending[0].arrival - self._now(),
                                         0.01)))
+        self.obs.maybe_snapshot(force=True)
         return self.completions
 
 
 def serve(model, params, requests: list[Request], scfg: ServeConfig,
-          generator=None, device=None, draft=None) -> dict[int, Completion]:
+          generator=None, device=None, draft=None, chaos=None) -> dict[int, Completion]:
     """One-shot entry: build a slot-pool engine, serve, return completions.
-    ``draft``: optional (model, params) pair for ``spec_mode="model"``."""
+    ``draft``: optional (model, params) pair for ``spec_mode="model"``;
+    ``chaos``: optional ``serve.chaos.ChaosMonkey`` fault injector."""
     eng = SlotPoolEngine(model, params, scfg, generator=generator, device=device,
-                         draft=draft)
+                         draft=draft, chaos=chaos)
     return eng.run(requests)

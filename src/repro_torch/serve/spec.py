@@ -26,9 +26,8 @@ Three pieces, as in the JAX package:
             (``SlotPoolEngine._rollback_spec_pages``).
 
 The scheduler integration (``ServeConfig.scheduler = "spec"``) lives in
-``repro_torch.serve.scheduler``.  The per-step telemetry of the JAX step
-(``tstats``) belongs to the obs layer, not ported yet: the step returns
-``{}`` there.
+``repro_torch.serve.scheduler``.  With ``ServeConfig.telemetry`` the step
+also returns the JAX step's telemetry (``tstats``, ``obs.numerics``).
 """
 from __future__ import annotations
 
@@ -37,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import ServeConfig
 from repro_torch.models.model_zoo import resolve_attn_mode
+from repro_torch.obs import numerics as obs_numerics
 from repro_torch.serve import engine
 from repro_torch.serve.scheduler import PAD, _bucket  # one emitted-lane filler
 
@@ -224,7 +224,8 @@ def build_spec_step(model, scfg: ServeConfig, k: int):
     cache, last_tok, lengths, active, budget, n_acc (B,), ok (B,), tstats),
     device tensors.  ``ok`` is False where a valid verify lane of an active
     slot gave non-finite logits (idle slots and padding lanes report True);
-    ``tstats`` is ``{}`` (the telemetry of the obs layer, not ported).
+    ``tstats`` is ``{}`` unless ``scfg.telemetry``, else the valid verify
+    lanes' logit exponent range and the cache's fp2fx8 stats.
 
     One ``model.prefill_chunk`` call scores ``[last_tok, draft_1..k]``:
     lane ``j``'s argmax is the token greedy decode would emit after ``j``
@@ -248,6 +249,13 @@ def build_spec_step(model, scfg: ServeConfig, k: int):
         lane = torch.arange(S, dtype=I32, device=dev)[None]
         lane_ok = torch.isfinite(logits).all(-1)
         ok = (lane_ok | (lane >= n_valid[:, None])).all(1) | ~active
+        tstats = {}
+        if scfg.telemetry:
+            lane_act = active[:, None] & (lane < n_valid[:, None])
+            zs = obs_numerics.logit_stats(logits.reshape(-1, logits.shape[-1]),
+                                          lane_act.reshape(-1))
+            tstats = dict(z_max=zs[0], z_min=zs[1], zsub_min=zs[2],
+                          **obs_numerics.format_stats(cache))
         dmask = torch.arange(k, dtype=I32, device=dev)[None] < n_draft[:, None]
         match = (draft == greedy[:, :-1]) & dmask
         n_acc = torch.cumprod(match.to(I32), 1).sum(1).to(I32)
@@ -267,7 +275,7 @@ def build_spec_step(model, scfg: ServeConfig, k: int):
         lengths = lengths + n_emit
         budget = budget - n_emit
         active = active & (budget > 0) & ~hit_eos
-        return emitted, cache, last_tok, lengths, active, budget, n_acc, ok, {}
+        return emitted, cache, last_tok, lengths, active, budget, n_acc, ok, tstats
 
     return step
 

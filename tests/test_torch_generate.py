@@ -257,7 +257,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 15
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"src/repro_torch/serve/scheduler.py", "src/repro_torch/serve/kvpool.py",
-            "src/repro_torch/serve/spec.py",
+            "src/repro_torch/serve/spec.py", "src/repro_torch/serve/chaos.py",
+            "src/repro_torch/obs/__init__.py", "src/repro_torch/obs/metrics.py",
+            "src/repro_torch/obs/trace.py", "src/repro_torch/obs/numerics.py",
+            "src/repro_torch/obs/profile.py",
             "src/repro_torch/kernels/flash_attention.py",
             "src/repro_torch/core/costmodel.py", "src/repro_torch/configs/bert_base.py",
             "src/repro_torch/evaluation/table1_accuracy.py",

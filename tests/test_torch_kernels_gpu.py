@@ -1098,3 +1098,195 @@ def test_unfused_generate_launches_the_forward_kernel_only():
     assert not any(fa.LAUNCHES.values())
     assert out.shape == (2, 6)
 
+
+
+# --------------------------------------------------------------------------
+# non-finite inputs: a NaN score is FP2FX raw 0 (as XLA's convert makes
+# it), a NaN or Inf V reaches the PV products
+# --------------------------------------------------------------------------
+
+
+def _poison(k, v, sc, target, index):
+    """Write NaN in place into K or V at ``index`` (every column), or into
+    its fp2fx8 scale, which holds the fp32 value of an int8 row."""
+    if f"{target}_scale" in sc:
+        sc[f"{target}_scale"][index] = float("nan")
+    else:
+        (k if target == "k" else v)[index] = float("nan")
+
+
+def _hold_poisoned(got, ref, cfg, v_absmax, hit):
+    """A kernel's output on poisoned K/V against its plain version's stats.
+    Non-finite in exactly the same rows; each ``hit`` row (one that sees a
+    poisoned V) out of range in both, non-finite or past ``v_absmax`` (the
+    Hyft divide reads a NaN sum's all-ones exponent as a number, so a hit
+    row may be finite garbage, as in JAX); every other row finite and
+    within the ``out`` bound of ``out_errors``."""
+    out_r = fa._splitk_combine(*ref, cfg)
+    bad = ~torch.isfinite(got).all(-1)
+    assert torch.equal(bad, ~torch.isfinite(out_r).all(-1))
+    for out in (got, out_r):
+        wild = ~torch.isfinite(out).all(-1) | (out.abs().amax(-1) > v_absmax)
+        assert torch.equal(wild & hit, hit)
+    assert not (bad & ~hit).any()
+    acc, m, l = ref
+    ref = (torch.where(hit[:, None, :, None], 0.0, acc), m, l)
+    err = fa.out_errors(torch.where(hit[..., None], 0.0, got), ref, cfg, v_absmax)
+    assert err["out"] <= 1, err
+
+
+_POISON_CASES = [(kind, target) for kind in ("decode", "verify", "paged_decode",
+                                             "paged_verify") for target in ("v", "k")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [HYFT16, HYFT32], ids=["hyft16", "hyft32"])
+@pytest.mark.parametrize("cache_dtype", ["float32", "fp2fx8", "bfloat16"])
+@pytest.mark.parametrize("kind,target", _POISON_CASES,
+                         ids=[f"{k}-{t}" for k, t in _POISON_CASES])
+def test_attention_kernels_on_poisoned_kv(kind, target, cache_dtype, cfg):
+    """Kernels 6-9 with a NaN at one live key of sequence 1, KV head 0 (a
+    whole K or V row, or its fp2fx8 scale) against their plain versions
+    (``_hold_poisoned``).  V: every query row of that (sequence, head)
+    sees the key and goes out of range in both, the same rows non-finite
+    in both, no other row moved.  K alone: the NaN score is raw 0, so every
+    row stays finite, within the bound."""
+    gen = _card()
+    sq = 5 if kind.endswith("verify") else None
+    if kind.startswith("paged"):
+        ps = 16
+        k, v, sc, vf, bt, mask, lengths = _paged(gen, ps, cache_dtype)
+        vmax = float(vf.abs().max())
+        _poison(k, v, sc, target, (int(bt[1, 0]), 0, 3))
+        if sq is not None:
+            mask = (torch.arange(NB * ps, device="cuda")[None, None]
+                    <= (lengths - sq)[:, None, None]
+                    + torch.arange(sq, device="cuda")[None, :, None]).float().contiguous()
+        q3 = torch.randn(B * HKV, HQ // HKV * (sq or 1), D, generator=gen, device="cuda")
+        kw = dict(cfg=cfg, sm_scale=D ** -0.5, hkv=HKV, sq=sq)
+        args = (q3, k, v, sc.get("k_scale"), sc.get("v_scale"), bt, mask)
+        got = fa._paged_attention_cuda(*args, **kw)
+        ref = fa.paged_tiles_plain(*args, **kw)
+    else:
+        Sk = 600
+        k, v, sc, vf = _kv(gen, Sk, cache_dtype)
+        vmax = float(vf.abs().max())
+        _poison(k, v, sc, target, (1, 0, 3))
+        if sq is None:
+            mask = (torch.arange(Sk, device="cuda")[None]
+                    < torch.tensor([Sk, Sk // 3 + 1], device="cuda")[:, None]).float()
+        else:
+            start = torch.tensor([Sk - sq, Sk // 3], device="cuda")
+            mask = (torch.arange(Sk, device="cuda")[None, None]
+                    <= start[:, None, None]
+                    + torch.arange(sq, device="cuda")[None, :, None]).float()
+        q3 = torch.randn(B * HKV, HQ // HKV * (sq or 1), D, generator=gen, device="cuda")
+        flat = [t.reshape(-1, Sk, *t.shape[3:]) if t is not None else None
+                for t in (k, v, sc.get("k_scale"), sc.get("v_scale"))]
+        kw = dict(cfg=cfg, sm_scale=D ** -0.5, bk=fa._block_k(Sk, 256), hkv=HKV, sq=sq)
+        got = fa._splitk_attention_cuda(q3, *flat, mask, **kw)
+        ref = fa.splitk_tiles_plain(q3, *flat, mask, **kw)
+    hit = torch.zeros(got.shape[:2], dtype=torch.bool, device="cuda")
+    if target == "v":
+        hit[HKV] = True                   # sequence 1, head 0: every row
+    _hold_poisoned(got, ref, cfg, vmax, hit)
+
+
+_NAN_SOFTMAX = [(cfg, dtype) for cfg in ("hyft16", "hyft32")
+                for dtype in (torch.float32, torch.float16, torch.bfloat16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(37, 200), (2113, 1024)], ids=["block", "warp"])
+@pytest.mark.parametrize("cfg,dtype", _NAN_SOFTMAX,
+                         ids=[f"{c}-{str(d)[6:]}" for c, d in _NAN_SOFTMAX])
+def test_softmax_kernels_on_rows_holding_nan(cfg, dtype, shape):
+    """Kernels 1-2 on rows holding a NaN against their plain versions, as
+    ``test_softmax_kernels_match_plain`` holds them: bit for bit in every
+    row within the sum precondition (all of them under HYFT16; NaN bits
+    included), the forward within ``softmax_errors`` past it (HYFT32).
+    Forward: a NaN score at key 0 of every third row and whole NaN rows,
+    each read as raw 0.  Backward: NaN dy at each
+    third row's most probable key, whole NaN rows, and +inf dy at every
+    fifth row's most probable key: such an element's count is infinite
+    (log_mul reads the all-ones exponent), the dot +-inf or NaN as the
+    plain version's fp32 sum makes it, and the row leaves the warp
+    kernel's fast route.  The block path (37 rows) and the warp path
+    (2113 rows)."""
+    from repro_torch.kernels import hyft_softmax as hs
+    cfg = HYFT16 if cfg == "hyft16" else HYFT32
+    gen = _card()
+    z, dy = _softmax_case(gen, shape, 3.0, dtype)
+    rows = z.view(-1, shape[-1])
+    rows[::3, 0] = float("nan")
+    rows[1::7] = float("nan")
+    s = hs.hyft_softmax_fwd_kernel(z, cfg)
+    ref = hs.hyft_softmax_fwd(z, cfg)
+    err = hs.softmax_errors(s, ref, hs.fwd_sum_units(z, cfg), cfg)
+    assert torch.isfinite(s).all() and err["mismatches"] == 0 and err["past_ratio"] <= 1, err
+    if cfg.io_dtype == "float16":
+        assert torch.equal(s, ref)
+    dy = dy.to(s.dtype)
+    top = s.view(-1, shape[-1]).float().argmax(-1)
+    drow = dy.view(-1, shape[-1])
+    r = torch.arange(drow.shape[0], device="cuda")
+    drow[r[::3], top[::3]] = float("nan")
+    drow[r[2::5], top[2::5]] = float("inf")
+    drow[1::7] = float("nan")
+    finite = torch.isfinite(drow).all(-1)
+    assert int(hs.bwd_sum_units(s, dy, cfg)[finite].max()) <= hs.EXACT_UNITS
+    bits = torch.int16 if cfg.dtype != torch.float32 else torch.int32
+    for out_dtype in (None, torch.float32):
+        dz = hs.hyft_softmax_bwd_kernel(s, dy, cfg, out_dtype=out_dtype)
+        plain = hs.hyft_softmax_bwd(s, dy, cfg).to(dz.dtype)
+        b = bits if dz.dtype == cfg.dtype else torch.int32
+        assert torch.equal(dz.view(b), plain.view(b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", ["float32", "fp2fx8"])
+@pytest.mark.parametrize("kind", ["decode", "paged_decode", "paged_verify"])
+def test_attention_kernels_weigh_masked_keys_like_plain(kind, cache_dtype):
+    """A NaN V at a key past sequence 1's length (contiguous: key Sk - 1;
+    paged: the null page, where the block table's unused entries point):
+    the kernels, like their plain versions and JAX's kernels, weigh a
+    masked key by a probability that is not 0, so every row of that
+    sequence and head goes out of range in both (``_hold_poisoned``), and
+    no other row.  This is how a poisoned slot's masked writes reach every
+    slot through the null page (ROADMAP queue 3)."""
+    gen = _card()
+    cfg = HYFT16
+    sq = 5 if kind == "paged_verify" else None
+    if kind.startswith("paged"):
+        ps = 16
+        k, v, sc, vf, bt, mask, lengths = _paged(gen, ps, cache_dtype)
+        index = (0, 0, 3)                                   # the null page
+        if sq is not None:
+            mask = (torch.arange(NB * ps, device="cuda")[None, None]
+                    <= (lengths - sq)[:, None, None]
+                    + torch.arange(sq, device="cuda")[None, :, None]).float().contiguous()
+        q3 = torch.randn(B * HKV, HQ // HKV * (sq or 1), D, generator=gen, device="cuda")
+        kw = dict(cfg=cfg, sm_scale=D ** -0.5, hkv=HKV, sq=sq)
+
+        def run(fn):
+            return fn(q3, k, v, sc.get("k_scale"), sc.get("v_scale"), bt, mask, **kw)
+        kernel, plain = fa._paged_attention_cuda, fa.paged_tiles_plain
+    else:
+        Sk = 600
+        k, v, sc, vf = _kv(gen, Sk, cache_dtype)
+        index = (1, 0, Sk - 1)
+        mask = (torch.arange(Sk, device="cuda")[None]
+                < torch.tensor([Sk, Sk // 3 + 1], device="cuda")[:, None]).float()
+        q3 = torch.randn(B * HKV, HQ // HKV, D, generator=gen, device="cuda")
+        kw = dict(cfg=cfg, sm_scale=D ** -0.5, bk=fa._block_k(Sk, 256), hkv=HKV, sq=None)
+
+        def run(fn):
+            flat = [t.reshape(-1, Sk, *t.shape[3:]) if t is not None else None
+                    for t in (k, v, sc.get("k_scale"), sc.get("v_scale"))]
+            return fn(q3, *flat, mask, **kw)
+        kernel, plain = fa._splitk_attention_cuda, fa.splitk_tiles_plain
+    vmax = float(vf.abs().max())
+    _poison(k, v, sc, "v", index)
+    hit = torch.zeros(q3.shape[:2], dtype=torch.bool, device="cuda")
+    hit[HKV] = True
+    _hold_poisoned(run(kernel), run(plain), cfg, vmax, hit)

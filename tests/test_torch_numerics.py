@@ -86,6 +86,20 @@ def test_fp2fx_fx2fp(frac, total):
     _both("fx2fp", _ints(1, (64, 33), -2 ** 24, 2 ** 24), frac_bits=frac)
 
 
+@pytest.mark.parametrize("frac,total", [(10, 16), (16, 24), (7, 8), (20, 31), (0, 2)])
+def test_fp2fx_of_nan_and_inf_is_jax(frac, total):
+    """NaN (either sign) is raw 0 and +-inf saturate, as XLA's convert makes
+    them after the reference's clip; finite values round half to even and
+    saturate as before, beside them."""
+    x = np.array([np.nan, -np.nan, np.inf, -np.inf, 1.5, -3.0, 0.5, 2.5, -2.5,
+                  1e30, -1e30, 0.0], np.float32)
+    _both("fp2fx", x, frac_bits=frac, total_bits=total)
+    got = tnm.fp2fx(torch.tensor(x), frac, total)
+    assert got[:2].tolist() == [0, 0]
+    # the clip bounds as fp32 holds them (2**30 - 1 rounds to 2**30)
+    assert got[2:4].tolist() == [int(np.float32(2 ** (total - 1) - 1)), -2 ** (total - 1)]
+
+
 def test_pow2_float():
     _both("pow2_float", np.arange(-300, 300, dtype=np.int32))
 

@@ -275,18 +275,6 @@ def test_audit_catches_a_leaked_slot_page(setup):
         teng._audit_check()
 
 
-def test_non_finite_logits_raise_naming_the_slot(setup):
-    """Until the quarantine ladder is ported, a poisoned page fails loudly
-    with the slot and the request instead of emitting garbage."""
-    reqs = _requests(1, 11, max_new=(8, 9))
-    _, teng = _engines(setup, reqs, kv_layout="paged", page_size=4)
-    teng.admit([tsched.Request(**reqs[0])], 0.0)
-    teng._prefill_step(0.0)
-    teng.cache["blocks"]["v"][:, teng.slot_pages[0][0]] = float("nan")
-    with pytest.raises(RuntimeError, match="slot 0 \\(request 0\\)"):
-        teng.burst(0.0)
-
-
 def test_serve_defaults_to_the_card(setup):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a CUDA device")

@@ -14,9 +14,8 @@ import pytest
 from repro_torch.launch import serve
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-# flags of the JAX launcher whose layer the port does not have yet: the
-# observability layer (trace, metrics, telemetry, XLA profile)
-NOT_PORTED = {"--trace", "--metrics-out", "--xla-profile", "--telemetry"}
+# flags of the JAX launcher whose layer the port does not have yet: none
+NOT_PORTED: set = set()
 # choices of a ported flag that belong to a layer not ported: none
 NOT_PORTED_CHOICES: dict = {}
 
@@ -139,3 +138,32 @@ def test_launcher_serves_spec_paged(mode, capsys):
     stats = ast.literal_eval(out.split("stats: ", 1)[1].splitlines()[0])
     assert stats["spec_steps"] > 0 and stats["audits"] > 0
     assert stats["draft_tokens"] > 0 or mode[1] == "ngram"
+
+
+def test_launcher_writes_trace_metrics_and_telemetry(tmp_path, capsys):
+    """The continuous paged launcher with ``--telemetry --trace
+    --metrics-out --xla-profile`` on the CPU: the trace parses and holds
+    the serve's spans, every metrics line parses and the last one holds
+    the scheduler's counters, the torch.profiler trace parses, and the
+    end-of-run prints are the JAX launcher's."""
+    import json
+    trace, metrics, prof = tmp_path / "t.json", tmp_path / "m.jsonl", tmp_path / "prof"
+    serve.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
+                "--scheduler", "continuous", "--kv-layout", "paged", "--prefix-cache",
+                "--cache-dtype", "fp2fx8", "--attn-mode", "kernel", "--batch", "4",
+                "--n-slots", "2", "--max-new", "5", "--telemetry", "--trace", str(trace),
+                "--metrics-out", str(metrics), "--xla-profile", str(prof)])
+    out = capsys.readouterr().out
+    rows = [ln for ln in out.splitlines() if ln.startswith("[")]
+    assert len(rows) == 4 and "FAILED" not in out
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert {"admit", "prefill_chunk", "decode_burst"} <= {e["name"] for e in events}
+    lines = [json.loads(ln) for ln in metrics.read_text().splitlines()]
+    names = {m["name"] for m in lines[-1]["metrics"]}
+    assert {"serve.bursts", "serve.ttft_s", "serve.tbt_s", "serve.quarantines"} <= names
+    assert json.loads((prof / "trace.json").read_text())["traceEvents"]
+    numerics = ast.literal_eval(out.split("numerics: ", 1)[1].splitlines()[0])
+    assert numerics["bursts"] > 0 and numerics["kv_scale_hist"] and numerics["converts"] > 0
+    for line in (f"# wrote trace {trace}", f"# wrote metrics {metrics}",
+                 "serve.bursts{family=dense,scheduler=continuous}"):
+        assert line in out, line

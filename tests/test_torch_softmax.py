@@ -151,6 +151,38 @@ def test_bwd_kernel_matches_jax(name, dtype):
     _same(jax_bwd(js, jdy, cj, interpret=True), got)
 
 
+@pytest.mark.parametrize("name", sorted(CFGS))
+def test_kernels_on_rows_holding_nan_match_jax(name):
+    """Rows holding NaN through both kernels' plain versions and JAX's
+    kernels, bitwise.  Forward: a NaN score is FP2FX raw 0 in both (a NaN
+    at key 0 of every third row, whole NaN rows).  Backward: NaN dy at a
+    row's most probable key and in whole rows, +inf dy at another row's:
+    the element's ``log_mul`` reads the all-ones exponent, its count is
+    +-inf, and the dot (+-inf or NaN) is the same in both."""
+    cj, ct = CFGS[name]
+    z = _scores(4, (24, 96), scale=2.0)
+    z[::3, 0] = np.nan
+    z[5] = np.nan
+    jz, tz = _pair(z, "f32")
+    s = ths.hyft_softmax_fwd_kernel(tz, ct)
+    _same(jax_fwd(jz, cj, interpret=True), s)
+    assert torch.isfinite(s).all()
+    s32 = s.float().numpy()
+    dy = np.random.default_rng(4).standard_normal((24, 96)).astype(np.float32)
+    top = s32.argmax(-1)
+    dy[::4, :][np.arange(6), top[::4]] = np.nan
+    dy[7] = np.nan
+    dy[2, top[2]] = np.inf
+    dtype = "f32" if ct.dtype == torch.float32 else ("f16" if ct.dtype == torch.float16
+                                                     else "bf16")
+    js, jdy = (jnp.asarray(x).astype(DTYPES[dtype][0]) for x in (s32, dy))
+    # the torch inputs from the JAX arrays' bits: the two libraries' casts
+    # of a NaN to bf16 give NaNs of other signs
+    ts, tdy = (torch.from_numpy(np.asarray(x).view(f"i{x.dtype.itemsize}").copy())
+               .view(DTYPES[dtype][1]) for x in (js, jdy))
+    _same(jax_bwd(js, jdy, cj, interpret=True), ths.hyft_softmax_bwd_kernel(ts, tdy, ct))
+
+
 @pytest.mark.parametrize("out", ["default", "cfg", "float32"])
 @pytest.mark.parametrize("name", sorted(CFGS))
 def test_bwd_kernel_out_dtype_matches_jax(name, out):
