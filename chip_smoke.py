@@ -60,7 +60,11 @@ script exits non-zero without its last line:
               launch the flash forward exactly 56 times (28 layers, twice
               under remat) and dq and dk/dv 28 times each; then one step
               under torch.profiler (wall, device busy time and idle share,
-              launches, top kernels);
+              launches, top kernels); then remat "dots" beside "full"
+              (``remat_dots_part``): a warm-up and DOTS_STEPS timed steps
+              with the same launches, step ms and peak memory, and one
+              batch's loss and gradients under both (expected bitwise,
+              the largest difference printed);
   8. train parity  fp32 compute, HYFT32, full width, 2 layers, batch 1 x
               1024: loss and gradients of kernel mode against the unfused
               mode on the same weights and batch, within
@@ -135,7 +139,10 @@ script exits non-zero without its last line:
               warp-per-row path (2113 x 1280 at its column cap, 2112 x
               1281 past it, 2115 x 1001 with unaligned rows, 2111 rows
               below its row floor, rows of 256, 500 and 3 columns on its
-              narrower width and shorter than one 16-byte chunk); HYFT16,
+              narrower width and shorter than one 16-byte chunk), and the
+              MoE router's rows (4,096 x 16 and x 8, the warp path; 2,048
+              x 16, 4 x 16 and 8 x 8, the block path; nearly flat rows
+              whose probabilities tie); HYFT16,
               HYFT32, HYFT16B, HYFT32 with step 2 and 4; fp32, fp16 and
               bf16 scores; the backward on the forward's output and a
               seeded dy, its dz in the config's type and as fp32
@@ -216,7 +223,29 @@ script exits non-zero without its last line:
               kernels 6-9 are checked at D 64 but timed only at 128; kernels
               3-9 at D 16, 112 and 192 (the widths check's heads) and
               kernels 8 and 9 at the 5 lanes of a spec step at mistral-nemo's
-              heads, each with its launches in the spec phase;
+              heads, each with its launches in the spec phase; kernels 1
+              and 2 at the MoE router's shapes, each with its launches in
+              the moe phase;
+ 20. moe      phi3.5-moe-42b-a6.6b at its published widths, 16 of its 32
+              layers (42 GB of bf16 weights; all 32 do not fit), hyft16_kernel
+              (the router through kernel 1), kernel mode (``moe_phase``):
+              generate (kernels 8, 6 and 1) and the continuous cell's 24
+              chat requests (kernels 9, 7 and 1) with their launch gates,
+              prefill and decode ms, tokens/s, TTFT and TBT, peak memory and
+              the share of (token, choice) assignments dropped by capacity;
+              parity at fp32, HYFT32, 4 layers against the unfused mode
+              (the routing decisions' agreement, at least
+              MOE_MIN_AGREEMENT; the logits where they agree, by band of
+              positions, within bounds from a dense twin; a run with the
+              unfused mode forced to the kernels' experts; the same run
+              through the kernels' plain versions; two planted faults the
+              gates must reject); training at 2 layers, 2 x 1024 tokens
+              (kernels 3-5, 1 and 2);
+ 21. restart  qwen2-1.5b at full width cut to 2 layers, 6 steps through
+              ``run_train(ckpt_dir=...)`` with a checkpoint every 2 and a
+              fault at step 3 (``restart_phase``): the resumed run's state
+              bitwise the uninterrupted run's (or within two uninterrupted
+              runs' spread), the bytes and seconds of save and restore;
 
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -245,6 +274,7 @@ D64, CHUNK64 = 64, 128                # the second head width, its chunk checks
 PROMPT, NEW = 1024, 32
 MAX_LEN = PROMPT + NEW + 1            # 1057: the decode cache length
 SEQ, TIMED_STEPS = 1024, 3            # training: batch B x SEQ tokens
+DOTS_STEPS = 2                        # timed steps under remat "dots"
 SEED = 0
 # logits(kernel) vs logits(unfused), max |diff| / std.  The two modes are
 # different approximations, not one computation in two orders: the split-K
@@ -292,7 +322,12 @@ SOFTMAX_OPS = {"hyft_softmax_fwd": {"int": 4, "other": 1},
 LANE_INSTR_PER_S = FP32_FLOPS_PER_S / 2
 INT_INSTR_PER_S = LANE_INSTR_PER_S / 2
 L2_BYTES = 50e6
+MAX_BUFFERS = 512                     # input buffers a timing rotates over, at most
 PROFILED_LAUNCHES = 200               # the least launches of one profiled window
+# the profiled serving windows (continuous, n-gram and model-drafter spec):
+# requests at once, new tokens each; the profiler's host cost is most of
+# their time (4 x 16 took 66-79 s a spec window)
+PROFILED_REQUESTS, PROFILED_NEW = 2, 8
 # fine-tuning bert-base at full width on the marker task, GLUE's setting
 # (Devlin et al. 2019, sec. 4.1: batch 32, length 128); AdamW at the JAX
 # proxy's lr 2e-3; steps until the held-out accuracy reaches the target
@@ -331,8 +366,12 @@ TABLE3_JAX = [
 ]
 
 
+T0 = time.monotonic()
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started (``t_s``)."""
+    print(json.dumps({**obj, "t_s": round(time.monotonic() - T0, 1)}), flush=True)
 
 
 def device_phase(torch):
@@ -698,8 +737,10 @@ def serve_phase(torch, params, cfg):
 
 def parity_phase(torch, params, cfg):
     """attn_mode="kernel" against the unfused reference mode, fp32 compute
-    and HYFT32, on the same weights: prefill and the first decode step.
-    Returns the phase's line."""
+    and HYFT32, on the same weights: prefill and the first decode step,
+    gated at each prompt's last position and the decode step; beside them,
+    every prompt position's gap by band of POS_BANDS.  Returns the phase's
+    line."""
     from repro_torch.models import build_model
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -714,9 +755,17 @@ def parity_phase(torch, params, cfg):
                                         torch.zeros(B, dtype=torch.int32,
                                                     device="cuda"))
         ld, _ = model.decode_step(params, cache, tokens[:, :1], PROMPT)
-        logits[mode] = (lp[:, -1], ld[:, -1])
+        logits[mode] = (lp[:, -1], ld[:, -1], lp)
         del cache, lp
-    res = {"phase": "parity", "arch": cfg.name, "n_layers": cfg.n_layers}
+    # not gated: every prompt position by band (POS_BANDS), against the std
+    # of all prompt logits
+    full_k, full_u = logits["kernel"][2], logits["unfused"][2]
+    res = {"phase": "parity", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "prefill_by_position": _band_max((full_k - full_u).abs().amax(-1),
+                                            float(full_u.std()))}
+    del full_k, full_u
+    for mode in logits:
+        logits[mode] = logits[mode][:2]
     for i, name in enumerate(("prefill", "decode")):
         a, b = logits["kernel"][i], logits["unfused"][i]
         assert torch.isfinite(a).all() and torch.isfinite(b).all()
@@ -1002,8 +1051,9 @@ def continuous_serve_phase(torch, params, cfg):
                         starved, cfg)
     emit({"phase": "continuous_serve", "part": "page_starved", **rec})
     assert rec["stats"]["preemptions"] >= 1, "the starved pool never preempted"
-    # the profiled run: 4 requests at once, 16 new tokens each (two bursts)
-    short = [dataclasses.replace(r, arrival=0.0, max_new=16) for r in reqs[:4]]
+    # the profiled run: PROFILED_REQUESTS at once, PROFILED_NEW tokens each
+    short = [dataclasses.replace(r, arrival=0.0, max_new=PROFILED_NEW)
+             for r in reqs[:PROFILED_REQUESTS]]
     scfg = _serve_config(cache_dtype="fp2fx8")
     runs = []
     events, wall = _profiled(torch, lambda: runs.append(
@@ -1012,7 +1062,8 @@ def continuous_serve_phase(torch, params, cfg):
     busy = sum(map(_self_device_us, kern)) / 1e3
     n_launch = sum(e.count for e in kern)
     calls = runs[0]["stats"]["model_calls"]
-    emit({"phase": "profile", "part": "continuous_serve_4_requests_16_tokens", "cache": "fp2fx8",
+    emit({"phase": "profile", "part": "continuous_serve_short", "cache": "fp2fx8",
+          "requests": PROFILED_REQUESTS, "new_tokens": PROFILED_NEW,
           "wall_ms": wall * 1e3, "device_busy_ms": busy,
           "device_idle_share": 1.0 - busy / (wall * 1e3),
           "launches": n_launch, "model_calls": calls,
@@ -1387,7 +1438,60 @@ def train_phase(torch):
           "launches_per_step": want})
     batch = run["batch_fn"](1 + TIMED_STEPS)
     emit(_train_profile(torch, lambda: run["step"](state, batch)))
+    state = remat_dots_part(torch, run, state, want)
     return want
+
+
+def remat_dots_part(torch, run, state, want):
+    """The training cell under remat "dots" beside "full": one warm-up and
+    DOTS_STEPS timed steps from the same state (step ms, tokens/s, peak
+    memory, the launches of kernels 3-5, which must be "full"'s: the
+    forward kernel runs again in the backward, a kernel launch not being a
+    product the policy keeps); then one batch's loss and gradients under
+    both policies on the same weights, which are expected bitwise equal
+    (the recomputation runs the same kernels on the same inputs), else the
+    largest difference is printed."""
+    from repro_torch import optim
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train.step import build_train_step, grads_of, make_loss_fn
+    from repro_torch.tree import tree_leaves
+
+    ocfg = optim.OptConfig(name="adamw", lr=1e-3)
+    tcfg = {r: dataclasses.replace(run["tcfg"], remat=r) for r in ("full", "dots")}
+    step = build_train_step(run["model"], tcfg["dots"], ocfg)
+    torch.cuda.reset_peak_memory_stats()
+    timed = []
+    for i in range(1 + DOTS_STEPS):
+        batch = run["batch_fn"](10 + i)
+        _zero(fa.LAUNCHES)                             # the main path's run
+        (state, metrics), dt = _timed(torch, lambda: step(state, batch))
+        got = dict(fa.LAUNCHES)
+        rec = {"phase": "train", "remat": "dots", "step": i, "warmup": i == 0,
+               "ms": dt * 1e3, "tokens_per_s": B * SEQ / dt,
+               "loss": float(metrics["loss"]), "launches": got}
+        emit(rec)
+        assert got == want, f"remat dots: launch counts {got} != {want}"
+        assert math.isfinite(rec["loss"])
+        if i:
+            timed.append(rec["ms"])
+    peak = torch.cuda.max_memory_allocated()
+    batch = run["batch_fn"](20)
+    out = {}
+    for r in ("full", "dots"):
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, grads = grads_of(make_loss_fn(run["model"], tcfg[r]), state["params"], batch)
+        out[r] = (loss, tree_leaves(grads), torch.cuda.max_memory_allocated())
+    (lf, gf, mf), (ld, gd, md) = out["full"], out["dots"]
+    bitwise = bool(torch.equal(lf, ld)) and all(torch.equal(a, b) for a, b in zip(gf, gd))
+    emit({"phase": "train", "remat": "dots", "timed_steps": len(timed),
+          "mean_step_ms": sum(timed) / len(timed),
+          "tokens_per_s": B * SEQ / (sum(timed) / len(timed)) * 1e3,
+          "max_memory_allocated": peak, "launches_per_step": want,
+          "grads_max_memory_allocated": {"full": mf, "dots": md},
+          "grads_bitwise_full": bitwise, "loss_full": float(lf), "loss_dots": float(ld),
+          "grads_max_abs_diff": max(float((a - b).abs().max()) for a, b in zip(gf, gd))})
+    del gf, gd, out
+    return state
 
 
 def train_parity_phase(torch):
@@ -1954,6 +2058,17 @@ def _softmax_shapes(torch):
         ("2112x3", (2112, 3), ar(2112) % 3 + 1, 3.0),
         ("2115x1001", (2115, 1001), ar(2115) * 7 % 1001 + 1, 3.0),
         ("2111x1024", (2111, 1024), ar(2111) % 1024 + 1, 3.0),
+        # the MoE router's rows (moe phase): one a token, one column an
+        # expert: phi3.5-moe's 16 and grok-1's 8 over a prompt of 4 x 1024
+        # tokens (the warp path), a training step's 2 x 1024 and a decode
+        # step's 4 or 8 slots (the block path), and nearly flat rows, whose
+        # probabilities tie
+        ("router_prefill", (B * PROMPT, 16), full(B * PROMPT, 16), 3.0),
+        ("router_prefill8", (B * PROMPT, 8), full(B * PROMPT, 8), 3.0),
+        ("router_train", (MOE_TRAIN_B * SEQ, 16), full(MOE_TRAIN_B * SEQ, 16), 3.0),
+        ("router_decode", (B, 16), full(B, 16), 3.0),
+        ("router_decode8", (SLOTS, 8), full(SLOTS, 8), 3.0),
+        ("router_ties", (B * PROMPT, 16), full(B * PROMPT, 16), 0.001),
     ]
 
 
@@ -2003,10 +2118,10 @@ def softmax_check_phase(torch):
                 rec["fwd_max_abs_err"] = max(rec["fwd_max_abs_err"], err["max_abs_err"])
                 rec["bwd_mismatches"] += berr["mismatches"]
                 rec["bwd_max_abs_err"] = max(rec["bwd_max_abs_err"], berr["max_abs_err"])
-                if name == "train" and cfg is HYFT16 and dtype == torch.float32:
-                    errors["hyft_softmax_fwd"] = err["max_abs_err"]
-                    errors["hyft_softmax_bwd"] = berr["max_abs_err"]
-                    errors["hyft_softmax_bwd_f32"] = b32["max_abs_err"]
+                if cfg is HYFT16 and dtype == torch.float32:   # the kernels line's
+                    errors["hyft_softmax_fwd", name] = err["max_abs_err"]
+                    errors["hyft_softmax_bwd", name] = berr["max_abs_err"]
+                    errors["hyft_softmax_bwd_f32", name] = b32["max_abs_err"]
                 del z, s, dy, dz, dz32, plain
             emit(rec)
             past_rows += rec["fwd_rows_past_precondition"]
@@ -2186,7 +2301,7 @@ def unfused_train_phase(torch):
     return want
 
 
-def softmax_kernels_phase(torch, errors, serve_launches, train_launches):
+def softmax_kernels_phase(torch, errors, serve_launches, train_launches, moe_launches):
     """Kernels 1 and 2 at the unfused path's shapes under HYFT16 (fp32
     scores in, fp16 out; the backward reads fp16 s and dy and stores dz as
     fp32, as the training step calls it, and, in a row of its own, as
@@ -2219,6 +2334,18 @@ def softmax_kernels_phase(torch, errors, serve_launches, train_launches):
         ("hyft_softmax_bwd", "train_f16_out", "train", torch.float16, 0,
          "none: a side timing of the [train] rows with fp16 dz, which the "
          "training step does not launch"),
+        ("hyft_softmax_fwd", "router_prefill", "router_prefill", None,
+         moe_launches["router_prefill"],
+         f"per MoE generate's prompt ({MOE_ARCH}, {MOE_LAYERS} layers; the router)"),
+        ("hyft_softmax_fwd", "router_decode", "router_decode", None,
+         moe_launches["router_decode"],
+         f"per MoE generate's decode steps ({MOE_LAYERS} x {NEW - 1})"),
+        ("hyft_softmax_fwd", "router_train", "router_train", None,
+         moe_launches["router_train_fwd"],
+         f"per MoE training step ({MOE_TRAIN_LAYERS} layers, twice under remat)"),
+        ("hyft_softmax_bwd", "router_train", "router_train", torch.float32,
+         moe_launches["router_train_bwd"],
+         f"per MoE training step ({MOE_TRAIN_LAYERS} layers; dz stored as fp32)"),
     ]
     kernels = []
     for entry, row, name, out_dtype, n_launch, launches_are in specs:
@@ -2226,7 +2353,7 @@ def softmax_kernels_phase(torch, errors, serve_launches, train_launches):
         rows, cols = math.prod(shape[:-1]), shape[-1]
         bwd = entry == "hyft_softmax_bwd"
         nbytes = rows * cols * ((2 + 2 + out_dtype.itemsize) if bwd else (4 + 2))
-        nbuf = max(1, math.ceil(2 * L2_BYTES / nbytes))
+        nbuf = min(MAX_BUFFERS, max(1, math.ceil(2 * L2_BYTES / nbytes)))
         bufs = []
         for _ in range(nbuf):
             z = _scores(torch, gen, shape, keep)
@@ -2263,7 +2390,7 @@ def softmax_kernels_phase(torch, errors, serve_launches, train_launches):
                          else "src/repro/kernels/hyft_softmax.py:28"),
             "tpu_kernel": "_bwd_kernel" if bwd else "_fwd_kernel",
             "shape": [rows, cols], "launches": n_launch, "launches_are": launches_are,
-            "max_abs_err": errors[err_key],
+            "max_abs_err": errors[err_key, name],
             **timing,
             "kernel_ms": event_ms, "kernel_ms_buffers": nbuf, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
@@ -2623,8 +2750,9 @@ def spec_phase(torch):
     and 8; 8 at 5 lanes), where both spec runs must emit the reference's
     tokens on every request; then ``parity_phase`` at that depth.  Returns
     the launch tallies the kernels line reads.  Beside them, a profiled
-    run of 4 requests at once (16 new tokens) per drafter: wall, device
-    busy time and idle share, launches, the top kernels."""
+    run of PROFILED_REQUESTS at once (PROFILED_NEW new tokens) per
+    drafter: wall, device busy time and idle share, launches, the top
+    kernels."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -2685,8 +2813,9 @@ def spec_phase(torch):
         return outs
 
     outs = serve_all(model, params, cfg, "paged", "", True)
-    # where a spec step's time goes: 4 requests at once, 16 new tokens each
-    short = [dataclasses.replace(r, arrival=0.0, max_new=16) for r in reqs[:4]]
+    # where a spec step's time goes: PROFILED_REQUESTS at once, PROFILED_NEW each
+    short = [dataclasses.replace(r, arrival=0.0, max_new=PROFILED_NEW)
+             for r in reqs[:PROFILED_REQUESTS]]
     for name, kw in modes[1:]:
         runs = []
         events, wall = _profiled(torch, lambda: runs.append(_serve_run(
@@ -2694,7 +2823,8 @@ def spec_phase(torch):
         kern = sorted(_device_events(torch, events), key=_self_device_us, reverse=True)
         busy = sum(map(_self_device_us, kern)) / 1e3
         st = runs[0]["stats"]
-        emit({"phase": "profile", "part": f"{name}_4_requests_16_tokens", "arch": cfg.name,
+        emit({"phase": "profile", "part": f"{name}_short", "arch": cfg.name,
+              "requests": PROFILED_REQUESTS, "new_tokens": PROFILED_NEW,
               "wall_ms": wall * 1e3, "device_busy_ms": busy,
               "device_idle_share": 1.0 - busy / (wall * 1e3),
               "launches": sum(e.count for e in kern), "spec_steps": st["spec_steps"],
@@ -2726,6 +2856,606 @@ def spec_phase(torch):
                  cfg.with_(n_layers=MISTRAL_FP32_LAYERS))
     del params
     return result
+
+
+# --------------------------------------------------------------------------
+# the MoE family (phi3.5-moe), and checkpoint/restart
+# --------------------------------------------------------------------------
+
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+# phi3.5-moe's 32 layers hold 83 GB of bf16 weights, more than the card's
+# 80 GB; 16 layers (42 GB) leave room for the caches and activations
+MOE_LAYERS = 16
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_STEPS = 2, 2, 2   # 2 x 1024 tokens a step
+MOE_PARITY_LAYERS = 4
+# the least share of (token, layer) routing decisions (the two experts, and
+# whether each was kept or dropped by capacity) on which kernel and unfused
+# mode must agree.  A decision flips where a token's second and third HYFT32
+# router probabilities lie within the modes' gap of each other, and each
+# flip moves the capacity decision of at most the slot-boundary token of its
+# two experts later in its group of 512: the card reads 0.980.  The planted
+# faults of MOE_CONTROLS read 0.609 (lanes off by one) and 0.962 (a gain of
+# 1/16), so this gate catches a gross fault only; the gates on the logits
+# and the plain versions catch the small one (PERF.md section 6).
+MOE_MIN_AGREEMENT = 0.9
+# query positions of a prompt, in bands [lo, hi): the gap between the two
+# attention modes depends on how many keys a position sees.  Both modes
+# divide through the Hyft DIV unit, a log-subtract divide with an error of
+# a few percent: the unfused mode once per probability, the kernels once
+# per output over the PV sum.  So they differ by a share of the attention
+# output that does not shrink with the keys, while the output itself, a
+# mean of values over the keys seen, does (its rms falls from about 1 at
+# one key to about 0.08 at 512: scripts/torch_mode_gap.py).  A position
+# that sees few keys therefore carries a larger gap into the residual
+# stream; position 0 sees one key, p = 1 in both modes, and no gap.
+POS_BANDS = ((0, 1), (1, 2), (2, 4), (4, 8), (8, 16), (16, 64), (64, 256), (256, 1024))
+# the MoE parity's bound in each band is PARITY_BOUND carried to the band
+# by the dense twin's own ratio of that band's gap to its last position's
+# (never below PARITY_BOUND): the twin is the MoE model's widths and depth
+# with a dense MLP of d_ff 6400 in place of the experts, its own weights
+# from the seed, under the same two modes.  The kernel-mode run is also
+# held to the same run through the kernels' plain versions on the card,
+# every decision equal and the logits within MOE_PLAIN_GAP of their std.
+# Kernel 8 at phi's heads (32 / 8, 1024 lanes, 1057 keys) is not bitwise
+# its plain version: 0.85% of its outputs differ, by at most 7.6e-6 (one
+# or two ulps at |o| = 4); the MoE layers' gain carries that to 1.4e-4 of
+# the logits' std at 4 layers (PERF.md section 6).  The planted faults
+# read 6.6 and 6.8 std there.
+MOE_PLAIN_GAP = 1e-3
+# faults planted in the kernel-mode run's chunk-attention kernel (kernel 8)
+# output, each of which the MoE parity's gates must reject: a fold bug that
+# gives each query lane its neighbour's output, and a divide one step high
+# at 4 mantissa bits
+MOE_CONTROLS = {"lanes_off_by_one": lambda o: o.roll(-1, dims=2),
+                "gain_1_16": lambda o: o * 1.0625}
+# the restart cell: qwen2-1.5b at full width, cut to 2 layers; 6 steps,
+# a checkpoint every 2 (the latest 2 kept), a fault injected at step 3
+RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY, RESTART_KEEP, RESTART_FAULT = 2, 6, 2, 2, 3
+
+
+@contextlib.contextmanager
+def _routing(moe):
+    """Every MoE router call's decisions while inside, as device tensors:
+    wraps ``moe._route`` (the model's own) and keeps, per call, the chosen
+    experts (tokens, k), in choice order, from its one-hot rows, and
+    whether each choice was kept (tokens, k) from its keep mask."""
+    calls = []
+    orig = moe._route
+
+    def route(p, x, cfg):
+        out = orig(p, x, cfg)
+        _, _, onehot, keep, _ = out                    # (ng, G, k, E) each
+        k = onehot.shape[-2]
+        calls.append((onehot.argmax(-1).reshape(-1, k), keep.any(-1).reshape(-1, k)))
+        return out
+    moe._route = route
+    try:
+        yield calls
+    finally:
+        moe._route = orig
+
+
+def _dropped(torch, calls):
+    """The share of (token, choice) assignments dropped by capacity."""
+    kept = int(torch.stack([k.sum() for _, k in calls]).sum()) if calls else 0
+    total = sum(k.numel() for _, k in calls)
+    return {"assignments": total, "dropped": total - kept,
+            "dropped_share": (total - kept) / max(1, total)}
+
+
+def _decisions(torch, calls):
+    """(layers, tokens) decision keys: the experts sorted, each with its
+    kept flag, so that two runs compare by equality."""
+    out = []
+    for idx, kept in calls:
+        srt, order = idx.sort(-1)
+        out.append(torch.cat([srt, kept.gather(-1, order).long()], -1))
+    return torch.stack(out)
+
+
+def moe_phase(torch):
+    """phi3.5-moe-42b-a6.6b at its published widths (configs/phi3_5_moe_42b
+    .py: d_model 4096, 32 / 8 heads of 128, 16 experts top-2, d_ff 6400,
+    vocab 32064, LayerNorm, bf16 params), cut to MOE_LAYERS of its 32
+    layers, random weights from the seed, softmax_impl="hyft16_kernel" (the
+    router's rows, fp32 in, through kernel 1), kernel mode, bf16 compute:
+      * ``generate``, batch 4, prompt 1024, 32 new tokens, fp2fx8 cache:
+        kernels 8 and 6 once a layer a call, and kernel 1 on the router's
+        rows (4,096 of 16 columns for the prompt, 4 a decode step); prefill
+        ms, decode ms a token, tokens/s, peak memory, the share of (token,
+        choice) assignments dropped by capacity; the prompt and 4 decode
+        steps under torch.profiler;
+      * the continuous cell's 24 chat requests over fp2fx8 pages of 16
+        (``_serve_run``): kernels 9 and 7, and kernel 1 once a layer a
+        model call; TTFT and TBT p50/p99, tokens/s, the dropped share;
+      * parity: fp32 compute, HYFT32, MOE_PARITY_LAYERS layers (fresh fp32
+        weights from the seed), prefill of 4 x 1024 tokens and one decode
+        step in kernel mode against the unfused mode (``moe_parity_part``);
+      * training: MOE_TRAIN_LAYERS layers, MOE_TRAIN_B x 1024 tokens, AdamW
+        (lr 1e-3), remat "full": kernels 3-5 at D 128 (32 / 8 heads), and
+        kernels 1 and 2 on the router's rows; one warm-up and
+        MOE_TRAIN_STEPS timed steps: ms, tokens/s, loss, aux, peak memory.
+    Returns the router's launches for the kernels line."""
+    import numpy as np
+    from repro_torch import optim
+    from repro_torch.configs import ServeConfig, TrainConfig, get_config
+    from repro_torch.data.synthetic import DataConfig, lm_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.models import build_model, moe
+    from repro_torch.serve.engine import generate
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import build_train_step
+
+    published = get_config(MOE_ARCH)
+    cfg = published.with_(n_layers=MOE_LAYERS, softmax_impl="hyft16_kernel")
+    L = cfg.n_layers
+    model = build_model(cfg)
+    params = model.init(SEED, device=DEV)
+    emit({"phase": "init", "arch": cfg.name, "n_layers": L,
+          "published_layers": published.n_layers,
+          "cut": f"depth {published.n_layers} -> {L}: all 32 layers are about 83 GB of "
+                 "bf16 weights, past the card's 80 GB",
+          "params": sum(t.numel() for t in _leaves(params)),
+          "bytes": sum(t.numel() * t.element_size() for t in _leaves(params))})
+    launches = {}
+
+    # generate: batch 4, prompt 1024, 32 new tokens
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    scfg = ServeConfig(max_len=MAX_LEN, cache_dtype="fp2fx8", attn_mode="kernel")
+    run = lambda n: generate(model, params, {"tokens": tokens}, scfg, max_new=n,  # noqa: E731
+                            device=DEV)
+    _timed(torch, lambda: run(2))                      # warm-up
+    _zero(fa.LAUNCHES, hs.LAUNCHES)                    # the prompt alone
+    _, t_prefill = _timed(torch, lambda: run(1))
+    prompt = {**fa.LAUNCHES, **hs.LAUNCHES}
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fa.LAUNCHES, hs.LAUNCHES)                    # the main path's run
+    with _routing(moe) as calls:
+        out, t_all = _timed(torch, lambda: run(NEW))
+    got = {**fa.LAUNCHES, **hs.LAUNCHES}
+    want_prompt, want = dict.fromkeys(got, 0), dict.fromkeys(got, 0)
+    want_prompt.update(hyft_splitk_verify=L, hyft_softmax_fwd=L)
+    want.update(hyft_splitk_verify=L, hyft_splitk_decode=L * (NEW - 1),
+                hyft_softmax_fwd=L * NEW)
+    t_decode = t_all - t_prefill
+    emit({"phase": "moe", "part": "generate", "arch": cfg.name, "n_layers": L,
+          "cache": "fp2fx8", "launches": got, "expected": want,
+          "launches_prompt": prompt, "expected_prompt": want_prompt,
+          "prefill_ms": t_prefill * 1e3, "decode_ms_per_token": t_decode / (NEW - 1) * 1e3,
+          "decode_tokens_per_s": B * (NEW - 1) / t_decode, "generate_ms": t_all * 1e3,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "routing": _dropped(torch, calls)})
+    assert prompt == want_prompt, f"MoE prompt launch counts {prompt} != {want_prompt}"
+    assert got == want, f"MoE generate launch counts {got} != {want}"
+    assert out.shape == (B, NEW) and bool(((out >= 0) & (out < cfg.vocab)).all())
+    launches["router_prefill"] = prompt["hyft_softmax_fwd"]
+    launches["router_decode"] = got["hyft_softmax_fwd"] - prompt["hyft_softmax_fwd"]
+    del calls, out
+    # where a decode step's time goes: the prompt and 4 decode steps, profiled
+    events, wall = _profiled(torch, lambda: run(5))
+    kern = sorted(_device_events(torch, events), key=_self_device_us, reverse=True)
+    busy = sum(map(_self_device_us, kern)) / 1e3
+    emit({"phase": "profile", "part": "moe_generate_prompt_and_4_steps", "arch": cfg.name,
+          "wall_ms": wall * 1e3, "device_busy_ms": busy,
+          "device_idle_share": 1.0 - busy / (wall * 1e3),
+          "launches": sum(e.count for e in kern),
+          "top_kernels": [{"name": e.key[:90], "count": e.count,
+                           "device_ms": _self_device_us(e) / 1e3} for e in kern[:12]]})
+
+    # continuous serving: the 24 chat requests over the paged pool
+    reqs = _chat_requests(np, cfg.vocab)
+    warm = [dataclasses.replace(r, arrival=0.0, max_new=8) for r in reqs[:2]]
+    scfg = _serve_config(cache_dtype="fp2fx8")
+    _serve_run(torch, model, params, scfg, warm, cfg)   # warm-up
+    _zero(hs.LAUNCHES)
+    with _routing(moe) as calls:
+        rec, done = _serve_run(torch, model, params, scfg, reqs, cfg)
+    soft = dict(hs.LAUNCHES)
+    st = rec["stats"]
+    want_soft = {"hyft_softmax_fwd": L * (st["prefills"] + st["burst_steps"]),
+                 "hyft_softmax_bwd": 0}
+    emit({"phase": "moe", "part": "continuous", "arch": cfg.name, "n_layers": L, **rec,
+          "softmax_launches": soft, "softmax_expected": want_soft,
+          "routing": _dropped(torch, calls)})
+    assert soft == want_soft, f"MoE continuous softmax launches {soft} != {want_soft}"
+    launches["continuous"] = soft["hyft_softmax_fwd"]
+    del calls, done, params, model
+    torch.cuda.empty_cache()
+
+    moe_parity_part(torch, published)
+    torch.cuda.empty_cache()
+
+    # training: MOE_TRAIN_LAYERS layers at full width
+    tcfg_m = published.with_(n_layers=MOE_TRAIN_LAYERS, softmax_impl="hyft16_kernel")
+    model = build_model(tcfg_m)
+    tcfg = TrainConfig(global_batch=MOE_TRAIN_B, seq_len=SEQ, lr=1e-3, remat="full",
+                       total_steps=MOE_TRAIN_STEPS + 2, optimizer="adamw", attn_mode="kernel")
+    ocfg = optim.OptConfig(name="adamw", lr=1e-3)
+    state = init_state(model, ocfg, SEED, device=DEV)
+    step = build_train_step(model, tcfg, ocfg)
+    dcfg = DataConfig(vocab=tcfg_m.vocab, seq_len=SEQ, global_batch=MOE_TRAIN_B, seed=SEED)
+    Lt = MOE_TRAIN_LAYERS
+    want = dict.fromkeys({**fa.LAUNCHES, **hs.LAUNCHES}, 0)
+    want.update(hyft_flash_fwd=2 * Lt, hyft_flash_bwd_dq=Lt, hyft_flash_bwd_dkv=Lt,
+                hyft_softmax_fwd=2 * Lt, hyft_softmax_bwd=Lt)
+    torch.cuda.reset_peak_memory_stats()
+    timed = []
+    for i in range(1 + MOE_TRAIN_STEPS):
+        batch = lm_batch(dcfg, i, device=DEV)
+        _zero(fa.LAUNCHES, hs.LAUNCHES)                # the main path's run
+        (state, metrics), dt = _timed(torch, lambda: step(state, batch))
+        got = {**fa.LAUNCHES, **hs.LAUNCHES}
+        rec = {"phase": "moe", "part": "train", "step": i, "warmup": i == 0,
+               "ms": dt * 1e3, "tokens_per_s": MOE_TRAIN_B * SEQ / dt,
+               "loss": float(metrics["loss"]), "aux": float(metrics["aux"]),
+               "nll": float(metrics["nll"]), "grad_norm": float(metrics["grad_norm"]),
+               "launches": got}
+        emit(rec)
+        assert got == want, f"MoE train launch counts {got} != {want}"
+        assert math.isfinite(rec["loss"]) and math.isfinite(rec["aux"])
+        if i:
+            timed.append(rec["ms"])
+    step_ms = sum(timed) / len(timed)
+    emit({"phase": "moe", "part": "train", "arch": tcfg_m.name, "n_layers": Lt,
+          "tokens_per_step": MOE_TRAIN_B * SEQ, "timed_steps": len(timed),
+          "mean_step_ms": step_ms, "tokens_per_s": MOE_TRAIN_B * SEQ / step_ms * 1e3,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches_per_step": want})
+    launches["router_train_fwd"] = want["hyft_softmax_fwd"]
+    launches["router_train_bwd"] = want["hyft_softmax_bwd"]
+    del state, step, model
+    return launches
+
+
+@contextlib.contextmanager
+def _forced_experts(moe, calls):
+    """The router's top-k replaced, call by call, by the experts that
+    ``calls`` (``_routing``'s record of another run) chose; each choice's
+    probability is still this run's own.  Capacity and the kept flags
+    follow from the experts alone, so every decision equals the record's."""
+    orig, record = moe.top_k, iter(calls)
+
+    def top_k(probs, k):
+        idx = next(record)[0].reshape(probs.shape[:-1] + (k,))
+        return probs.gather(-1, idx), idx
+    moe.top_k = top_k
+    try:
+        yield
+    finally:
+        moe.top_k = orig
+
+
+@contextlib.contextmanager
+def _planted(ops, fault):
+    """A fault planted in the chunk-attention kernel's output (the prefill's
+    kernel 8) within the block."""
+    orig = ops.hyft_verify_attention
+    ops.hyft_verify_attention = lambda *a, **kw: fault(orig(*a, **kw))
+    try:
+        yield
+    finally:
+        ops.hyft_verify_attention = orig
+
+
+@contextlib.contextmanager
+def _splitk_plain(fa):
+    """The contiguous split-K kernels (6 and 8) replaced by their plain
+    versions for a CUDA tensor within the block."""
+    orig = fa._splitk_attention_cuda
+    fa._splitk_attention_cuda = fa.splitk_attention_plain
+    try:
+        yield
+    finally:
+        fa._splitk_attention_cuda = orig
+
+
+@contextlib.contextmanager
+def _first_chunk_launch(fa, seen):
+    """Keeps the folded operands of the block's first launch of the chunk
+    kernel (kernel 8) in ``seen``."""
+    orig = fa._splitk_attention_cuda
+
+    def launch(*args, **kw):
+        if kw.get("sq") is not None and not seen:
+            seen.append((args, kw))
+        return orig(*args, **kw)
+    fa._splitk_attention_cuda = launch
+    try:
+        yield
+    finally:
+        fa._splitk_attention_cuda = orig
+
+
+def _band_max(diff, std, keep=None):
+    """max |diff| / std over each POS_BANDS band's positions inside the
+    prompt (those ``keep`` marks, if given), None for a band with none.
+    diff, keep: (B, S)."""
+    out = {}
+    for lo, hi in POS_BANDS:
+        if lo < diff.shape[1]:
+            d = diff[:, lo:hi] if keep is None else diff[:, lo:hi][keep[:, lo:hi]]
+            out[f"{lo}-{hi}"] = float(d.max()) / std if d.numel() else None
+    return out
+
+
+def _prompt_and_step(torch, model, params, tokens, moe=None):
+    """Prefill of ``tokens`` on a fresh fp32 cache, then one decode step:
+    (prompt logits (B, S, V), the step's logits (B, V), the router calls
+    ``_routing`` recorded, or [] without ``moe``)."""
+    cache = model.init_cache(params, B, MAX_LEN, "float32", device=DEV)
+    with (_routing(moe) if moe is not None else contextlib.nullcontext([])) as calls:
+        lp, cache = model.prefill_chunk(params, cache, tokens,
+                                        torch.zeros(B, dtype=torch.int32, device=DEV))
+        ld, _ = model.decode_step(params, cache, tokens[:, :1], PROMPT)
+    return lp, ld[:, -1], calls
+
+
+def _moe_readings(torch, kern, ref, L):
+    """One kernel-mode run's readings against a reference run, each a
+    ``_prompt_and_step`` result: the routing agreement, the dense parity's
+    positions (each prompt's last, and the decode step) where every layer's
+    decision agrees, and every position by band: where every layer's
+    decision agrees, and where that holds for every position up to it
+    too (no flipped token to attend to)."""
+    (pk, dk, ck), (pu, du, cu) = kern, ref
+    assert len(ck) == len(cu) == 2 * L
+    agree = (_decisions(torch, ck[:L]) == _decisions(torch, cu[:L])).all(-1)  # (L, B * S)
+    agree_dec = (_decisions(torch, ck[L:]) == _decisions(torch, cu[L:])).all(-1)
+    pos = agree.all(0).reshape(B, -1)                  # every layer's decision agrees
+    prefix = pos.int().cummin(1).values.bool()         # ... and every earlier position's
+    diff = (pk - pu).abs().amax(-1)                    # (B, S)
+    std = float(pu.std())
+    last, dec = pos[:, -1], agree_dec.all(0)
+    gated = {"prefill": (diff[:, -1][last], float(pu[:, -1].std())),
+             "decode": ((dk - du).abs().amax(-1)[dec], float(du.std()))}
+    out = {"decisions": agree.numel() + agree_dec.numel(),
+           "decision_agreement": float(torch.cat([agree, agree_dec], 1).float().mean()),
+           "positions_agreeing_every_layer": float(pos.float().mean()),
+           "positions_whose_prefix_agrees": float(prefix.float().mean()),
+           "argmax_agreement": float((pk.argmax(-1) == pu.argmax(-1)).float().mean()),
+           "gated_positions": {k: int(v[0].numel()) for k, v in gated.items()}}
+    for k, (d, sd) in gated.items():
+        out[f"{k}_maxdiff_over_std"] = float(d.max()) / sd if d.numel() else None
+    out.update(prefill_all_maxdiff_over_std=float(diff.max()) / std,
+               prefill_agreeing_maxdiff_over_std=float(diff[pos].max()) / std
+               if pos.any() else None,
+               all_by_position=_band_max(diff, std),
+               agreeing_by_position=_band_max(diff, std, pos),
+               prefix_agreeing_by_position=_band_max(diff, std, prefix))
+    return out
+
+
+def _moe_gates(r, bound, plain):
+    """The MoE parity gates that a kernel-mode run fails (none if it
+    passes), from its readings against the unfused run (``r``) and against
+    the plain versions' run (``plain``): the routing agreement; the dense
+    parity's positions within PARITY_BOUND; in each band, the positions
+    whose prefix agrees (no flipped token to attend to) and all whose
+    decisions agree, within the band's bound; every decision and the
+    logits of the plain versions' run."""
+    failed = [] if r["decision_agreement"] >= MOE_MIN_AGREEMENT else ["agreement"]
+    failed += [k for k in ("prefill", "decode")
+               if r[f"{k}_maxdiff_over_std"] is None
+               or r[f"{k}_maxdiff_over_std"] > PARITY_BOUND]
+    for name, key in (("prefix", "prefix_agreeing_by_position"),
+                      ("agreeing", "agreeing_by_position")):
+        failed += [f"{name} {band}" for band, v in r[key].items()
+                   if v is not None and v > bound[band]]
+    if (plain["decision_agreement"] < 1.0
+            or plain["prefill_all_maxdiff_over_std"] > MOE_PLAIN_GAP
+            or plain["decode_maxdiff_over_std"] > MOE_PLAIN_GAP):
+        failed.append("plain")
+    return failed
+
+
+def moe_parity_part(torch, published):
+    """Kernel mode against the unfused mode on the MoE model (see
+    ``moe_phase``), fp32, HYFT32, MOE_PARITY_LAYERS layers:
+      * the dense twin under the two modes, every position by band: the
+        bounds (POS_BANDS, and MOE_PLAIN_GAP's comment);
+      * the free runs: the routing agreement and the logits
+        (``_moe_readings``), and the kernel-mode run through the kernels'
+        plain versions on the card;
+      * the unfused run again with the kernel run's experts
+        (``_forced_experts``): with no flipped decision, every position by
+        band within its bound, and the decode step within PARITY_BOUND;
+      * each planted fault of MOE_CONTROLS in the kernel run, which the
+        gates must reject.
+    The gates: ``_moe_gates`` on the free runs, and the forced run's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, moe
+
+    pcfg = published.with_(n_layers=MOE_PARITY_LAYERS, param_dtype="float32",
+                           compute_dtype="float32", softmax_impl="hyft32")
+    L = pcfg.n_layers
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    tokens = torch.randint(0, pcfg.vocab, (B, PROMPT), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    # the dense twin: its gap in each band against its last position's
+    tcfg = pcfg.with_(family="dense")
+    params = build_model(tcfg).init(SEED, device=DEV)
+    tk, tu = (_prompt_and_step(torch, build_model(tcfg.with_(attn_mode=m)), params, tokens)
+              for m in ("kernel", "unfused"))
+    twin = _band_max((tk[0] - tu[0]).abs().amax(-1), float(tu[0].std()))
+    twin_last = float((tk[0][:, -1] - tu[0][:, -1]).abs().max()) / float(tu[0][:, -1].std())
+    bound = {band: PARITY_BOUND * max(1.0, v / twin_last) for band, v in twin.items()}
+    del params, tk, tu
+
+    params = build_model(pcfg).init(SEED, device=DEV)
+    kmodel = build_model(pcfg.with_(attn_mode="kernel"))
+    umodel = build_model(pcfg.with_(attn_mode="unfused"))
+    seen = []
+    with _first_chunk_launch(fa, seen):
+        kern = _prompt_and_step(torch, kmodel, params, tokens, moe)
+    unf = _prompt_and_step(torch, umodel, params, tokens, moe)
+    # kernel 8 at phi's heads against its plain version, as check_phase
+    # holds it at its own: layer 0's operands
+    k8 = None
+    if seen:
+        args, kw = seen[0]
+        got = fa._splitk_attention_cuda(*args, **kw)
+        k8 = {"rows": list(args[0].shape), "keys": list(args[1].shape), "bk": kw["bk"],
+              **fa.out_errors(got, fa.splitk_tiles_plain(*args, **kw), kw["cfg"],
+                              float(args[2].abs().max())),
+              "differing_share": float((got != fa.splitk_attention_plain(*args, **kw))
+                                       .float().mean())}
+        del got, args, seen
+    with _splitk_plain(fa):
+        plain = _prompt_and_step(torch, kmodel, params, tokens, moe)
+    for x in kern[:2] + unf[:2] + plain[:2]:
+        assert torch.isfinite(x).all()
+    pr = _moe_readings(torch, kern, plain, L)
+    out = {"phase": "moe", "part": "parity", "arch": pcfg.name, "n_layers": L,
+           "compute": "float32", "softmax": "hyft32", "min_agreement": MOE_MIN_AGREEMENT,
+           "bound": PARITY_BOUND, **_moe_readings(torch, kern, unf, L),
+           "twin": {"by_position": twin, "last_maxdiff_over_std": twin_last},
+           "bound_by_position": bound, "kernel8_vs_plain": k8,
+           "plain": {"decision_agreement": pr["decision_agreement"],
+                     "prefill_maxdiff_over_std": pr["prefill_all_maxdiff_over_std"],
+                     "decode_maxdiff_over_std": pr["decode_maxdiff_over_std"],
+                     "bound": MOE_PLAIN_GAP}}
+    out["gates_failed"] = _moe_gates(out, bound, pr)
+    # the stricter form, not gated: every position whose decisions agree in
+    # every layer against PARITY_BOUND alone, a bound the dense parity meets
+    # only at each prompt's last position (its every position by band is
+    # in the parity phase's line)
+    out["agreeing_within_parity_bound"] = bool(
+        out["prefill_agreeing_maxdiff_over_std"] is not None
+        and out["prefill_agreeing_maxdiff_over_std"] <= PARITY_BOUND)
+    # the unfused run with the kernel run's experts: no decision differs
+    with _forced_experts(moe, kern[2]):
+        forced = _prompt_and_step(torch, umodel, params, tokens, moe)
+    fr = _moe_readings(torch, kern, forced, L)
+    forced_failed = [band for band, v in fr["all_by_position"].items() if v > bound[band]]
+    if fr["decode_maxdiff_over_std"] is None or fr["decode_maxdiff_over_std"] > PARITY_BOUND:
+        forced_failed.append("decode")
+    out["forced"] = {"decision_agreement": fr["decision_agreement"],
+                     "by_position": fr["all_by_position"],
+                     "decode_maxdiff_over_std": fr["decode_maxdiff_over_std"],
+                     "gates_failed": forced_failed}
+    del forced
+    # the planted faults, each against the unfused run and the plain versions'
+    out["controls"] = {}
+    for name, fault in MOE_CONTROLS.items():
+        with _planted(ops, fault):
+            bad = _prompt_and_step(torch, kmodel, params, tokens, moe)
+        r, rp = _moe_readings(torch, bad, unf, L), _moe_readings(torch, bad, plain, L)
+        c = {k: r[k] for k in ("decision_agreement", "positions_agreeing_every_layer",
+                               "positions_whose_prefix_agrees", "prefill_maxdiff_over_std",
+                               "decode_maxdiff_over_std", "prefill_all_maxdiff_over_std",
+                               "prefix_agreeing_by_position", "agreeing_by_position")}
+        c["plain"] = {"decision_agreement": rp["decision_agreement"],
+                      "prefill_maxdiff_over_std": rp["prefill_all_maxdiff_over_std"]}
+        c["gates_failed"] = _moe_gates(r, bound, rp)
+        out["controls"][name] = c
+        del bad
+    emit(out)
+    assert DEV != "cuda" or (k8 is not None and k8["out"] <= 1), \
+        f"MoE parity: kernel 8 at phi's heads disagrees with its plain version: {k8}"
+    assert fr["decision_agreement"] == 1.0, "MoE parity: the forced run's decisions differ"
+    assert not out["gates_failed"], f"MoE parity: {out['gates_failed']}"
+    assert not forced_failed, f"MoE parity, forced experts: {forced_failed}"
+    for name, c in out["controls"].items():
+        assert c["gates_failed"], f"MoE parity: the gates pass the planted fault {name}"
+    del params, kern, unf, plain
+
+
+def restart_phase(torch):
+    """Checkpoint and restart on the card: qwen2-1.5b at full width cut to
+    RESTART_LAYERS layers (hyft16, kernel mode, bf16 compute, fp32 params,
+    AdamW, warm-up 2 steps), B x 1024 tokens a step, RESTART_STEPS steps
+    through ``run_train``: once without checkpoints, once with
+    ``ckpt_dir`` (a checkpoint every RESTART_EVERY steps, the latest
+    RESTART_KEEP kept) and a fault injected at step RESTART_FAULT, which
+    restores the latest checkpoint and resumes from its step.  The final
+    params and optimizer state must equal the uninterrupted run's bitwise,
+    or else lie within the spread of a second uninterrupted run.  Prints
+    the bytes and seconds of each save and restore.  The checkpoints live
+    in a ``tempfile.mkdtemp()`` directory, removed at the end."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch import optim
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.synthetic import DataConfig, lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import run_train
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import build_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("qwen2-1.5b").with_(n_layers=RESTART_LAYERS, softmax_impl="hyft16")
+    model = build_model(cfg)
+    tcfg = TrainConfig(global_batch=B, seq_len=SEQ, lr=1e-3, warmup_steps=2,
+                       total_steps=RESTART_STEPS, checkpoint_every=RESTART_EVERY,
+                       keep_checkpoints=RESTART_KEEP, remat="full", attn_mode="kernel")
+    ocfg = optim.OptConfig(name="adamw", lr=1e-3)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=SEQ, global_batch=B, seed=SEED)
+    step = build_train_step(model, tcfg, ocfg)
+    io = {"save": [], "restore": []}
+    orig = {name: getattr(checkpointer, name) for name in io}
+
+    def timed_io(name):
+        def call(*args, **kw):
+            out, dt = _timed(torch, lambda: orig[name](*args, **kw))
+            io[name].append(dt)
+            return out
+        return call
+
+    def run(ckpt_dir=None):
+        state = init_state(model, ocfg, SEED, device=DEV)
+        fired = []
+
+        def fail_at(s):
+            if ckpt_dir and s == RESTART_FAULT and not fired:
+                fired.append(s)
+                raise RuntimeError("injected fault")
+        (state, hist), wall = _timed(torch, lambda: run_train(
+            state, step, lambda s: lm_batch(dcfg, s, device=DEV), tcfg, ckpt_dir=ckpt_dir,
+            fail_at=fail_at, log_every=1, log_fn=lambda *_: None))
+        return state, [h["step"] for h in hist], wall, fired
+
+    def gap(a, b):
+        return max(float((x.double() - y.double()).abs().max())
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    ckpt_dir = tempfile.mkdtemp()
+    try:
+        for name in io:
+            setattr(checkpointer, name, timed_io(name))
+        ref, ref_steps, ref_wall, _ = run()
+        got, got_steps, got_wall, fired = run(ckpt_dir)
+        kept = checkpointer.all_steps(ckpt_dir)
+        nbytes = os.path.getsize(os.path.join(ckpt_dir, f"step_{kept[-1]:08d}", "arrays.npz"))
+    finally:
+        for name in io:
+            setattr(checkpointer, name, orig[name])
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    bitwise = all(torch.equal(a, b) for a, b in zip(tree_leaves(ref), tree_leaves(got)))
+    rec = {"phase": "restart", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "steps": RESTART_STEPS, "checkpoint_every": RESTART_EVERY, "keep": RESTART_KEEP,
+           "fault_at": fired, "steps_run": got_steps, "checkpoints_left": kept,
+           "state_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(got)),
+           "checkpoint_bytes": nbytes, "save_s": io["save"], "restore_s": io["restore"],
+           "uninterrupted_s": ref_wall, "restarted_s": got_wall,
+           "bitwise_uninterrupted": bitwise}
+    if not bitwise:           # two uninterrupted runs: the card's own spread
+        again, *_ = run()
+        rec.update(max_abs_diff=gap(ref, got), uninterrupted_spread=gap(ref, again))
+    emit(rec)
+    assert fired == [RESTART_FAULT] and kept == list(
+        range(RESTART_STEPS - RESTART_EVERY * (RESTART_KEEP - 1), RESTART_STEPS + 1,
+              RESTART_EVERY)), "restart: checkpoints"
+    assert got_steps == list(range(RESTART_FAULT)) + list(range(
+        RESTART_FAULT // RESTART_EVERY * RESTART_EVERY, RESTART_STEPS)), "restart: resume step"
+    assert len(io["restore"]) == 1 and int(got["step"]) == RESTART_STEPS
+    assert bitwise or rec["max_abs_diff"] <= rec["uninterrupted_spread"], \
+        "restart: the resumed run left the uninterrupted runs' spread"
 
 
 def main():
@@ -2773,11 +3503,15 @@ def main():
     torch.cuda.empty_cache()
     spec = spec_phase(torch)
     torch.cuda.empty_cache()
+    moe_launches = moe_phase(torch)
+    torch.cuda.empty_cache()
+    restart_phase(torch)
+    torch.cuda.empty_cache()
     emit({"kernels": kernels_phase(torch, errors, launches)
           + paged_kernels_phase(torch, paged_errs, paged_launches)
           + flash_kernels_phase(torch, flash_errs, train_launches, bert_launches)
           + softmax_kernels_phase(torch, softmax_errs, unfused_launches,
-                                  unfused_train_launches)
+                                  unfused_train_launches, moe_launches)
           + widths_kernels_phase(torch, width_errs, flash_errs, spec)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})

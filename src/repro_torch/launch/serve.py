@@ -23,6 +23,12 @@ over a slot pool (dense or paged KV cache), on the card.
       --scheduler spec --draft-k 4 --kv-layout paged --n-slots 8 --batch 24 \
       --attn-mode kernel --cache-dtype fp2fx8
 
+  # an MoE model (phi3.5-moe or grok-1): the router's softmax rows go
+  # through the standalone Hyft softmax kernel under hyft16_kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b \
+      --softmax hyft16_kernel --scheduler continuous --kv-layout paged \
+      --attn-mode kernel --cache-dtype fp2fx8
+
   # any of them at smoke size on the CPU (plain PyTorch versions of the
   # kernels)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \

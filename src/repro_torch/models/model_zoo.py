@@ -8,7 +8,7 @@
   decode_step(params, cache, tok, pos)  -> (logits (B, 1, V), cache)
   init_cache(params, batch, max_len, dtype, device=None)
   init_paged_cache(params, n_pages, page_size, dtype, device=None)
-The dense family only, so far (ROADMAP queue 1, the other families).
+The dense and MoE families so far (ROADMAP queue 1, the other families).
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ def resolve_attn_mode(model: Model, attn_mode) -> Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in transformer.FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP queue 1, the other families")
 

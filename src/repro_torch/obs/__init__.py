@@ -15,7 +15,7 @@ three through an engine:
 
 The JAX bundle's fourth field, ``profile`` (the ``CostBook``: XLA's HLO
 cost analysis joined with dispatch times into TPU-roofline tracks), is
-not ported (ROADMAP queue 1, item 4).
+not ported (ROADMAP queue 1, the rest of obs/ and port benches).
 
 Every ``SlotPoolEngine`` owns an Obs (a fresh one with the tracer off by
 default, so two engines never share counters unless the caller passes a

@@ -4,9 +4,10 @@ The JAX module (``repro.obs.profile``) holds three things: ``xla_profile``,
 a ``jax.profiler`` capture window; ``CostBook``, the per-executable cost
 ledger built on XLA's HLO cost analysis and the TPU roofline; and
 ``microbench``.  Only the window is here.  The cost book and the
-microbench belong to the port's benches (ROADMAP queue 1, item 4): they
-rest on XLA's cost analysis, which PyTorch does not have, so the port's
-``--trace`` carries no ``roofline.*`` counter tracks yet.
+microbench belong to the port's benches (ROADMAP queue 1, the rest of
+obs/ and port benches): they rest on XLA's cost analysis, which PyTorch
+does not have, so the port's ``--trace`` carries no ``roofline.*``
+counter tracks yet.
 """
 from __future__ import annotations
 

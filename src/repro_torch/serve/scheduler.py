@@ -1,7 +1,8 @@
 """Continuous-batching scheduler: a slot-pool KV cache serving ragged traffic.
 
 The PyTorch counterpart of ``repro.serve.scheduler``'s ``SlotPoolEngine``
-for the attention (dense) family.  Three pieces, as in the JAX package:
+for the attention families (dense and MoE).  Three pieces, as in the JAX
+package:
 
   slot pool    — the KV cache is allocated once with a fixed batch (slot)
                  dimension ``n_slots`` (dense or paged, float or fp2fx8);

@@ -1,4 +1,4 @@
-"""The port's dense configs against the JAX package's, on the CPU.
+"""The port's configs against the JAX package's, on the CPU.
 
 Each config's fields equal the JAX config's; its smoke config's
 ``forward`` (causal, and bidirectional for bert-base) matches the JAX
@@ -56,3 +56,15 @@ def test_config_matches_jax(arch):
                                              causal=causal)
             np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                        atol=RTOL * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "grok-1-314b"])
+def test_moe_config_matches_jax(arch):
+    """The MoE configs' fields equal the JAX configs', and so do their smoke
+    configs' (4 experts, groups of 16).  Their models are held to JAX's in
+    ``tests/test_torch_moe.py``."""
+    assert arch in ARCHS
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(smoke_config(cfg)) == dataclasses.asdict(jax_smoke_config(jcfg))
+    assert cfg.family == "moe" and smoke_config(cfg).n_experts == 4

@@ -1290,3 +1290,46 @@ def test_attention_kernels_weigh_masked_keys_like_plain(kind, cache_dtype):
     hit = torch.zeros(q3.shape[:2], dtype=torch.bool, device="cuda")
     hit[HKV] = True
     _hold_poisoned(run(kernel), run(plain), cfg, vmax, hit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", ["hyft16", "hyft32"])
+@pytest.mark.parametrize("shape", [(4096, 16), (4096, 8), (8, 16)],
+                         ids=["phi-prefill", "grok-prefill", "phi-decode"])
+def test_softmax_kernels_at_router_shapes(shape, cfg):
+    """Kernels 1-2 on the MoE router's rows (one a token, one column an
+    expert; fp32 scores in, as ``models/moe.py`` calls them): 4096 rows
+    take the warp path, 8 the block path.  Every row is full; rows 1 mod 4
+    hold values on a grid of 1/2 (equal scores: probabilities that tie),
+    rows 2 mod 4 are nearly flat (every score one raw: all tie), rows 3 mod
+    5 hold a NaN at key 0 and rows 7 mod 11 are NaN throughout.  The
+    forward bit for bit in every row within the sum precondition (HYFT16:
+    all), within ``softmax_errors`` past it; the backward on fp16 dy (the
+    training step's cast of the router's fp32 dy), with NaN dy at rows 0
+    mod 6, bit for bit in its own type and as fp32."""
+    from repro_torch.kernels import hyft_softmax as hs
+    cfg = HYFT16 if cfg == "hyft16" else HYFT32
+    gen = _card()
+    z = torch.randn(shape, generator=gen, device="cuda") * 3
+    z[1::4] = torch.round(z[1::4] * 2) / 2
+    z[2::4] = z[2::4] * 1e-4
+    z[3::5, 0] = float("nan")
+    z[7::11] = float("nan")
+    s = hs.hyft_softmax_fwd_kernel(z, cfg)
+    ref = hs.hyft_softmax_fwd(z, cfg)
+    err = hs.softmax_errors(s, ref, hs.fwd_sum_units(z, cfg), cfg)
+    assert err["mismatches"] == 0 and err["past_ratio"] <= 1, err
+    if cfg.io_dtype == "float16":
+        assert torch.equal(s, ref)
+    ties = s[1::4].float()
+    assert (ties.sort(-1).values.diff(dim=-1) == 0).any(), "no tied probabilities"
+    dy = torch.randn(shape, generator=gen, device="cuda").to(s.dtype)
+    dy[::6, 1] = float("nan")
+    finite = torch.isfinite(dy).all(-1)
+    assert int(hs.bwd_sum_units(s, dy, cfg)[finite].max()) <= hs.EXACT_UNITS
+    bits = torch.int16 if cfg.dtype != torch.float32 else torch.int32
+    for out_dtype in (None, torch.float32):
+        dz = hs.hyft_softmax_bwd_kernel(s, dy, cfg, out_dtype=out_dtype)
+        plain = hs.hyft_softmax_bwd(s, dy, cfg).to(dz.dtype)
+        b = bits if dz.dtype == cfg.dtype else torch.int32
+        assert torch.equal(dz.view(b), plain.view(b))

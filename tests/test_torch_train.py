@@ -10,32 +10,40 @@ Tolerances: the loss within 1e-5 relative, and each gradient leaf within
 order, which can move a Hyft score by one raw); the optimizers, clipping
 and schedules are elementwise and held within a few fp32 ulps.
 """
+import contextlib
 import importlib.util
+import io
+import math
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
 import jax
+import jax.ad_checkpoint
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils.checkpoint import CheckpointPolicy
 
 import repro.optim as joptim
 from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_config as jax_smoke_config
 from repro.configs.base import TrainConfig as JaxTrainConfig
 from repro.models import build_model as jax_build_model
+from repro.models import transformer as jtransformer
 from repro.models.layers import unbox
 from repro.optim.schedules import SCHEDULES as JAX_SCHEDULES
 from repro.train.step import make_step_fn as jax_make_step_fn
 from repro_torch import optim
+from repro_torch.checkpoint import checkpointer
 from repro_torch.configs import TrainConfig, get_config, smoke_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.data.synthetic import DataConfig, lm_batch
 from repro_torch.launch import train as launch_train
-from repro_torch.models import build_model
+from repro_torch.models import build_model, transformer
 from repro_torch.optim.schedules import SCHEDULES
 from repro_torch.train.loop import StragglerMonitor, run_train
 from repro_torch.train.step import grads_of, make_step_fn
@@ -143,16 +151,78 @@ def test_train_parity_bound_covers_the_jax_gap(setup):
         assert 0 < gap[0] <= bound["loss"] and 0 < gap[1] <= bound["grad"], (gap, bound)
 
 
-def test_remat_full_equals_none(setup):
-    """Recomputing each block in the backward gives the same gradients."""
-    *_, tcfg, tparams, tbatch, _ = setup
-    l_full, g_full = _port_grads(tcfg, tparams, tbatch, "kernel", remat="full")
+def _jax_saved_products(jcfg, jparams, x, positions):
+    """The (tokens, features) shapes of the products JAX's remat "dots"
+    policy saves for one block: the non-argument outputs that
+    ``jax.ad_checkpoint.print_saved_residuals`` lists, leaving out a nested
+    jitted function's output (``silu``'s: not a product)."""
+    lp = jax.tree.map(lambda a: a[0], jparams["blocks"])
+    fn = jax.checkpoint(
+        lambda q, w: jtransformer._block_apply(w, q, jcfg, positions)[:2],
+        policy=jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        jax.ad_checkpoint.print_saved_residuals(fn, x, lp)
+    tokens = x.shape[0] * x.shape[1]
+    shapes = set()
+    for line in out.getvalue().splitlines():
+        if " output of " in line and "jitted function" not in line:
+            dims = [int(d) for d in re.search(r"\[([0-9,]*)\]", line).group(1).split(",")]
+            shapes.add((tokens, math.prod(dims) // tokens))
+    return shapes
+
+
+def _port_saved_products(tcfg, tparams, x, positions, monkeypatch):
+    """The (tokens, features) shapes of the products the port's "dots"
+    policy saves in one block's forward (not its recomputation), and the
+    block's output and input gradient under "dots" and "none"."""
+    saved = set()
+    policy = transformer.dots_policy
+
+    def recording(ctx, op, *args, **kw):
+        out = policy(ctx, op, *args, **kw)
+        if out == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+            saved.add((args[0].shape[0], args[1].shape[1]))
+        return out
+    monkeypatch.setattr(transformer, "dots_policy", recording)
+    lp = tree_map(lambda t: t[0], tparams["blocks"])
+    runs = {}
+    for remat in ("dots", "none"):
+        xt = torch.from_numpy(np.asarray(x)).requires_grad_()
+        fn = transformer._remat(
+            lambda y, w: transformer._block_apply(w, y, tcfg, positions)[:2], remat)
+        y, _ = fn(xt, lp)
+        (g,) = torch.autograd.grad(y.square().sum(), xt)
+        runs[remat] = (y.detach(), g)
+    return saved, runs
+
+
+def test_remat_full_equals_none(setup, monkeypatch):
+    """Recomputing each block in the backward gives the same gradients:
+    remat "full" and "dots" against "none", bit for bit.  And "dots" saves
+    the products JAX's ``checkpoint_dots_with_no_batch_dims`` saves for one
+    block, by shape: the q/k/v/o projections and the MLP's up product
+    (torch's selective checkpoint also keeps the gate and down products,
+    whose shapes are among those; JAX's partial evaluation drops the down
+    product, which its backward does not read, and keeps silu's output in
+    place of the gate product)."""
+    jcfg, jparams, _, tcfg, tparams, tbatch, _ = setup
     l_none, g_none = _port_grads(tcfg, tparams, tbatch, "kernel", remat="none")
-    assert l_full == l_none
-    for a, b in zip(tree_leaves(g_full), tree_leaves(g_none)):
-        assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="dots"):
-        _port_grads(tcfg, tparams, tbatch, "kernel", remat="dots")
+    for remat in ("full", "dots"):
+        loss, grads = _port_grads(tcfg, tparams, tbatch, "kernel", remat=remat)
+        assert loss == l_none, remat
+        for a, b in zip(tree_leaves(grads), tree_leaves(g_none)):
+            assert torch.equal(a, b), remat
+    x = np.random.default_rng(3).standard_normal((B, 8, tcfg.d_model)).astype(np.float32)
+    positions = np.broadcast_to(np.arange(8, dtype=np.int32), (B, 8))
+    for mode in ("kernel", "unfused"):
+        want = _jax_saved_products(jcfg.with_(attn_mode=mode), jparams, jnp.asarray(x),
+                                   jnp.asarray(positions))
+        got, runs = _port_saved_products(tcfg.with_(attn_mode=mode), tparams, x,
+                                         torch.from_numpy(positions.copy()), monkeypatch)
+        assert got == want and len(want) == 3, (mode, got, want)
+        assert torch.equal(runs["dots"][0], runs["none"][0])
+        assert torch.equal(runs["dots"][1], runs["none"][1])
 
 
 @pytest.mark.parametrize("name", ["sgd", "adamw"])
@@ -285,7 +355,7 @@ def test_lm_batch_is_deterministic_with_shifted_targets():
     assert float(((shift1[prev] + prev) % 97 == nxt).float().mean()) > 0.8
 
 
-def test_train_loop_logs_and_flags_stragglers():
+def test_train_loop_logs_and_flags_stragglers(tmp_path):
     monitor = StragglerMonitor(warm=2)
     assert [monitor.observe(dt) for dt in (1.0, 1.0, 1.1, 5.0, 1.0)] == [
         False, False, False, True, False]
@@ -299,8 +369,25 @@ def test_train_loop_logs_and_flags_stragglers():
                             log_every=2, log_fn=lambda *_: None)
     assert state == 5 and calls == [0, 1, 2, 3, 4]
     assert [h["step"] for h in hist] == [0, 2, 4]
-    with pytest.raises(NotImplementedError, match="remat='dots' and checkpointing"):
-        run_train(0, step, lambda s: s, TrainConfig(total_steps=1), ckpt_dir="ckpt")
+    # with ckpt_dir: saved every 2 steps (the last 2 kept), and after a
+    # fault at step 3 resumed from step 2's checkpoint
+    fired, calls = [], []
+
+    def fail_at(s):
+        if s == 3 and not fired:
+            fired.append(s)
+            raise RuntimeError("injected fault")
+
+    def tstep(state, batch):
+        calls.append(batch)
+        return {"x": state["x"] + 1}, {"loss": state["x"].float()}
+    ckpt = str(tmp_path / "ckpt")
+    state, hist = run_train({"x": torch.zeros((), dtype=torch.int32)}, tstep, lambda s: s,
+                            TrainConfig(total_steps=6, checkpoint_every=2, keep_checkpoints=2),
+                            ckpt_dir=ckpt, fail_at=fail_at, log_every=1,
+                            log_fn=lambda *_: None)
+    assert int(state["x"]) == 6 and calls == [0, 1, 2, 2, 3, 4, 5]
+    assert checkpointer.all_steps(ckpt) == [4, 6]
 
 
 def test_launcher_trains_on_cpu():
