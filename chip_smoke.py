@@ -225,7 +225,10 @@ script exits non-zero without its last line:
               kernels 8 and 9 at the 5 lanes of a spec step at mistral-nemo's
               heads, each with its launches in the spec phase; kernels 1
               and 2 at the MoE router's shapes, each with its launches in
-              the moe phase;
+              the moe phase; kernels 3-6 at zamba2-7b's shapes (32 / 32
+              heads of 112: the prefill's 4 x 1024, the training step's
+              2 x 1024, decode over 1,025-1,056 keys), each with its
+              launches in the hybrid phase (the ssm phase's: 0);
  20. moe      phi3.5-moe-42b-a6.6b at its published widths, 16 of its 32
               layers (42 GB of bf16 weights; all 32 do not fit), hyft16_kernel
               (the router through kernel 1), kernel mode (``moe_phase``):
@@ -246,6 +249,27 @@ script exits non-zero without its last line:
               fault at step 3 (``restart_phase``): the resumed run's state
               bitwise the uninterrupted run's (or within two uninterrupted
               runs' spread), the bytes and seconds of save and restore;
+ 22. hybrid   zamba2-7b at its published size (81 Mamba2 layers, the
+              shared attention block every 6: 13 invocations of 32 / 32
+              heads of 112; 6.75 B bf16 parameters), hyft16, kernel mode
+              (``hybrid_phase``): kernels 3-6 at its shapes against their
+              plain versions, before any model call; generate with the
+              parallel prefill, per cache (exactly 13 kernel-3 and 403
+              kernel-6 launches), and with the sequential prefill of 128
+              tokens (13 x 128 kernel-6 launches in the prompt); a profile
+              of the prompt and of 3 decode steps; the continuous cell over
+              a dense pool, prompts through gated decode steps (kernel 6
+              once an invocation a ``decode_step`` call); parity at fp32,
+              HYFT32, all 81 layers (kernel against unfused within
+              PARITY_BOUND, against the plain versions of kernels 3 and 6
+              within HYBRID_PLAIN_GAP with equal greedy tokens, sequential
+              against parallel prefill within PARITY_BOUND); training at
+              12 layers (4 / 2 / 2 flash launches a step) and its parity
+              (TRAIN_PARITY_BOUND over all leaves and the shared block's,
+              every leaf within HYBRID_LEAF_GAP of the plain versions');
+ 23. ssm      mamba2-370m at its published size (``ssm_phase``): generate,
+              the sequential prefill against the parallel one, training;
+              zero Hyft launches;
 
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -1380,7 +1404,7 @@ def profile_phase(torch, params, cfg, softmax="hyft16", attn_mode="kernel"):
         part["device_idle_share"] = 1.0 - part["device_busy_ms"] / part["wall_ms"]
     parts["launches_per_prefill"] = a["launches"]
     parts["launches_per_decode_step"] = parts["3_decode_steps"]["launches"] / 3
-    emit({"phase": "profile", "softmax": softmax, "attn_mode": attn_mode,
+    emit({"phase": "profile", "arch": cfg.name, "softmax": softmax, "attn_mode": attn_mode,
           "cache": "fp2fx8", **parts, "top_kernels": top})
 
 
@@ -3458,6 +3482,735 @@ def restart_phase(torch):
         "restart: the resumed run left the uninterrupted runs' spread"
 
 
+# --------------------------------------------------------------------------
+# the SSM and hybrid families (zamba2-7b, mamba2-370m)
+# --------------------------------------------------------------------------
+
+HYBRID_ARCH, SSM_ARCH = "zamba2-7b", "mamba2-370m"
+# the sequential prefill (one decode step a token): its prompt and new tokens
+SEQ_PROMPT, SEQ_NEW = 128, 8
+SEQ_PARITY = 64                       # the fp32 parity's sequential prompt
+# the hybrid's key lengths at a decode step of the generate cell, ragged
+# as a pool's would be (kernel 6's checks and timings)
+HYBRID_DECODE_LENGTHS = (1056, 1045, 1035, 1025)
+# the hybrid's continuous cell: 8 slots over a dense cache, prompts fed in
+# chunks of 64 (one gated decode step a lane), bursts of 8, 16 ragged
+# requests at once, 16-32 new tokens each, within POOL_BUDGET_S.  Prompts
+# of 32-128 tokens took 528 decode steps, 84.9 s on an H100 at 700 W: a
+# zamba2 step is launch-bound at about 160 ms; prompts of 32-64 take 320
+POOL_SLOTS, POOL_LEN, POOL_CHUNK, POOL_REQ, POOL_BUDGET_S = 8, 192, 64, 16, 60.0
+POOL_PROMPT, POOL_NEW = (32, 64), (16, 32)           # each drawn uniformly, inclusive
+# the hybrid's training cell: 12 layers (2 invocations of the shared block)
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_B, HYBRID_TRAIN_STEPS = 12, 2, 2
+# greedy tokens of the fp32 parity runs after the parity step
+HYBRID_GREEDY = 8
+# kernel mode through the plain versions of kernels 3 and 6 against the
+# kernels, fp32, HYFT32: the logits' max |diff| / std.  The two compute
+# the same arithmetic but for the order of fp32 dot products (bert's
+# gradients read 1.3e-6 of a leaf's norm, the MoE logits 1.4e-4 of the
+# std at 4 layers); a fault moves the logits by a whole std
+HYBRID_PLAIN_GAP = 1e-3
+# the same on every gradient leaf of the 12-layer training parity:
+# ||d|| / ||g|| (BERT_PLAIN_GAP's bound)
+HYBRID_LEAF_GAP = 1e-4
+
+
+def hybrid_check_part(torch, cfg):
+    """Kernels 3-6 at the shapes the hybrid's path gives them, against their
+    plain versions, before any model call: the flash forward at the
+    parallel prefill's B x 32 heads x 1024 x 112 (causal), the forward, dq
+    and dk/dv at the training step's HYBRID_TRAIN_B x 32 x 1024 x 112, bf16
+    and fp32 q/k/v (``flash_errors``, ``grad_errors``); kernel 6 at B x 32
+    heads over 1057 keys, HYBRID_DECODE_LENGTHS valid, fp32 and fp2fx8
+    (``out_errors``); HYFT16 and HYFT32.  Returns the HYFT16 errors of the
+    serving and training types, keyed as the kernels line's rows read
+    them."""
+    from repro_torch.core.hyft import HYFT16, HYFT32
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    errors = {}
+    for shape, batch in (("prefill", B), ("train", HYBRID_TRAIN_B)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q3, k3, v3, maskf, bk, do3 = _flash_case(torch, gen, dtype, SEQ, SEQ, None, d,
+                                                     hq, hkv, batch)
+            for hcfg in (HYFT16, HYFT32):
+                kw = dict(cfg=hcfg, sm_scale=d ** -0.5, causal=True, bk=bk,
+                          group=hq // hkv, q_offset=0)
+                got = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw)
+                ref = fa._flash_fwd_plain(q3, k3, v3, maskf, **kw)
+                err = fa.flash_errors(got, ref, hcfg, float(v3.float().abs().max()), bk,
+                                      k3.shape[1] // bk)
+                args = (q3, k3, v3, maskf, do3, fa._flash_delta(do3, ref[0]).contiguous(),
+                        *ref[1:])
+                gerr = fa.grad_errors(
+                    (fa._flash_bwd_dq_cuda(*args, **kw), *fa._flash_bwd_dkv_cuda(*args, **kw)),
+                    (fa._flash_bwd_dq_plain(*args, **kw), *fa._flash_bwd_dkv_plain(*args, **kw)),
+                    hcfg)
+                emit({"phase": "hybrid", "part": "check", "kernel": "flash", "shape": shape,
+                      "batch": batch, "heads": [hq, hkv], "s": SEQ, "d_head": d,
+                      "dtype": str(dtype).split(".")[1], "cfg": hcfg.io_dtype, **err, **gerr})
+                assert torch.isfinite(got[0]).all(), "hybrid flash: non-finite output"
+                assert err["m"] <= 1 and err["l"] <= 1 and err["o"] <= 1, \
+                    f"hybrid flash forward ({shape}) disagrees with its plain version"
+                assert max(gerr["dq"], gerr["dk"], gerr["dv"]) <= 1, \
+                    f"hybrid flash backward ({shape}) disagrees with its plain version"
+                if hcfg is HYFT16 and dtype is torch.bfloat16:
+                    tag = f"[{shape}]"
+                    errors["hyft_flash_fwd" + tag] = err["max_abs_err"]
+                    errors["hyft_flash_bwd_dq" + tag] = gerr["dq_max_abs_err"]
+                    errors["hyft_flash_bwd_dkv" + tag] = max(gerr["dk_max_abs_err"],
+                                                             gerr["dv_max_abs_err"])
+            del q3, k3, v3, do3, got, ref, args
+            torch.cuda.synchronize()
+    lens = torch.tensor(HYBRID_DECODE_LENGTHS, device=DEV)
+    mask = (torch.arange(MAX_LEN, device=DEV)[None] < lens[:, None]).float()
+    bk = fa._block_k(MAX_LEN, 256)
+    for cache_dtype in ("float32", "fp2fx8"):
+        k, v, sc, vf = _cache_kv(torch, gen, cache_dtype, (B * hkv, MAX_LEN, d))
+        q3 = torch.randn(B * hkv, hq // hkv, d, generator=gen, device=DEV)
+        flat = (k, v, sc.get("k_scale"), sc.get("v_scale"))
+        for hcfg in (HYFT16, HYFT32):
+            kw = dict(cfg=hcfg, sm_scale=d ** -0.5, bk=bk, hkv=hkv, sq=None)
+            got = fa._splitk_attention_cuda(q3, *flat, mask, **kw)
+            err = fa.out_errors(got, fa.splitk_tiles_plain(q3, *flat, mask, **kw), hcfg,
+                                float(vf.abs().max()))
+            emit({"phase": "hybrid", "part": "check", "kernel": "hyft_splitk_decode",
+                  "kv": cache_dtype, "heads": [hq, hkv], "d_head": d,
+                  "keys": list(HYBRID_DECODE_LENGTHS), "cfg": hcfg.io_dtype, **err})
+            assert torch.isfinite(got).all(), "hybrid decode: non-finite output"
+            assert err["out"] <= 1, "hybrid decode disagrees with its plain version"
+            if hcfg is HYFT16:
+                errors[("hyft_splitk_decode", cache_dtype)] = err["max_abs_err"]
+        del k, v, sc, flat
+        torch.cuda.synchronize()
+    return errors
+
+
+def _want(fa, hs, **counts):
+    """Every kernel's expected launches: ``counts``, 0 for the others."""
+    want = dict.fromkeys({**fa.LAUNCHES, **hs.LAUNCHES}, 0)
+    want.update(counts)
+    return want
+
+
+def hybrid_serve_part(torch, cfg, params):
+    """Greedy ``generate`` of the hybrid at full size: the parallel prefill
+    (B x 1024, kernel 3 once an invocation) and 31 decode steps (kernel 6
+    once an invocation a step), per cache; then the sequential prefill of
+    SEQ_PROMPT tokens (kernel 6 once an invocation a token) and SEQ_NEW new
+    tokens, the prompt's launches, time and logits read as
+    ``transformer.prefill`` returns, with the parallel prefill of the same
+    prompt beside it (the bf16 gap printed, not gated: the fp32 parity
+    gates it).  Returns {cache: launches} of the parallel runs."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import generate
+
+    ninv = cfg.n_layers // cfg.attn_every
+    model = build_model(cfg.with_(parallel_prefill=True))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    launches, outs = {}, {}
+    for cache_dtype in ("fp2fx8", "float32"):
+        scfg = ServeConfig(max_len=MAX_LEN, cache_dtype=cache_dtype, attn_mode="kernel")
+        run = lambda n: generate(model, params, {"tokens": tokens}, scfg,  # noqa: E731
+                                 max_new=n, device=DEV)
+        _timed(torch, lambda: run(2))                  # warm-up
+        _zero(fa.LAUNCHES, hs.LAUNCHES)
+        _, t_prefill = _timed(torch, lambda: run(1))
+        prompt = {**fa.LAUNCHES, **hs.LAUNCHES}
+        torch.cuda.reset_peak_memory_stats()
+        _zero(fa.LAUNCHES, hs.LAUNCHES)                # the main path's run
+        out, t_all = _timed(torch, lambda: run(NEW))
+        got = {**fa.LAUNCHES, **hs.LAUNCHES}
+        want = _want(fa, hs, hyft_flash_fwd=ninv, hyft_splitk_decode=ninv * (NEW - 1))
+        t_decode = t_all - t_prefill
+        emit({"phase": "hybrid", "part": "generate", "arch": cfg.name, "cache": cache_dtype,
+              "prefill": "parallel", "launches": got, "expected": want,
+              "launches_prompt": prompt, "prefill_ms": t_prefill * 1e3,
+              "decode_ms_per_token": t_decode / (NEW - 1) * 1e3,
+              "decode_tokens_per_s": B * (NEW - 1) / t_decode, "generate_ms": t_all * 1e3,
+              "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        assert prompt == _want(fa, hs, hyft_flash_fwd=ninv), f"hybrid prompt launches {prompt}"
+        assert got == want, f"hybrid generate launch counts {got} != {want}"
+        assert out.shape == (B, NEW) and bool(((out >= 0) & (out < cfg.vocab)).all())
+        launches[cache_dtype], outs[cache_dtype] = got, out
+    emit({"phase": "hybrid", "part": "generate", "token_agreement_fp2fx8_vs_float32":
+          float((outs["fp2fx8"] == outs["float32"]).float().mean())})
+
+    # the sequential prefill: one decode step a prompt token; the prompt's
+    # launches, time and logits read where generate's prefill returns
+    from repro_torch.models import transformer
+    seq = build_model(cfg)
+    short = tokens[:, :SEQ_PROMPT].contiguous()
+    scfg = ServeConfig(max_len=SEQ_PROMPT + SEQ_NEW + 1, cache_dtype="fp2fx8",
+                       attn_mode="kernel")
+    seen, orig = {}, transformer.prefill
+
+    def prefill(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        torch.cuda.synchronize()
+        seen.update(ms=(time.perf_counter() - t0) * 1e3, logits=out[0][:, -1],
+                    launches={**fa.LAUNCHES, **hs.LAUNCHES})
+        return out
+    _zero(fa.LAUNCHES, hs.LAUNCHES)                    # the main path's run
+    transformer.prefill = prefill
+    try:
+        out, t_all = _timed(torch, lambda: generate(seq, params, {"tokens": short}, scfg,
+                                                    max_new=SEQ_NEW, device=DEV))
+    finally:
+        transformer.prefill = orig
+    got = {**fa.LAUNCHES, **hs.LAUNCHES}
+    par_out = generate(model, params, {"tokens": short}, scfg, max_new=SEQ_NEW, device=DEV)
+    cache = model.init_cache(params, B, SEQ_PROMPT + 1, "fp2fx8", device=DEV)
+    par = model.prefill(params, cache, {"tokens": short})[0][:, -1]
+    del cache
+    gap = float((seen["logits"] - par).abs().max() / par.std())
+    want_prompt = _want(fa, hs, hyft_splitk_decode=ninv * SEQ_PROMPT)
+    want = _want(fa, hs, hyft_splitk_decode=ninv * (SEQ_PROMPT + SEQ_NEW - 1))
+    emit({"phase": "hybrid", "part": "sequential_prefill", "arch": cfg.name,
+          "cache": "fp2fx8", "prompt": SEQ_PROMPT, "new": SEQ_NEW,
+          "launches_prompt": seen["launches"], "expected_prompt": want_prompt,
+          "launches": got, "expected": want, "prefill_ms": seen["ms"],
+          "prefill_ms_per_token": seen["ms"] / SEQ_PROMPT,
+          "decode_ms_per_token": (t_all * 1e3 - seen["ms"]) / (SEQ_NEW - 1),
+          "generate_ms": t_all * 1e3, "bf16_logits_gap_vs_parallel_over_std": gap,
+          "bf16_token_agreement_vs_parallel": float((out == par_out).float().mean()),
+          "bf16_argmax_agreement_vs_parallel": float(
+              (seen["logits"].argmax(-1) == par.argmax(-1)).float().mean())})
+    assert seen["launches"] == want_prompt, \
+        f"sequential prefill launches {seen['launches']} != {want_prompt}"
+    assert got == want, f"sequential generate launches {got} != {want}"
+    return launches
+
+
+def _window(torch, fn):
+    """torch.profiler over ``fn`` with the device's activity alone (a
+    window of the CPU's ops too costs about a millisecond of processing a
+    launch: 47 s for a zamba2 prompt and 3 decode steps): wall, device
+    busy time and idle share, launches, the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = _timed(torch, fn)
+    kern = sorted(_device_events(torch, prof.key_averages()), key=_self_device_us,
+                  reverse=True)
+    busy = sum(map(_self_device_us, kern)) / 1e3
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / (wall * 1e3),
+            "launches": sum(e.count for e in kern),
+            "top_kernels": [{"name": e.key[:90], "count": e.count,
+                             "device_ms": _self_device_us(e) / 1e3} for e in kern[:10]]}
+
+
+def hybrid_profile_part(torch, cfg, params):
+    """Where a zamba2 decode step's time goes: torch.profiler over the
+    parallel prefill of B x 1024 (``generate``, one token) and over 3 decode
+    steps after it (``decode_step``), fp2fx8 cache, kernel mode."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import generate
+
+    model = build_model(cfg.with_(parallel_prefill=True, attn_mode="kernel"))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    scfg = ServeConfig(max_len=MAX_LEN, cache_dtype="fp2fx8", attn_mode="kernel")
+    prompt = _window(torch, lambda: generate(model, params, {"tokens": tokens}, scfg,
+                                             max_new=1, device=DEV))
+    cache = model.init_cache(params, B, MAX_LEN, "fp2fx8", device=DEV)
+    model.prefill(params, cache, {"tokens": tokens})
+
+    def steps():
+        for i in range(3):
+            model.decode_step(params, cache, tokens[:, i:i + 1], PROMPT + i)
+    decode = _window(torch, steps)
+    emit({"phase": "profile", "arch": cfg.name, "softmax": cfg.softmax_impl,
+          "attn_mode": "kernel", "cache": "fp2fx8", "prefill": prompt,
+          "3_decode_steps": decode, "launches_per_decode_step": decode["launches"] / 3,
+          "decode_step_ms": decode["wall_ms"] / 3})
+
+
+def hybrid_pool_part(torch, cfg, params):
+    """The hybrid's continuous cell (POOL_*): ``SlotPoolEngine`` over a dense
+    fp2fx8 cache; the prompts go through ``prefill_chunk``, one gated decode
+    step a lane, so kernel 6 runs once an invocation a ``decode_step`` call
+    and nothing else runs.  TTFT and TBT p50 / p99, tokens/s, the calls."""
+    import numpy as np
+    from repro_torch.configs import ServeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.models import build_model, transformer
+    from repro_torch.serve.scheduler import Request, SlotPoolEngine
+
+    rng = np.random.default_rng(SEED + 3)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab, int(rng.integers(
+                        POOL_PROMPT[0], POOL_PROMPT[1] + 1))).astype(np.int32),
+                    max_new=int(rng.integers(POOL_NEW[0], POOL_NEW[1] + 1)))
+            for i in range(POOL_REQ)]
+    scfg = ServeConfig(scheduler="continuous", kv_layout="dense", n_slots=POOL_SLOTS,
+                       max_len=POOL_LEN, prefill_chunk=POOL_CHUNK, decode_burst=BURST,
+                       attn_mode="kernel", cache_dtype="fp2fx8", audit=True)
+    eng = SlotPoolEngine(build_model(cfg), params, scfg, device=DEV)
+    calls, orig = [0], transformer.decode_step
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return orig(*args, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fa.LAUNCHES, hs.LAUNCHES)                    # the main path's run
+    transformer.decode_step = counted
+    try:
+        done, wall = _timed(torch, lambda: eng.run(reqs))
+    finally:
+        transformer.decode_step = orig
+    got = {**fa.LAUNCHES, **hs.LAUNCHES}
+    ninv = cfg.n_layers // cfg.attn_every
+    want = _want(fa, hs, hyft_splitk_decode=ninv * calls[0])
+    st = eng.stats
+    ttft = [c.ttft for c in done.values()]
+    tbt = [t for c in done.values() for t in _tbt(c)]
+    n_tok = sum(len(c.tokens) for c in done.values())
+    emit({"phase": "hybrid", "part": "continuous", "arch": cfg.name, "cache": "fp2fx8",
+          "slots": POOL_SLOTS, "requests": POOL_REQ, "prefill_chunk": POOL_CHUNK,
+          "wall_s": wall, "budget_s": POOL_BUDGET_S, "within_budget": wall <= POOL_BUDGET_S,
+          "tokens": n_tok, "tokens_per_s": n_tok / wall,
+          "ttft_p50_s": _pct(ttft, 0.5), "ttft_p99_s": _pct(ttft, 0.99),
+          "tbt_p50_s": _pct(tbt, 0.5), "tbt_p99_s": _pct(tbt, 0.99),
+          "decode_step_calls": calls[0], "launches": got, "expected": want,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(), "stats": st})
+    assert got == want, f"hybrid continuous launches {got} != {want}"
+    # the prompts' lanes: every decode_step call outside the bursts
+    assert calls[0] - st["burst_steps"] >= max(len(r.tokens) for r in reqs)
+    assert sorted(done) == [r.rid for r in reqs], "a request has no outcome"
+    for r in reqs:
+        c = done[r.rid]
+        assert c.ok, f"request {r.rid}: {c.failure}"
+        assert len(c.tokens) == r.max_new and all(0 <= t < cfg.vocab for t in c.tokens)
+    return got["hyft_splitk_decode"]
+
+
+def hybrid_parity_part(torch, published):
+    """fp32 compute and HYFT32 at the hybrid's full size, all 81 layers (27
+    GB of fp32 weights from the seed), B x 1024 prompts through the
+    parallel prefill, then the parity step (each prompt's first token at
+    position 1024) and HYBRID_GREEDY - 1 greedy steps:
+      * kernel mode against the unfused mode: each prompt's last position
+        and the parity step within PARITY_BOUND of the std; every prompt
+        position by band of POS_BANDS (``forward``), printed, not gated;
+      * kernel mode with kernels 3 and 6 swapped for their plain versions
+        (``_flash_as``, ``_splitk_plain``): every greedy token equal, the
+        logits within HYBRID_PLAIN_GAP of the std;
+      * the sequential prefill of SEQ_PARITY tokens (kernel 6, a step a
+        token) against the parallel one (kernel 3) in kernel mode: the last
+        logits within PARITY_BOUND of the std, the states' gap printed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.models import build_model, transformer
+    from repro_torch.tree import tree_leaves
+
+    pcfg = published.with_(param_dtype="float32", compute_dtype="float32",
+                           softmax_impl="hyft32", parallel_prefill=True)
+    ninv = pcfg.n_layers // pcfg.attn_every
+    params = build_model(pcfg).init(SEED, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    tokens = torch.randint(0, pcfg.vocab, (B, PROMPT), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    kmodel = build_model(pcfg.with_(attn_mode="kernel"))
+    umodel = build_model(pcfg.with_(attn_mode="unfused"))
+
+    def run(model):
+        cache = model.init_cache(params, B, MAX_LEN, "float32", device=DEV)
+        lp, cache, _ = model.prefill(params, cache, {"tokens": tokens})
+        ld, cache = model.decode_step(params, cache, tokens[:, :1], PROMPT)
+        toks, lg = [ld[:, -1].argmax(-1)], ld
+        for i in range(HYBRID_GREEDY - 1):
+            lg, cache = model.decode_step(params, cache, toks[-1][:, None].int(),
+                                          PROMPT + 1 + i)
+            toks.append(lg[:, -1].argmax(-1))
+        del cache
+        return lp[:, -1], ld[:, -1], torch.stack(toks, 1)
+
+    _zero(fa.LAUNCHES, hs.LAUNCHES)
+    kern = run(kmodel)
+    got = {**fa.LAUNCHES, **hs.LAUNCHES}
+    want = _want(fa, hs, hyft_flash_fwd=ninv, hyft_splitk_decode=ninv * HYBRID_GREEDY)
+    assert got == want, f"hybrid parity launches {got} != {want}"
+    _zero(fa.LAUNCHES, hs.LAUNCHES)
+    unf = run(umodel)
+    assert not any({**fa.LAUNCHES, **hs.LAUNCHES}.values()), "the unfused mode launched"
+    with _flash_as(fa, fa._flash_fwd_plain, fa._flash_bwd_dq_plain, fa._flash_bwd_dkv_plain), \
+            _splitk_plain(fa):
+        _zero(fa.LAUNCHES, hs.LAUNCHES)
+        plain = run(kmodel)
+        assert not any({**fa.LAUNCHES, **hs.LAUNCHES}.values()), "a kernel ran in the plain run"
+    for x in kern + unf + plain:
+        assert torch.isfinite(x.float()).all()
+    res = {"phase": "hybrid", "part": "parity", "arch": pcfg.name, "n_layers": pcfg.n_layers,
+           "compute": "float32", "softmax": "hyft32", "bound": PARITY_BOUND,
+           "plain_bound": HYBRID_PLAIN_GAP}
+    for i, name in enumerate(("prefill", "decode")):
+        a, b, p = kern[i], unf[i], plain[i]
+        res[f"{name}_maxdiff_over_std"] = float((a - b).abs().max() / b.std())
+        res[f"{name}_argmax_agreement"] = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        res[f"{name}_plain_maxdiff_over_std"] = float((a - p).abs().max() / p.std())
+    res["greedy_tokens_equal_plain"] = bool(torch.equal(kern[2], plain[2]))
+    res["greedy_token_agreement_unfused"] = float((kern[2] == unf[2]).float().mean())
+    del kern, unf, plain
+    # every prompt position by band, not gated
+    full = {}
+    for mode, model in (("kernel", kmodel), ("unfused", umodel)):
+        hidden, _ = transformer.forward(params, tokens, model.cfg, remat="none")
+        full[mode] = transformer.logits_fn(params, hidden, model.cfg)
+        del hidden
+    res["prefill_by_position"] = _band_max((full["kernel"] - full["unfused"]).abs().amax(-1),
+                                           float(full["unfused"].std()))
+    del full
+    # the sequential prefill against the parallel one, kernel mode
+    short = tokens[:, :SEQ_PARITY].contiguous()
+    pre = {}
+    for name, model in (("sequential", build_model(kmodel.cfg.with_(parallel_prefill=False))),
+                        ("parallel", kmodel)):
+        cache = model.init_cache(params, B, SEQ_PARITY + 1, "float32", device=DEV)
+        lg, cache, _ = model.prefill(params, cache, {"tokens": short})
+        pre[name] = (lg[:, -1], cache)
+    (ls, cs), (lp_, cp) = pre["sequential"], pre["parallel"]
+    res["sequential_vs_parallel_maxdiff_over_std"] = float((ls - lp_).abs().max() / lp_.std())
+    res["sequential_vs_parallel_state_gap"] = max(
+        float((a - b).norm() / b.norm().clamp_min(1e-30))
+        for a, b in zip(tree_leaves(cs["blocks"]), tree_leaves(cp["blocks"])))
+    res["sequential_vs_parallel_kv_gap"] = max(
+        float((a - b).norm() / b.norm().clamp_min(1e-30))
+        for a, b in zip(tree_leaves(cs["shared_attn"]), tree_leaves(cp["shared_attn"])))
+    del pre, cs, cp
+    emit(res)
+    assert res["prefill_maxdiff_over_std"] <= PARITY_BOUND, "hybrid parity: prefill"
+    assert res["decode_maxdiff_over_std"] <= PARITY_BOUND, "hybrid parity: decode"
+    assert res["greedy_tokens_equal_plain"], "hybrid: plain versions' greedy tokens differ"
+    assert res["prefill_plain_maxdiff_over_std"] <= HYBRID_PLAIN_GAP, "hybrid plain: prefill"
+    assert res["decode_plain_maxdiff_over_std"] <= HYBRID_PLAIN_GAP, "hybrid plain: decode"
+    assert res["sequential_vs_parallel_maxdiff_over_std"] <= PARITY_BOUND, \
+        "hybrid: sequential prefill against parallel"
+    del params
+
+
+def hybrid_train_part(torch, published):
+    """Training at full width, HYBRID_TRAIN_LAYERS layers (the shared block
+    twice), bf16 params and compute as published, HYBRID_TRAIN_B x 1024
+    tokens of ``lm_batch``, AdamW (lr 1e-3), remat "full": one warm-up and
+    HYBRID_TRAIN_STEPS timed steps, each launching the flash forward 4
+    times (2 invocations, twice under remat) and dq and dk/dv twice; then
+    the training parity at fp32 and HYFT32, 12 layers, 1 x 1024 tokens:
+    kernel mode against the unfused mode within TRAIN_PARITY_BOUND, over
+    all leaves and over ``shared_attn``'s alone, and every leaf within
+    HYBRID_LEAF_GAP of kernel mode through the flash kernels' plain
+    versions.  Returns one step's launches."""
+    from repro_torch import optim
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.synthetic import DataConfig, lm_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.models import build_model
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import build_train_step, grads_of, make_loss_fn
+    from repro_torch.tree import tree_leaves
+
+    cfg = published.with_(n_layers=HYBRID_TRAIN_LAYERS, softmax_impl="hyft16")
+    ninv = cfg.n_layers // cfg.attn_every
+    model = build_model(cfg)
+    tcfg = TrainConfig(global_batch=HYBRID_TRAIN_B, seq_len=SEQ, lr=1e-3, remat="full",
+                       total_steps=HYBRID_TRAIN_STEPS + 2, optimizer="adamw",
+                       attn_mode="kernel")
+    ocfg = optim.OptConfig(name="adamw", lr=1e-3)
+    state = init_state(model, ocfg, SEED, device=DEV)
+    step = build_train_step(model, tcfg, ocfg)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=SEQ, global_batch=HYBRID_TRAIN_B, seed=SEED)
+    want = _want(fa, hs, hyft_flash_fwd=2 * ninv, hyft_flash_bwd_dq=ninv,
+                 hyft_flash_bwd_dkv=ninv)
+    torch.cuda.reset_peak_memory_stats()
+    timed = []
+    for i in range(1 + HYBRID_TRAIN_STEPS):
+        batch = lm_batch(dcfg, i, device=DEV)
+        _zero(fa.LAUNCHES, hs.LAUNCHES)                # the main path's run
+        (state, metrics), dt = _timed(torch, lambda: step(state, batch))
+        got = {**fa.LAUNCHES, **hs.LAUNCHES}
+        rec = {"phase": "hybrid", "part": "train", "step": i, "warmup": i == 0,
+               "ms": dt * 1e3, "tokens_per_s": HYBRID_TRAIN_B * SEQ / dt,
+               "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+               "launches": got}
+        emit(rec)
+        assert got == want, f"hybrid train launch counts {got} != {want}"
+        assert math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])
+        if i:
+            timed.append(rec["ms"])
+    step_ms = sum(timed) / len(timed)
+    emit({"phase": "hybrid", "part": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "tokens_per_step": HYBRID_TRAIN_B * SEQ, "timed_steps": len(timed),
+          "mean_step_ms": step_ms, "tokens_per_s": HYBRID_TRAIN_B * SEQ / step_ms * 1e3,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches_per_step": want})
+    del state, step
+    torch.cuda.empty_cache()
+
+    pcfg = cfg.with_(param_dtype="float32", compute_dtype="float32", softmax_impl="hyft32")
+    model = build_model(pcfg)
+    params = model.init(SEED, device=DEV)
+    batch = lm_batch(DataConfig(vocab=pcfg.vocab, seq_len=SEQ, global_batch=1, seed=SEED), 0,
+                     device=DEV)
+    names = _leaf_names(params)
+    res = {}
+    for mode in ("kernel", "unfused", "plain"):
+        ctx = (_flash_as(fa, fa._flash_fwd_plain, fa._flash_bwd_dq_plain,
+                         fa._flash_bwd_dkv_plain) if mode == "plain" else contextlib.nullcontext())
+        with ctx:
+            _zero(fa.LAUNCHES, hs.LAUNCHES)
+            loss, _, grads = grads_of(make_loss_fn(model, TrainConfig(
+                attn_mode="unfused" if mode == "unfused" else "kernel")), params, batch)
+            res[mode] = (float(loss), tree_leaves(grads), {**fa.LAUNCHES, **hs.LAUNCHES})
+
+    def gap(a, b, keep=lambda n: True):
+        d2 = sum(float(((x - y) ** 2).sum()) for n, x, y in zip(names, a, b) if keep(n))
+        n2 = sum(float((y ** 2).sum()) for n, y in zip(names, b) if keep(n))
+        return (d2 / n2) ** 0.5
+    (lk, gk, nk), (lu, gu, nu), (lp, gp, npl) = res["kernel"], res["unfused"], res["plain"]
+    leaf_plain = [float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(gk, gp)]
+    worst = max(range(len(names)), key=lambda i: leaf_plain[i])
+    out = {"phase": "hybrid", "part": "train_parity", "arch": pcfg.name,
+           "n_layers": pcfg.n_layers, "loss_kernel": lk, "loss_unfused": lu,
+           "loss_gap": abs(lk - lu) / abs(lu), "grad_gap": gap(gk, gu),
+           "shared_attn_grad_gap": gap(gk, gu, lambda n: n.startswith("/shared_attn")),
+           "loss_gap_plain": abs(lk - lp) / abs(lp),
+           "leaf_gap_plain_worst": [leaf_plain[worst], names[worst]],
+           "launches_kernel": nk, "bound": TRAIN_PARITY_BOUND, "leaf_bound": HYBRID_LEAF_GAP}
+    emit(out)
+    assert nk == _want(fa, hs, hyft_flash_fwd=2 * ninv, hyft_flash_bwd_dq=ninv,
+                       hyft_flash_bwd_dkv=ninv), f"hybrid train parity launches {nk}"
+    assert not any(nu.values()) and not any(npl.values())
+    assert math.isfinite(lk) and math.isfinite(lu)
+    assert out["loss_gap"] <= TRAIN_PARITY_BOUND["loss"], "hybrid train parity: loss"
+    assert out["grad_gap"] <= TRAIN_PARITY_BOUND["grad"], "hybrid train parity: gradients"
+    assert out["shared_attn_grad_gap"] <= TRAIN_PARITY_BOUND["grad"], \
+        "hybrid train parity: the shared block's gradients"
+    assert leaf_plain[worst] <= HYBRID_LEAF_GAP, "hybrid: a leaf off the plain versions'"
+    del params, res
+    return want
+
+
+def hybrid_phase(torch):
+    """zamba2-7b at its published size (configs/zamba2_7b.py: 81 Mamba2
+    layers of d_model 3584, state 64, heads of 64, chunks of 64; the shared
+    attention block, 32 / 32 heads of 112 and a gated MLP of 14336, after
+    every 6th, 13 invocations with a KV cache each; vocab 32000, bf16
+    params, 6.75 B parameters), random weights from the seed, hyft16,
+    kernel mode, bf16 compute: ``hybrid_check_part`` (kernels 3-6 at its
+    shapes), ``hybrid_serve_part`` (generate, parallel and sequential
+    prefill), the profile of ``profile_phase``, ``hybrid_pool_part`` (the
+    continuous cell), ``hybrid_parity_part`` (fp32), ``hybrid_train_part``.
+    Returns (the checks' errors, the launches for the kernels line)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    published = get_config(HYBRID_ARCH)
+    cfg = published.with_(softmax_impl="hyft16")
+    errors = hybrid_check_part(torch, cfg)
+    params = build_model(cfg).init(SEED, device=DEV)
+    emit({"phase": "init", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "invocations": cfg.n_layers // cfg.attn_every,
+          "params": sum(t.numel() for t in _leaves(params)),
+          "bytes": sum(t.numel() * t.element_size() for t in _leaves(params)),
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    launches = {"generate": hybrid_serve_part(torch, cfg, params)}
+    hybrid_profile_part(torch, cfg, params)
+    launches["continuous"] = hybrid_pool_part(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    hybrid_parity_part(torch, published)
+    torch.cuda.empty_cache()
+    launches["train"] = hybrid_train_part(torch, published)
+    torch.cuda.empty_cache()
+    return errors, launches
+
+
+def ssm_phase(torch):
+    """mamba2-370m at its published size (configs/mamba2_370m.py: 48 layers,
+    d_model 1024, state 128, heads of 64, chunks of 64, vocab 50280, tied;
+    fp32 params, bf16 compute), random weights from the seed.  It is
+    softmax-free: no Hyft kernel may launch.  ``generate`` with the
+    parallel prefill (B x 1024, 32 new tokens, fp32 cache: the state); the
+    sequential prefill of SEQ_PROMPT tokens held against the parallel one
+    (bf16: printed; fp32 compute: within PARITY_BOUND of the std); a
+    training step of B x 1024 tokens through the launcher's functions
+    (remat "full", AdamW).  Prefill ms, decode ms per token, launches per
+    decode step (torch.profiler), step ms."""
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import generate
+
+    cfg = get_config(SSM_ARCH)
+    model = build_model(cfg.with_(parallel_prefill=True))
+    params = model.init(SEED, device=DEV)
+    emit({"phase": "init", "arch": cfg.name, "params": sum(t.numel() for t in _leaves(params))})
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    scfg = ServeConfig(max_len=MAX_LEN, cache_dtype="float32", attn_mode="kernel")
+    run = lambda n: generate(model, params, {"tokens": tokens}, scfg, max_new=n,  # noqa: E731
+                             device=DEV)
+    _timed(torch, lambda: run(2))                      # warm-up
+    _zero(fa.LAUNCHES, hs.LAUNCHES)
+    _, t_prefill = _timed(torch, lambda: run(1))
+    torch.cuda.reset_peak_memory_stats()
+    out, t_all = _timed(torch, lambda: run(NEW))
+    got = {**fa.LAUNCHES, **hs.LAUNCHES}
+    prompt = _window(torch, lambda: run(1))
+    cache = model.init_cache(params, B, MAX_LEN, "float32", device=DEV)
+    model.prefill(params, cache, {"tokens": tokens})
+
+    def steps():
+        for i in range(3):
+            model.decode_step(params, cache, tokens[:, i:i + 1], PROMPT + i)
+    decode = _window(torch, steps)
+    del cache
+    t_decode = t_all - t_prefill
+    emit({"phase": "ssm", "part": "generate", "arch": cfg.name, "prefill": "parallel",
+          "cache": "float32", "launches": got, "prefill_ms": t_prefill * 1e3,
+          "decode_ms_per_token": t_decode / (NEW - 1) * 1e3,
+          "decode_tokens_per_s": B * (NEW - 1) / t_decode,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "profile_prefill": prompt, "profile_3_decode_steps": decode,
+          "launches_per_decode_step": decode["launches"] / 3})
+    assert not any(got.values()), f"mamba2 launched a Hyft kernel: {got}"
+    assert out.shape == (B, NEW) and bool(((out >= 0) & (out < cfg.vocab)).all())
+
+    # the sequential prefill against the parallel one
+    short = tokens[:, :SEQ_PROMPT].contiguous()
+    res = {"phase": "ssm", "part": "sequential_prefill", "arch": cfg.name,
+           "prompt": SEQ_PROMPT, "bound": PARITY_BOUND}
+    for compute in ("bfloat16", "float32"):
+        lg = {}
+        for par in (False, True):
+            m = build_model(cfg.with_(parallel_prefill=par, compute_dtype=compute))
+            cache = m.init_cache(params, B, SEQ_PROMPT + 1, "float32", device=DEV)
+            (lgp, _, _), dt = _timed(torch, lambda: m.prefill(params, cache, {"tokens": short}))
+            lg[par] = lgp[:, -1]
+            res[f"{compute}_{'parallel' if par else 'sequential'}_prefill_ms"] = dt * 1e3
+        res[f"{compute}_maxdiff_over_std"] = float((lg[False] - lg[True]).abs().max()
+                                                   / lg[True].std())
+    emit(res)
+    assert res["float32_maxdiff_over_std"] <= PARITY_BOUND, "mamba2 sequential prefill"
+    del params
+    torch.cuda.empty_cache()
+
+    # a training step through the launcher's functions
+    args = launch.parse_args(["--arch", SSM_ARCH, "--softmax", "hyft16", "--attn-mode",
+                              "kernel", "--global-batch", str(B), "--seq", str(SEQ),
+                              "--steps", "4", "--remat", "full", "--optimizer", "adamw",
+                              "--lr", "1e-3", "--seed", str(SEED)])
+    tr = launch.build(args)
+    state, timed = tr["state"], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        batch = tr["batch_fn"](i)
+        _zero(fa.LAUNCHES, hs.LAUNCHES)
+        (state, metrics), dt = _timed(torch, lambda: tr["step"](state, batch))
+        got = {**fa.LAUNCHES, **hs.LAUNCHES}
+        emit({"phase": "ssm", "part": "train", "step": i, "warmup": i == 0, "ms": dt * 1e3,
+              "tokens_per_s": B * SEQ / dt, "loss": float(metrics["loss"]),
+              "grad_norm": float(metrics["grad_norm"]), "launches": got})
+        assert not any(got.values()), f"mamba2 training launched a Hyft kernel: {got}"
+        assert math.isfinite(float(metrics["loss"]))
+        if i:
+            timed.append(dt * 1e3)
+    emit({"phase": "ssm", "part": "train", "arch": cfg.name, "mean_step_ms": sum(timed) / 2,
+          "tokens_per_s": B * SEQ / (sum(timed) / 2) * 1e3,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    del state, tr
+
+
+def hybrid_kernels_phase(torch, errors, launches):
+    """The kernels line's rows of kernels 3-6 at the hybrid's shapes (32 /
+    32 heads of 112, HYFT16): kernel 3 at the parallel prefill's B x 1024
+    (bf16 q/k/v), 13 launches a generate; kernels 3-5 at the training
+    step's HYBRID_TRAIN_B x 1024 (bf16), 4 / 2 / 2 a step; kernel 6 over
+    B x 1057 keys (HYBRID_DECODE_LENGTHS valid), fp32 and fp2fx8, rotating
+    over 13 caches (one an invocation) so that they come from device
+    memory, 403 a generate.  mamba2-370m's path launches none of them."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_config(HYBRID_ARCH)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    ninv = cfg.n_layers // cfg.attn_every
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    gen_launches = launches["generate"]["fp2fx8"]
+    rows = []
+    for shape, batch, counts, what in (
+            ("prefill", B, {"hyft_flash_fwd": gen_launches["hyft_flash_fwd"],
+                            "hyft_flash_bwd_dq": 0, "hyft_flash_bwd_dkv": 0},
+             "per generate (the parallel prefill)"),
+            ("train", HYBRID_TRAIN_B, launches["train"], "per training step (12 layers)")):
+        for row in _flash_rows(torch, gen, torch.bfloat16, batch, hq, hkv, SEQ, d, True,
+                               errors, counts, f"[zamba2,{shape},bf16,d{d}]", f"[{shape}]"):
+            if shape == "prefill" and row["launches"] == 0:
+                continue                   # the prefill runs the forward only
+            row.update(launches_are=what, launches_by_phase={"hybrid": row["launches"],
+                                                             "ssm": 0})
+            rows.append(row)
+    lens = torch.tensor(HYBRID_DECODE_LENGTHS, device=DEV)
+    mask = (torch.arange(MAX_LEN, device=DEV)[None] < lens[:, None]).float()
+    bk = fa._block_k(MAX_LEN, 256)
+    BH = B * hkv
+    for cache_dtype in ("float32", "fp2fx8"):
+        bufs = [_cache_kv(torch, gen, cache_dtype, (BH, MAX_LEN, d)) for _ in range(ninv)]
+        q3 = torch.randn(BH, hq // hkv, d, generator=gen, device=DEV)
+
+        def call(attend):
+            def fn(i):
+                k, v, sc, _ = bufs[i % ninv]
+                return attend(q3, k, v, sc.get("k_scale"), sc.get("v_scale"), mask,
+                              cfg=HYFT16, sm_scale=d ** -0.5, bk=bk, hkv=hkv, sq=None)
+            return fn
+        event_ms = _event_ms(torch, call(fa._splitk_attention_cuda), 200)
+        timing = _kernel_ms(torch, call(fa._splitk_attention_cuda), 200, "decode_kernel",
+                            event_ms)
+        plain_ms = _event_ms(torch, call(fa.splitk_attention_plain), 20)
+        kv_bytes = 1 if cache_dtype == "fp2fx8" else 4
+        live = sum(HYBRID_DECODE_LENGTHS) * hkv          # live (head, key) rows
+        nbytes = (BH * hq // hkv * d * 4 + 2 * live * d * kv_bytes
+                  + (2 * live * 4 if cache_dtype == "fp2fx8" else 0) + mask.numel() * 4
+                  + BH * hq // hkv * d * 4)
+        flops = 4 * d * live * (hq // hkv)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        n = launches["generate"][cache_dtype]["hyft_splitk_decode"]
+        rows.append({
+            "name": f"hyft_splitk_decode[zamba2,{cache_dtype},d{d}]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/hyft_splitk.cu",
+            "instantiated_in": f"src/repro_torch/kernels/csrc/hyft_attend_d{d}.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:541",
+            "tpu_kernel": "_decode_fwd_kernel", "heads": [hq, hkv],
+            "launches": n, "launches_are": "per generate (31 decode steps x 13 invocations)",
+            "launches_by_phase": {"hybrid": n, "hybrid_continuous": launches["continuous"],
+                                  "ssm": 0},
+            "keys": list(HYBRID_DECODE_LENGTHS),
+            "max_abs_err": errors[("hyft_splitk_decode", cache_dtype)], **timing,
+            "kernel_ms": event_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "library_ms": None})
+        del bufs
+    return rows
+
+
 def main():
     import torch
 
@@ -3507,12 +4260,17 @@ def main():
     torch.cuda.empty_cache()
     restart_phase(torch)
     torch.cuda.empty_cache()
+    hybrid_errs, hybrid_launches = hybrid_phase(torch)
+    torch.cuda.empty_cache()
+    ssm_phase(torch)
+    torch.cuda.empty_cache()
     emit({"kernels": kernels_phase(torch, errors, launches)
           + paged_kernels_phase(torch, paged_errs, paged_launches)
           + flash_kernels_phase(torch, flash_errs, train_launches, bert_launches)
           + softmax_kernels_phase(torch, softmax_errs, unfused_launches,
                                   unfused_train_launches, moe_launches)
-          + widths_kernels_phase(torch, width_errs, flash_errs, spec)})
+          + widths_kernels_phase(torch, width_errs, flash_errs, spec)
+          + hybrid_kernels_phase(torch, hybrid_errs, hybrid_launches)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
 

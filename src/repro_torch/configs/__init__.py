@@ -5,8 +5,8 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, ServeConfig, TrainConfig  # noqa: F401
 
-# the architectures the port runs so far: the dense and MoE families; the
-# others of the JAX package come with the slices that port their families
+# the architectures the port runs so far: the dense, MoE, SSM and hybrid
+# families; encdec and VLM come with the slices that port their families
 # (ROADMAP queue 1, the other families)
 ARCHS = {
     "mistral-nemo-12b": "mistral_nemo_12b",
@@ -15,6 +15,8 @@ ARCHS = {
     "qwen2-1.5b": "qwen2_1_5b",
     "grok-1-314b": "grok_1_314b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
+    "mamba2-370m": "mamba2_370m",
+    "zamba2-7b": "zamba2_7b",
     "bert-base": "bert_base",
 }
 

@@ -3,8 +3,8 @@
 The JAX package's ``unbox(model.init(key))`` tree, mapped to numpy
 (``jax.tree.map(np.asarray, tree)``), has the same nested keys and shapes as
 the port's parameter tree, with the leading layer axis under ``"blocks"``;
-the cache (``{"blocks": {"k", "v"[, "k_scale", "v_scale"]}}``) likewise.
-So the bridge is a key-for-key copy.
+the cache (``{"blocks": ...}``, and the hybrid's ``"shared_attn"``)
+likewise.  So the bridge is a key-for-key copy.
 """
 from __future__ import annotations
 
@@ -18,15 +18,22 @@ def _map(tree, fn):
     return fn(tree)
 
 
+# leaves the JAX package keeps in fp32 whatever the parameters' dtype (its
+# ``Param``s): the MoE router and the Mamba2 block's constants
+FP32_LEAVES = ("router", "A_log", "D", "dt_bias")
+
+
 def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
     """numpy param tree -> tensors on ``device``; ``dtype`` recasts the
-    floating-point leaves."""
-    def leaf(a):
-        t = torch.from_numpy(np.array(a, copy=True))
-        if dtype is not None and t.is_floating_point():
+    floating-point leaves but those of ``FP32_LEAVES``."""
+    def conv(t, name):
+        if isinstance(t, dict):
+            return {k: conv(v, k) for k, v in t.items()}
+        t = torch.from_numpy(np.array(t, copy=True))
+        if dtype is not None and t.is_floating_point() and name not in FP32_LEAVES:
             t = t.to(dtype)
         return t.to(device)
-    return _map(tree, leaf)
+    return conv(tree, None)
 
 
 def cache_from_numpy(tree, device):

@@ -260,6 +260,13 @@ def is_fp2fx8(dtype) -> bool:
     return str(dtype) == FP2FX8
 
 
+def cache_storage_dtype(dtype) -> torch.dtype:
+    """The torch dtype of the non-attention cache buffers (the Mamba2 state's
+    conv tail) when the attention cache may be the symbolic "fp2fx8"
+    format: fp32 for fp2fx8, else ``dtype`` itself."""
+    return F32 if is_fp2fx8(dtype) else torch_dtype(str(dtype))
+
+
 def fp2fx8_quantize(x):
     """(..., D) float -> (int8 raw, fp32 scale over the last axis).
 

@@ -1,9 +1,11 @@
-"""Serving engine: prefill the prompt as one chunk, then decode.
+"""Serving engine: prefill the prompt, then decode.
 
 The PyTorch counterpart of the lockstep ``generate`` of
-``repro.serve.engine``.  The prompt goes through ``prefill_chunk`` (the same
-attend-at-offset primitive the JAX engine uses for attention families) and
-each new token through ``decode_step``.
+``repro.serve.engine``.  As in the JAX engine, the attention families'
+prompt goes through ``prefill_chunk`` as one chunk (the attend-at-offset
+primitive the slot pool admits with) and the recurrent families' through
+``model.prefill`` (``build_prefill``: the parallel or the sequential state
+build); each new token goes through ``decode_step``.
 
 ``ServeConfig.decode_loop``: ``"scan"`` and ``"host"`` run the same Python
 loop.  Its body never reads the device (no ``.item()``, ``.cpu()`` or
@@ -60,6 +62,12 @@ def _sample(logits, generator, temperature, top_k: int = 0,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def build_prefill(model):
+    """(params, cache, batch) -> (logits (B, 1, V), cache, len): the whole
+    prompt through ``model.prefill``, the recurrent families' prompt path."""
+    return model.prefill
+
+
 def build_prefill_chunk(model, scfg: ServeConfig, width: int):
     """(params, cache, toks (B, width), start (B,), n_valid (B,), gate (B,))
     -> (last_logits (B, V) fp32, cache).
@@ -100,11 +108,20 @@ def generate(model, params, batch: dict, scfg: ServeConfig, max_new: int,
     cache = model.init_cache(params, B, scfg.max_len, scfg.cache_dtype,
                              device=dev)
     lens = batch.get("lengths")
-    nv = (torch.as_tensor(lens, dtype=I32, device=dev) if lens is not None
-          else torch.full((B,), S, dtype=I32, device=dev))
-    last, cache = build_prefill_chunk(model, scfg, S)(
-        params, cache, toks, torch.zeros((B,), dtype=I32, device=dev), nv,
-        torch.ones((B,), dtype=torch.bool, device=dev))
+    if model.init_paged_cache is not None:
+        # attention families: the slot pool's admission primitive, so solo
+        # outputs match pooled serving for every cache dtype
+        nv = (torch.as_tensor(lens, dtype=I32, device=dev) if lens is not None
+              else torch.full((B,), S, dtype=I32, device=dev))
+        last, cache = build_prefill_chunk(model, scfg, S)(
+            params, cache, toks, torch.zeros((B,), dtype=I32, device=dev), nv,
+            torch.ones((B,), dtype=torch.bool, device=dev))
+    else:
+        pb = {"tokens": toks}
+        if lens is not None:
+            pb["lengths"] = torch.as_tensor(lens, dtype=I32, device=dev)
+        logits, cache, _ = build_prefill(model)(params, cache, pb)
+        last = logits[:, -1, :]
     sample = lambda lg: _sample(lg, generator, scfg.temperature,  # noqa: E731
                                 scfg.top_k, scfg.top_p).to(I32)[:, None]
     tok = sample(last)

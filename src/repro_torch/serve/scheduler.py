@@ -1,18 +1,20 @@
 """Continuous-batching scheduler: a slot-pool KV cache serving ragged traffic.
 
 The PyTorch counterpart of ``repro.serve.scheduler``'s ``SlotPoolEngine``
-for the attention families (dense and MoE).  Three pieces, as in the JAX
+for the dense, MoE, SSM and hybrid families.  Three pieces, as in the JAX
 package:
 
   slot pool    — the KV cache is allocated once with a fixed batch (slot)
                  dimension ``n_slots`` (dense or paged, float or fp2fx8);
                  host mirrors track each slot's ``length`` (next write
                  position), ``active``, ``prefilling`` and token ``budget``.
-  chunked prefill — admission is host bookkeeping only; prompt tokens go
-                 through ``engine.build_prefill_chunk`` in place over the
-                 slot's own cache rows, up to ``prefill_chunk`` tokens per
-                 row per call, every prefilling slot packed into one call
-                 (``pack_prefill``), one call between decode bursts.
+  chunked prefill — admission is host bookkeeping only (the recurrent
+                 families' admitted rows are also reset to fresh state);
+                 prompt tokens go through ``engine.build_prefill_chunk`` in
+                 place over the slot's own cache rows, up to
+                 ``prefill_chunk`` tokens per row per call, every
+                 prefilling slot packed into one call (``pack_prefill``),
+                 one call between decode bursts.
   masked burst — ``decode_burst`` masked decode steps over all slots: each
                  writes KV at per-slot positions (paged: through the block
                  tables), samples, and detects EOS, budget and deadline TTL
@@ -73,6 +75,7 @@ from repro_torch.obs import Obs
 from repro_torch.obs import numerics as obs_numerics
 from repro_torch.serve import engine, kvpool
 from repro_torch.train.loop import StragglerMonitor
+from repro_torch.tree import tree_leaves
 
 I32 = torch.int32
 PAD = -1  # emitted-token filler for slots that were idle during a burst step
@@ -245,6 +248,11 @@ class SlotPoolEngine:
                     "scheduler='spec' is greedy-only (temperature == 0): "
                     "sampled speculative acceptance needs distribution-"
                     "level rejection sampling, not the top-k/top-p filters")
+            if self.model.init_paged_cache is None:
+                raise ValueError(
+                    "scheduler='spec' needs an attention-family model "
+                    "(dense/moe/vlm): SSM/hybrid/encdec state has no O(1) "
+                    "rollback, so those families serve non-speculatively")
             if scfg.draft_k < 1:
                 raise ValueError("draft_k must be >= 1")
             from repro_torch.serve import spec as spec_mod
@@ -253,6 +261,10 @@ class SlotPoolEngine:
         self.paged = scfg.kv_layout == "paged"
         self.trie = None
         if self.paged:
+            if self.model.init_paged_cache is None:
+                raise ValueError(
+                    "kv_layout='paged' needs an attention-family model "
+                    "(dense/moe/vlm); SSM/hybrid/encdec serve dense")
             if scfg.page_size < 1:
                 raise ValueError("page_size must be >= 1")
             self.n_blocks = -(-scfg.max_len // scfg.page_size)
@@ -292,6 +304,11 @@ class SlotPoolEngine:
         self.completions: dict[int, Completion] = {}
         self._queue: deque = deque()   # arrived, waiting (bounded)
         self._pending: deque = deque()  # submitted, not yet arrived
+        # chunk prefill writes attention rows in place (the kv_index <=
+        # position mask hides a previous occupant's stale KV), but the
+        # recurrent families continue from the slot's stored state, so
+        # their admission writes fresh rows first
+        self._needs_reset = self.model.init_paged_cache is None
         if self.spec:
             self._spec_step = spec_mod.build_spec_step(self.model, scfg, scfg.draft_k)
         else:
@@ -364,6 +381,8 @@ class SlotPoolEngine:
         prewarm, which compiles every executable a run can hit.  Eager
         PyTorch compiles nothing else; on the CPU there is nothing to
         build."""
+        if not self.paged and self._needs_reset:
+            self._reset_rows(range(self.scfg.n_slots))
         if self.device.type != "cuda":
             return
         from repro_torch.kernels import build
@@ -427,10 +446,24 @@ class SlotPoolEngine:
                 self._admit_dense(reqs, free)
 
     def _admit_dense(self, reqs, free):
-        # attention rows need no reset: the kv_index <= position mask hides
-        # a previous occupant's stale KV
+        # the recurrent families chunk-prefill through gated decode steps,
+        # which continue from the slot's stored state: the admitted rows
+        # start fresh.  Attention rows need no reset: the kv_index <=
+        # position mask hides a previous occupant's stale KV
+        if self._needs_reset:
+            self._reset_rows(free[:len(reqs)])
         for j, r in enumerate(reqs):
             self._start_prefill(free[j], r, 0)
+
+    def _reset_rows(self, slots) -> None:
+        """Rewrite the dense cache's rows of ``slots`` with ``init_cache``'s
+        values, in every leaf: each has its slot on axis 1, after the layer
+        (or, for the hybrid's shared block, the invocation) axis."""
+        fresh = self.model.init_cache(self.params, 1, self.scfg.max_len,
+                                      self.scfg.cache_dtype, device=self.device)
+        idx = torch.as_tensor(list(slots), dtype=torch.long, device=self.device)
+        for leaf, row in zip(tree_leaves(self.cache), tree_leaves(fresh)):
+            leaf[:, idx] = row
 
     def _alloc_pages(self, n: int) -> Optional[list]:
         """``n`` pages from the pool, evicting prefix-cache LRU leaves on
@@ -904,12 +937,11 @@ class SlotPoolEngine:
 
     def _scrub_dense_slot(self, s: int) -> None:
         """Rewrite slot ``s``'s dense cache rows with ``init_cache``'s
-        values: a NaN or Inf left there would reach the slot's next
-        occupant through the PV products of masked keys (0 * NaN)."""
-        fresh = self.model.init_cache(self.params, 1, self.scfg.max_len,
-                                      self.scfg.cache_dtype, device=self.device)
-        for name, leaf in self.cache["blocks"].items():
-            leaf[:, s] = fresh["blocks"][name][:, 0]
+        values, every leaf's (the recurrent state and the hybrid's shared
+        KV too): a NaN or Inf left there would reach the slot's next
+        occupant, through the PV products of masked keys (0 * NaN) or the
+        state it continues from."""
+        self._reset_rows([s])
 
     def _scrub_slot_pages(self, s: int) -> None:
         """Zero slot ``s``'s exclusive pages (refcount 1) before they go

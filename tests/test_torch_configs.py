@@ -58,6 +58,19 @@ def test_config_matches_jax(arch):
                                        atol=RTOL * float(np.abs(want).max()))
 
 
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_recurrent_config_matches_jax(arch):
+    """The SSM and hybrid configs' fields equal the JAX configs', and so do
+    their smoke configs' (state 16, heads of 16, chunks of 8; the hybrid 4
+    layers with the shared block every 2).  Their models are held to JAX's
+    in ``tests/test_torch_ssm.py`` and ``tests/test_torch_hybrid.py``."""
+    assert arch in ARCHS
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(smoke_config(cfg)) == dataclasses.asdict(jax_smoke_config(jcfg))
+    assert cfg.family in ("ssm", "hybrid") and smoke_config(cfg).ssm_chunk == 8
+
+
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "grok-1-314b"])
 def test_moe_config_matches_jax(arch):
     """The MoE configs' fields equal the JAX configs', and so do their smoke

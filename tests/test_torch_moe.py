@@ -429,4 +429,4 @@ def test_moe_models_build_through_the_zoo():
     assert tuple(cache["blocks"]["k"].shape) == (cfg.n_layers, 7, cfg.n_kv_heads, 4,
                                                  cfg.d_head)
     with pytest.raises(NotImplementedError, match="the other families"):
-        build_model(cfg.with_(family="ssm"))
+        build_model(cfg.with_(family="encdec"))
