@@ -49,7 +49,8 @@ script exits non-zero without its last line:
               mode, no kernel) on the same weights;
   6. profile  torch.profiler over generate (the prompt, then the prompt
               and 3 decode steps): wall, device busy time and idle share,
-              launches per prefill and per decode step, the top kernels;
+              launches per prefill and per decode step, the top kernels
+              (every profiled window traces the device alone, ``_profiled``);
   7. train    qwen2-1.5b at full width (28 layers, random weights from the
               seed) through ``repro_torch.launch.train``'s functions:
               hyft16, attn_mode="kernel", bf16 compute (attention in fp32:
@@ -228,7 +229,12 @@ script exits non-zero without its last line:
               the moe phase; kernels 3-6 at zamba2-7b's shapes (32 / 32
               heads of 112: the prefill's 4 x 1024, the training step's
               2 x 1024, decode over 1,025-1,056 keys), each with its
-              launches in the hybrid phase (the ssm phase's: 0);
+              launches in the hybrid phase (the ssm phase's: 0); kernels
+              3-6 at whisper-medium's shapes (the encoder, the
+              cross-attention at 64 and 1 query rows, the training step's
+              three shapes, decode over 95 keys) and kernels 3-9 at
+              internvl2-1b's (``families_kernels_phase``), each with its
+              launches in the encdec and vlm phases;
  20. moe      phi3.5-moe-42b-a6.6b at its published widths, 16 of its 32
               layers (42 GB of bf16 weights; all 32 do not fit), hyft16_kernel
               (the router through kernel 1), kernel mode (``moe_phase``):
@@ -258,8 +264,9 @@ script exits non-zero without its last line:
               kernel-6 launches), and with the sequential prefill of 128
               tokens (13 x 128 kernel-6 launches in the prompt); a profile
               of the prompt and of 3 decode steps; the continuous cell over
-              a dense pool, prompts through gated decode steps (kernel 6
-              once an invocation a ``decode_step`` call); parity at fp32,
+              a dense pool at 27 of the 81 layers (POOL_LAYERS), prompts
+              through gated decode steps (kernel 6 once an invocation a
+              ``decode_step`` call); parity at fp32,
               HYFT32, all 81 layers (kernel against unfused within
               PARITY_BOUND, against the plain versions of kernels 3 and 6
               within HYBRID_PLAIN_GAP with equal greedy tokens, sequential
@@ -270,6 +277,27 @@ script exits non-zero without its last line:
  23. ssm      mamba2-370m at its published size (``ssm_phase``): generate,
               the sequential prefill against the parallel one, training;
               zero Hyft launches;
+ 24. families check  (after 10, before any model call:
+              ``families_check_phase``) kernels 3-5 at whisper-medium's
+              shapes (16 / 16 heads of 64, non-causal, keys padded from
+              1,500 to 1,536: the encoder's 1500 x 1500, the cross-attention
+              at 64, 1 and 448 query rows; the training step's causal 448)
+              and kernels 3-9 at internvl2-1b's 14 / 2 heads of 64 (a GQA
+              group of 7: decode and chunks of 128 lanes over 1,057 ragged
+              keys, dense and in pages of 16; 3-5 causal at 2 x 1024),
+              HYFT16 and HYFT32, against their plain versions;
+ 25. encdec   whisper-medium at its published size (24 + 24 layers, 1,500
+              frames; ``encdec_phase``): generate under the sequential and
+              the parallel prefill, per cache, with exact launches (the
+              decode step's cross-attention is kernel 3 at Sq = 1); a dense
+              slot pool of 8 with frames (each admitted group encoded
+              once); parity at fp32, all layers, against the unfused mode
+              and the plain versions; training at 4 + 4 layers and its
+              parity;
+ 26. vlm      internvl2-1b at its published size (``vlm_phase``): generate
+              (``serve_phase``), the paged continuous cell over 16 chat
+              requests, ``parity_phase``, training at 24 layers with 256
+              patches a sequence and its parity at 2 layers;
 
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -822,11 +850,11 @@ def _paged_case(torch, gen, ps, cache_dtype, lengths, d=D, hkv=HKV):
     return k, v, sc, vf, bt, mask, lens
 
 
-def _chunk_mask(torch, lens, width):
-    """(B, width, SERVE_LEN) causal frontier of a chunk of ``width`` lanes
+def _chunk_mask(torch, lens, width, total=SERVE_LEN):
+    """(B, width, total) causal frontier of a chunk of ``width`` lanes
     ending at each sequence's length."""
     start = torch.clamp(lens - width, min=0)
-    return (torch.arange(SERVE_LEN, device="cuda")[None, None]
+    return (torch.arange(total, device="cuda")[None, None]
             <= (start[:, None, None] + torch.arange(width, device="cuda")[None, :, None])
             ).float().contiguous()
 
@@ -1356,8 +1384,12 @@ def chaos_phase(torch, params, cfg, reqs, card):
 
 
 def _profiled(torch, fn):
+    """torch.profiler over ``fn`` with the device's activity alone (every
+    reader takes the device events): a window of the CPU's ops too costs
+    about a millisecond of processing a launch, which had been most of the
+    spec windows' time.  Returns (key averages, wall seconds)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = _timed(torch, fn)
     return prof.key_averages(), wall
 
@@ -1592,33 +1624,37 @@ def _event_ms(torch, fn, reps):
 
 
 def _width64_note(out_ratio):
-    """What the kernels line says of kernels 6-9 at head width 64."""
-    return {"checked": True, "worst_out_ratio": out_ratio, "timed": False,
-            "why": "no path launches it at D 64 yet (bert-base runs kernels 3-5)"}
+    """What the kernels line says of kernels 6-9 at head width 64 at
+    qwen2's heads: checked; timed at internvl2-1b's heads in its rows."""
+    return {"checked": True, "worst_out_ratio": out_ratio, "timed": True,
+            "where": f"the rows labelled {VLM_ARCH} (14 / 2 heads of 64)"}
 
 
-def kernels_phase(torch, errors, launches):
+def kernels_phase(torch, errors, launches, heads=(HQ, HKV, D), n_layers=28, label=None):
     """Time kernels 6 and 8 (each one launch, both levels) at the main path's
-    shapes against their plain versions and their bounds.  Decode rotates
-    over 28 K/V buffers (one per layer, 240 MB of fp32) so that, as in a
-    decode step, the cache comes from device memory and not from the 50 MB
-    L2.  The bound counts every input once (q, K/V and their scales, the
-    mask) and the one output, (rows, D) fp32 per (b, kv head); FLOPs over
-    the (row, key) pairs the mask admits."""
+    shapes against their plain versions and their bounds: qwen2-1.5b's
+    heads, or ``heads`` (query heads, KV heads, width) of the config named
+    ``label``.  Decode rotates over ``n_layers`` K/V buffers (one per layer,
+    240 MB of fp32 for qwen2) so that, as in a decode step, the cache comes
+    from device memory and not from the 50 MB L2.  The bound counts every
+    input once (q, K/V and their scales, the mask) and the one output,
+    (rows, D) fp32 per (b, kv head); FLOPs over the (row, key) pairs the
+    mask admits."""
     from repro_torch.core.hyft import HYFT16
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    BH, g, bk = B * HKV, HQ // HKV, 256
+    hq, hkv, d = heads
+    BH, g, bk = B * hkv, hq // hkv, 256
     rows_of = {"decode": g, "verify": g * PROMPT}
     kernels = []
     for kind, sq in (("decode", None), ("verify", PROMPT)):
         for cache_dtype in ("float32", "fp2fx8"):
             rows = rows_of[kind]
-            nbuf = 28 if kind == "decode" else 1
-            bufs = [_cache_kv(torch, gen, cache_dtype, (BH, MAX_LEN, D))
+            nbuf = n_layers if kind == "decode" else 1
+            bufs = [_cache_kv(torch, gen, cache_dtype, (BH, MAX_LEN, d))
                     for _ in range(nbuf)]
-            q3 = torch.randn(BH, rows, D, generator=gen, device="cuda")
+            q3 = torch.randn(BH, rows, d, generator=gen, device="cuda")
             if sq is None:
                 mask = torch.ones(B, MAX_LEN, device="cuda")
             else:
@@ -1630,8 +1666,8 @@ def kernels_phase(torch, errors, launches):
                 def fn(i):
                     k, v, sc, _ = bufs[i % nbuf]
                     return attend(q3, k, v, sc.get("k_scale"), sc.get("v_scale"),
-                                  mask, cfg=HYFT16, sm_scale=D ** -0.5, bk=bk,
-                                  hkv=HKV, sq=sq)
+                                  mask, cfg=HYFT16, sm_scale=d ** -0.5, bk=bk,
+                                  hkv=hkv, sq=sq)
                 return fn
             reps = 200 if kind == "decode" else 10
             event_ms = _event_ms(torch, call(fa._splitk_attention_cuda), reps)
@@ -1640,18 +1676,19 @@ def kernels_phase(torch, errors, launches):
             plain_ms = _event_ms(torch, call(fa.splitk_attention_plain),
                                  50 if kind == "decode" else 3)
             kv_bytes = 1 if cache_dtype == "fp2fx8" else 4
-            nbytes = (BH * rows * D * 4 + 2 * BH * MAX_LEN * D * kv_bytes
+            nbytes = (BH * rows * d * 4 + 2 * BH * MAX_LEN * d * kv_bytes
                       + (2 * BH * MAX_LEN * 4 if cache_dtype == "fp2fx8" else 0)
-                      + mask.numel() * 4 + BH * rows * D * 4)
+                      + mask.numel() * 4 + BH * rows * d * 4)
             # QK^T + PV over the admitted pairs: the mask is shared by the g
-            # query heads of each of the HKV heads (decode: every row its own)
-            pairs = int(mask.sum()) * HKV * g if sq is not None else BH * rows * MAX_LEN
-            flops = 4 * D * pairs
+            # query heads of each of the hkv heads (decode: every row its own)
+            pairs = int(mask.sum()) * hkv * g if sq is not None else BH * rows * MAX_LEN
+            flops = 4 * d * pairs
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / FP32_FLOPS_PER_S * 1e3
             entry = "hyft_splitk_decode" if kind == "decode" else "hyft_splitk_verify"
+            tag = cache_dtype if label is None else f"{label},{cache_dtype},d{d}"
             kernels.append({
-                "name": f"{entry}[{cache_dtype}]",
+                "name": f"{entry}[{tag}]",
                 "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/hyft_splitk.cu",
                 "replaces": ("src/repro/kernels/flash_attention.py:541"
@@ -1661,7 +1698,8 @@ def kernels_phase(torch, errors, launches):
                                else "_verify_fwd_kernel"),
                 "launches": launches[cache_dtype][entry],
                 "max_abs_err": errors[(kind, cache_dtype)],
-                "width_64": _width64_note(errors[(kind, 64)]),
+                **({"width_64": _width64_note(errors[(kind, 64)])} if label is None
+                   else {"heads": [hq, hkv], "launches_are": "per generate"}),
                 **timing,
                 "kernel_ms": event_ms,
                 "plain_ms": plain_ms,
@@ -1675,29 +1713,32 @@ def kernels_phase(torch, errors, launches):
     return kernels
 
 
-def paged_kernels_phase(torch, errors, launches):
-    """Kernels 7 and 9 at the continuous-serving shapes: 8 slots, 2048
-    virtual keys in pages of 16 (128 pages merged in the kernel), fp32 and
-    fp2fx8 pools.  Decode with every block live, rotating over 28 pools
-    (one per layer) so that the pages come from device memory; a prompt
-    chunk of 256 lanes per slot starting at 768.  The bound counts every
-    input once (q, the live pages and their scales, the block table, the
-    mask) and the one output, (rows, D) fp32 per (b, kv head)."""
+def paged_kernels_phase(torch, errors, launches, heads=(HQ, HKV, D), n_layers=28,
+                        label=None):
+    """Kernels 7 and 9 at the continuous-serving shapes (qwen2-1.5b's heads,
+    or ``heads`` of the config named ``label``): 8 slots, 2048 virtual keys
+    in pages of 16 (128 pages merged in the kernel), fp32 and fp2fx8 pools.
+    Decode with every block live, rotating over ``n_layers`` pools (one per
+    layer) so that the pages come from device memory; a prompt chunk of 256
+    lanes per slot starting at 768.  The bound counts every input once (q,
+    the live pages and their scales, the block table, the mask) and the one
+    output, (rows, D) fp32 per (b, kv head)."""
     from repro_torch.core.hyft import HYFT16
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    BH, g, nb = SLOTS * HKV, HQ // HKV, SERVE_LEN // PAGE
+    hq, hkv, d = heads
+    BH, g, nb = SLOTS * hkv, hq // hkv, SERVE_LEN // PAGE
     start = 768
     kernels = []
     for kind, sq in (("decode", None), ("verify", CHUNK)):
         for cache_dtype in ("float32", "fp2fx8"):
             rows = g if sq is None else g * sq
             live = SERVE_LEN if sq is None else start + CHUNK
-            nbuf = 28 if sq is None else 1
-            bufs = [_paged_case(torch, gen, PAGE, cache_dtype, [live] * SLOTS)
+            nbuf = n_layers if sq is None else 1
+            bufs = [_paged_case(torch, gen, PAGE, cache_dtype, [live] * SLOTS, d, hkv)
                     for _ in range(nbuf)]
-            q3 = torch.randn(BH, rows, D, generator=gen, device="cuda")
+            q3 = torch.randn(BH, rows, d, generator=gen, device="cuda")
             if sq is None:
                 mask = bufs[0][5]
             else:
@@ -1707,7 +1748,7 @@ def paged_kernels_phase(torch, errors, launches):
                 def fn(i):
                     k, v, sc, _, bt, _, _ = bufs[i % nbuf]
                     return tiles(q3, k, v, sc.get("k_scale"), sc.get("v_scale"), bt,
-                                 mask, cfg=HYFT16, sm_scale=D ** -0.5, hkv=HKV, sq=sq)
+                                 mask, cfg=HYFT16, sm_scale=d ** -0.5, hkv=hkv, sq=sq)
                 return fn
             reps = 200 if sq is None else 10
             event_ms = _event_ms(torch, call(fa._paged_attention_cuda), reps)
@@ -1716,18 +1757,19 @@ def paged_kernels_phase(torch, errors, launches):
             plain_ms = _event_ms(torch, call(fa.paged_attention_plain),
                                  20 if sq is None else 3)
             kv_bytes = 1 if cache_dtype == "fp2fx8" else 4
-            keys = SLOTS * HKV * live                  # live (head, key) rows
-            nbytes = (BH * rows * D * 4 + 2 * keys * D * kv_bytes
+            keys = SLOTS * hkv * live                  # live (head, key) rows
+            nbytes = (BH * rows * d * 4 + 2 * keys * d * kv_bytes
                       + (2 * keys * 4 if cache_dtype == "fp2fx8" else 0)
-                      + SLOTS * nb * 4 + mask.numel() * 4 + BH * rows * D * 4)
+                      + SLOTS * nb * 4 + mask.numel() * 4 + BH * rows * d * 4)
             attended = (SERVE_LEN if sq is None
                         else sq * (start + 1) + sq * (sq - 1) // 2)   # per (b, h, g)
-            flops = 4 * BH * g * attended * D   # QK^T + PV over the real keys
+            flops = 4 * BH * g * attended * d   # QK^T + PV over the real keys
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / FP32_FLOPS_PER_S * 1e3
             entry = f"hyft_paged_{kind}"
+            tag = cache_dtype if label is None else f"{label},{cache_dtype},d{d}"
             kernels.append({
-                "name": f"{entry}[{cache_dtype}]", "route": "cuda",
+                "name": f"{entry}[{tag}]", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/hyft_paged.cu",
                 "replaces": ("src/repro/kernels/flash_attention.py:660" if sq is None
                              else "src/repro/kernels/flash_attention.py:823"),
@@ -1735,7 +1777,8 @@ def paged_kernels_phase(torch, errors, launches):
                 "launches": launches[cache_dtype][entry],
                 "launches_are": "per continuous_serve run",
                 "max_abs_err": errors[(f"paged_{kind}", cache_dtype)],
-                "width_64": _width64_note(errors[(f"paged_{kind}", 64)]),
+                **({"width_64": _width64_note(errors[(f"paged_{kind}", 64)])}
+                   if label is None else {"heads": [hq, hkv]}),
                 **timing,
                 "kernel_ms": event_ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops),
@@ -1764,24 +1807,28 @@ def flash_kernels_phase(torch, errors, launches, bert_launches):
 
 
 def _flash_rows(torch, gen, dtype, batch, hq, hkv, S, d, causal, errors, launches, name,
-                tag):
-    """The kernels-line rows of kernels 3-5 at one shape."""
+                tag, sk=None, fwd_only=False):
+    """The kernels-line rows of kernels 3-5 at one shape: S query rows over
+    ``sk`` keys (S without it; padded to the blocks and masked past sk);
+    kernel 3 alone with ``fwd_only``."""
     from repro_torch.core.hyft import HYFT16
     from repro_torch.kernels import flash_attention as fa
 
-    q3, k3, v3, _, bk, do3 = _flash_case(torch, gen, dtype, S, S, None, d, hq, hkv, batch)
+    sk = S if sk is None else sk
+    q3, k3, v3, maskf, bk, do3 = _flash_case(torch, gen, dtype, S, sk, None, d, hq, hkv,
+                                             batch)
     kw = dict(cfg=HYFT16, sm_scale=d ** -0.5, causal=causal, bk=bk, group=hq // hkv,
               q_offset=0)
-    o, m, l = fa._flash_fwd_cuda(q3, k3, v3, None, **kw)
-    args = (q3, k3, v3, None, do3, fa._flash_delta(do3, o).contiguous(), m, l)
+    o, m, l = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw)
+    args = (q3, k3, v3, maskf, do3, fa._flash_delta(do3, o).contiguous(), m, l)
     BH, BHkv, isz = batch * hq, batch * hkv, q3.element_size()
-    pairs = BH * S * (S + 1) // 2 if causal else BH * S * S
-    qkv = (BH + 2 * BHkv) * S * d * isz
+    pairs = BH * S * (S + 1) // 2 if causal else BH * S * sk
+    qkv = (BH * S + 2 * BHkv * sk) * d * isz + (0 if maskf is None else batch * sk * 4)
     rows = BH * S * 4                                # one fp32 / int32 per row
     specs = [
         ("hyft_flash_fwd", "flash_fwd_kernel", ":96", "_flash_fwd_kernel",
-         lambda: fa._flash_fwd_cuda(q3, k3, v3, None, **kw),
-         lambda: fa._flash_fwd_plain(q3, k3, v3, None, **kw),
+         lambda: fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw),
+         lambda: fa._flash_fwd_plain(q3, k3, v3, maskf, **kw),
          qkv + BH * S * d * 4 + 2 * rows, 4),
         ("hyft_flash_bwd_dq", "flash_bwd_dq_kernel", ":229", "_flash_bwd_dq_kernel",
          lambda: fa._flash_bwd_dq_cuda(*args, **kw),
@@ -1790,10 +1837,10 @@ def _flash_rows(torch, gen, dtype, batch, hq, hkv, S, d, causal, errors, launche
         ("hyft_flash_bwd_dkv", "flash_bwd_dkv_kernel", ":260", "_flash_bwd_dkv_kernel",
          lambda: fa._flash_bwd_dkv_cuda(*args, **kw),
          lambda: fa._flash_bwd_dkv_plain(*args, **kw),
-         qkv + BH * S * d * 4 + 3 * rows + 2 * BHkv * S * d * 4, 8),
+         qkv + BH * S * d * 4 + 3 * rows + 2 * BHkv * sk * d * 4, 8),
     ]
     kernels = []
-    for entry, kname, line, tpu, kernel, plain, nbytes, per_pair in specs:
+    for entry, kname, line, tpu, kernel, plain, nbytes, per_pair in specs[:1 if fwd_only else 3]:
         reps = 10 if causal else 50
         event_ms = _event_ms(torch, lambda i: kernel(), reps)
         timing = _kernel_ms(torch, lambda i: kernel(), reps, kname, event_ms)
@@ -1807,7 +1854,7 @@ def _flash_rows(torch, gen, dtype, batch, hq, hkv, S, d, causal, errors, launche
             "replaces": f"src/repro/kernels/flash_attention.py{line}",
             "tpu_kernel": tpu, "launches": launches[entry],
             "launches_are": "per training step" + ("" if causal else " (bert phase)"),
-            "shape": {"bh": BH, "bh_kv": BHkv, "sq": S, "sk": S, "d": d, "causal": causal,
+            "shape": {"bh": BH, "bh_kv": BHkv, "sq": S, "sk": sk, "d": d, "causal": causal,
                       "dtype": str(dtype).split(".")[1]},
             "max_abs_err": errors[entry + tag],
             **timing,
@@ -3500,6 +3547,11 @@ HYBRID_DECODE_LENGTHS = (1056, 1045, 1035, 1025)
 # zamba2 step is launch-bound at about 160 ms; prompts of 32-64 take 320
 POOL_SLOTS, POOL_LEN, POOL_CHUNK, POOL_REQ, POOL_BUDGET_S = 8, 192, 64, 16, 60.0
 POOL_PROMPT, POOL_NEW = (32, 64), (16, 32)           # each drawn uniformly, inclusive
+# its depth: the first 27 of the 81 layers (4 of the 13 calls of the shared
+# block), for the script's time limit once the encdec and VLM phases came
+# (the whole script took 1,216 s at 81 on one H100, PR 26); the generate,
+# parity and training parts keep their depths
+POOL_LAYERS = 27
 # the hybrid's training cell: 12 layers (2 invocations of the shared block)
 HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_B, HYBRID_TRAIN_STEPS = 12, 2, 2
 # greedy tokens of the fp32 parity runs after the parity step
@@ -3692,15 +3744,11 @@ def hybrid_serve_part(torch, cfg, params):
 
 
 def _window(torch, fn):
-    """torch.profiler over ``fn`` with the device's activity alone (a
-    window of the CPU's ops too costs about a millisecond of processing a
-    launch: 47 s for a zamba2 prompt and 3 decode steps): wall, device
-    busy time and idle share, launches, the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, wall = _timed(torch, fn)
-    kern = sorted(_device_events(torch, prof.key_averages()), key=_self_device_us,
-                  reverse=True)
+    """``_profiled`` over ``fn`` (a window of the CPU's ops too took 47 s
+    for a zamba2 prompt and 3 decode steps): wall, device busy time and
+    idle share, launches, the top kernels."""
+    events, wall = _profiled(torch, fn)
+    kern = sorted(_device_events(torch, events), key=_self_device_us, reverse=True)
     busy = sum(map(_self_device_us, kern)) / 1e3
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / (wall * 1e3),
@@ -3739,9 +3787,10 @@ def hybrid_profile_part(torch, cfg, params):
 
 def hybrid_pool_part(torch, cfg, params):
     """The hybrid's continuous cell (POOL_*): ``SlotPoolEngine`` over a dense
-    fp2fx8 cache; the prompts go through ``prefill_chunk``, one gated decode
-    step a lane, so kernel 6 runs once an invocation a ``decode_step`` call
-    and nothing else runs.  TTFT and TBT p50 / p99, tokens/s, the calls."""
+    fp2fx8 cache at POOL_LAYERS layers; the prompts go through
+    ``prefill_chunk``, one gated decode step a lane, so kernel 6 runs once
+    an invocation a ``decode_step`` call and nothing else runs.  TTFT and
+    TBT p50 / p99, tokens/s, the calls."""
     import numpy as np
     from repro_torch.configs import ServeConfig
     from repro_torch.kernels import flash_attention as fa
@@ -3757,7 +3806,8 @@ def hybrid_pool_part(torch, cfg, params):
     scfg = ServeConfig(scheduler="continuous", kv_layout="dense", n_slots=POOL_SLOTS,
                        max_len=POOL_LEN, prefill_chunk=POOL_CHUNK, decode_burst=BURST,
                        attn_mode="kernel", cache_dtype="fp2fx8", audit=True)
-    eng = SlotPoolEngine(build_model(cfg), params, scfg, device=DEV)
+    cfg = cfg.with_(n_layers=POOL_LAYERS)
+    eng = SlotPoolEngine(build_model(cfg), _cut(params, POOL_LAYERS), scfg, device=DEV)
     calls, orig = [0], transformer.decode_step
 
     def counted(*args, **kw):
@@ -3778,7 +3828,7 @@ def hybrid_pool_part(torch, cfg, params):
     tbt = [t for c in done.values() for t in _tbt(c)]
     n_tok = sum(len(c.tokens) for c in done.values())
     emit({"phase": "hybrid", "part": "continuous", "arch": cfg.name, "cache": "fp2fx8",
-          "slots": POOL_SLOTS, "requests": POOL_REQ, "prefill_chunk": POOL_CHUNK,
+          "n_layers": cfg.n_layers, "slots": POOL_SLOTS, "requests": POOL_REQ, "prefill_chunk": POOL_CHUNK,
           "wall_s": wall, "budget_s": POOL_BUDGET_S, "within_budget": wall <= POOL_BUDGET_S,
           "tokens": n_tok, "tokens_per_s": n_tok / wall,
           "ttft_p50_s": _pct(ttft, 0.5), "ttft_p99_s": _pct(ttft, 0.99),
@@ -4211,6 +4261,793 @@ def hybrid_kernels_phase(torch, errors, launches):
     return rows
 
 
+# --------------------------------------------------------------------------
+# the encoder-decoder and VLM families (whisper-medium, internvl2-1b)
+# --------------------------------------------------------------------------
+
+ENCDEC_ARCH, VLM_ARCH = "whisper-medium", "internvl2-1b"
+ENC_FRAMES = 1500                     # whisper's frames (frontend_len): 30 s of audio
+ENC_PROMPT = 64                       # whisper's prompt tokens after its 1,500 frames
+ENC_GREEDY = 8                        # greedy tokens of its fp32 parity runs
+# whisper's training cell: 4 encoder and 4 decoder layers at full width,
+# batch 2 x 448 text tokens after 1,500 frames
+ENC_TRAIN_LAYERS, ENC_TRAIN_B, ENC_TRAIN_S, ENC_TRAIN_STEPS = 4, 2, 448, 2
+# kernel 3 (and 4-5 where training runs the shape) at whisper's shapes,
+# non-causal, 16 / 16 heads of 64, keys padded from 1,500 to 1,536:
+# (name, query rows, keys, batch, backward too, what runs it)
+ENC_FLASH = [("encoder", ENC_FRAMES, ENC_FRAMES, B, True, "the encoder (and its training step)"),
+             ("cross_prefill", ENC_PROMPT, ENC_FRAMES, B, False, "the parallel prefill's cross"),
+             ("cross_decode", 1, ENC_FRAMES, B, False, "the cross-attention of a decode step"),
+             ("cross_train", ENC_TRAIN_S, ENC_FRAMES, ENC_TRAIN_B, True,
+              "the training step's cross-attention")]
+# whisper's continuous cell over a dense pool: prompts fed in chunks of 64
+# (one gated decode step a lane), 16 requests with frames at once
+ENC_POOL_SLOTS, ENC_POOL_REQ, ENC_POOL_CHUNK = 8, 16, 64
+ENC_POOL_PROMPT, ENC_POOL_NEW = (16, 64), (16, 32)   # each drawn uniformly, inclusive
+# internvl2-1b's training step: patches then text tokens a sequence
+VLM_PATCHES, VLM_TEXT = 256, 768
+VLM_POOL_REQ = 16                     # of _chat_requests' requests
+# the vlm's training parity (fp32, HYFT32): its depth.  The two modes'
+# backwards differ by design (``TRAIN_PARITY_BOUND``), and on these random
+# weights the gap compounds with depth: ||dgrad|| / ||grad|| read 0.180,
+# 0.226 and 0.810 at 2, 4 and 24 layers (``scripts/torch_train_gap.py``,
+# the plain versions on the CPU, 1 x (256 + 768) tokens; qwen2-1.5b's
+# parity runs 2 layers)
+VLM_PARITY_LAYERS = 2
+# the vlm's decode check: ragged key lengths of 4 sequences in a cache of 1,057
+VLM_DECODE_LENGTHS = (1057, 1045, 1035, 1025)
+
+
+def families_check_phase(torch):
+    """Kernels 3-9 at the shapes the encdec and VLM paths give them, against
+    their plain versions, before any model call, HYFT16 and HYFT32:
+      * whisper-medium (16 / 16 heads of 64, non-causal): kernel 3 at
+        ENC_FLASH's shapes, (1500, 1500), (64, 1500) and (1, 1500) at batch
+        4, bf16 and fp32 q/k/v, within ``flash_errors``; kernels 4-5 at
+        (1500, 1500) and (448, 1500) within ``grad_errors``;
+      * internvl2-1b (14 / 2 heads of 64, a GQA group of 7): kernel 6 over
+        B x 1057 keys (VLM_DECODE_LENGTHS valid) and kernel 8 at chunks of
+        128 lanes ending at each length, kernels 7 and 9 the same rows over
+        pages of 16, fp32 / bf16 / fp2fx8 K/V, within ``out_errors``;
+        kernels 3-5 causal at 2 x 1024, bf16 and fp32;
+    and whisper's causal self-attention of its training step (448).
+    Returns the HYFT16 errors the kernels line's rows read: flash entries by
+    name, split-K and paged by (kind, cache dtype)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hyft import HYFT16, HYFT32
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    errors = {}
+
+    def flash(arch, case, sq, sk, batch, causal, bwd, hq, hkv, d):
+        for dtype in (torch.bfloat16, torch.float32):
+            q3, k3, v3, maskf, bk, do3 = _flash_case(torch, gen, dtype, sq, sk, None, d, hq,
+                                                     hkv, batch)
+            for hcfg in (HYFT16, HYFT32):
+                kw = dict(cfg=hcfg, sm_scale=d ** -0.5, causal=causal, bk=bk,
+                          group=hq // hkv, q_offset=0)
+                got = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw)
+                ref = fa._flash_fwd_plain(q3, k3, v3, maskf, **kw)
+                err = fa.flash_errors(got, ref, hcfg, float(v3.float().abs().max()), bk,
+                                      k3.shape[1] // bk)
+                gerr = {}
+                if bwd:
+                    args = (q3, k3, v3, maskf, do3,
+                            fa._flash_delta(do3, ref[0]).contiguous(), *ref[1:])
+                    gerr = fa.grad_errors(
+                        (fa._flash_bwd_dq_cuda(*args, **kw), *fa._flash_bwd_dkv_cuda(*args, **kw)),
+                        (fa._flash_bwd_dq_plain(*args, **kw),
+                         *fa._flash_bwd_dkv_plain(*args, **kw)), hcfg)
+                emit({"phase": "families_check", "arch": arch, "kernel": "flash", "case": case,
+                      "batch": batch, "heads": [hq, hkv], "d_head": d, "sq": sq, "sk": sk,
+                      "keys_padded_to": k3.shape[1], "causal": causal,
+                      "dtype": str(dtype).split(".")[1], "cfg": hcfg.io_dtype, **err, **gerr})
+                assert torch.isfinite(got[0]).all(), f"{arch} flash ({case}): non-finite output"
+                assert err["m"] <= 1 and err["l"] <= 1 and err["o"] <= 1, \
+                    f"{arch} flash forward ({case}) disagrees with its plain version"
+                if bwd:
+                    assert max(gerr["dq"], gerr["dk"], gerr["dv"]) <= 1, \
+                        f"{arch} flash backward ({case}) disagrees with its plain version"
+                if hcfg is HYFT16 and dtype is torch.bfloat16:
+                    tag = f"[{arch},{case}]"
+                    errors["hyft_flash_fwd" + tag] = err["max_abs_err"]
+                    if bwd:
+                        errors["hyft_flash_bwd_dq" + tag] = gerr["dq_max_abs_err"]
+                        errors["hyft_flash_bwd_dkv" + tag] = max(gerr["dk_max_abs_err"],
+                                                                 gerr["dv_max_abs_err"])
+            del q3, k3, v3, do3, got, ref
+            torch.cuda.synchronize()
+
+    enc = get_config(ENCDEC_ARCH)
+    heads = (enc.n_heads, enc.n_kv_heads, enc.d_head)
+    for case, sq, sk, batch, bwd, _ in ENC_FLASH:
+        flash(ENCDEC_ARCH, case, sq, sk, batch, False, bwd, *heads)
+    flash(ENCDEC_ARCH, "self_train", ENC_TRAIN_S, ENC_TRAIN_S, ENC_TRAIN_B, True, True, *heads)
+    vlm = get_config(VLM_ARCH)
+    hq, hkv, d = vlm.n_heads, vlm.n_kv_heads, vlm.d_head
+    flash(VLM_ARCH, "train", SEQ, SEQ, 2, True, True, hq, hkv, d)
+    g = hq // hkv
+    lens = torch.tensor(VLM_DECODE_LENGTHS, device=DEV)
+    q1 = torch.randn(B * hkv, g, d, generator=gen, device=DEV)
+    qc = torch.randn(B * hkv, g * CHUNK64, d, generator=gen, device=DEV)
+
+    def hold(entry, key, cfg, got, err, **info):
+        emit({"phase": "families_check", "arch": VLM_ARCH, "kernel": entry, "heads": [hq, hkv],
+              "d_head": d, "group": g, "keys": list(VLM_DECODE_LENGTHS), "cfg": cfg.io_dtype,
+              **info, **err})
+        assert torch.isfinite(got).all(), f"{entry} at group {g}: non-finite output"
+        assert err["out"] <= 1, f"{entry} at group {g} disagrees with its plain version"
+        if cfg is HYFT16:
+            errors[key] = max(errors.get(key, 0.0), err["max_abs_err"])
+
+    dmask = (torch.arange(MAX_LEN, device=DEV)[None] < lens[:, None]).float()
+    cmask = _chunk_mask(torch, lens, CHUNK64, MAX_LEN)
+    for cache_dtype in ("float32", "bfloat16", "fp2fx8"):
+        k, v, sc, vf = _cache_kv(torch, gen, cache_dtype, (B * hkv, MAX_LEN, d))
+        flat = (k, v, sc.get("k_scale"), sc.get("v_scale"))
+        for cfg in (HYFT16, HYFT32):
+            kw = dict(cfg=cfg, sm_scale=d ** -0.5, bk=fa._block_k(MAX_LEN, 256), hkv=hkv)
+            for entry, kind, q3, m, sq in (("hyft_splitk_decode", "decode", q1, dmask, None),
+                                           ("hyft_splitk_verify", "verify", qc, cmask, CHUNK64)):
+                got = fa._splitk_attention_cuda(q3, *flat, m, **kw, sq=sq)
+                err = fa.out_errors(got, fa.splitk_tiles_plain(q3, *flat, m, **kw, sq=sq), cfg,
+                                    float(vf.abs().max()))
+                hold(entry, (kind, cache_dtype), cfg, got, err, kv=cache_dtype, sq=sq or 1)
+        del k, v, sc, flat
+        k, v, sc, vf, bt, mask, plens = _paged_case(torch, gen, PAGE, cache_dtype,
+                                                    VLM_DECODE_LENGTHS, d, hkv)
+        pmask = _chunk_mask(torch, plens, CHUNK64)
+        for cfg in (HYFT16, HYFT32):
+            kw = dict(cfg=cfg, sm_scale=d ** -0.5, hkv=hkv)
+            for entry, kind, q3, m, sq in (("hyft_paged_decode", "paged_decode", q1, mask, None),
+                                           ("hyft_paged_verify", "paged_verify", qc, pmask,
+                                            CHUNK64)):
+                args = (q3, k, v, sc.get("k_scale"), sc.get("v_scale"), bt, m)
+                got = fa._paged_attention_cuda(*args, **kw, sq=sq)
+                err = fa.out_errors(got, fa.paged_tiles_plain(*args, **kw, sq=sq), cfg,
+                                    float(vf.abs().max()))
+                hold(entry, (kind, cache_dtype), cfg, got, err, kv=cache_dtype, sq=sq or 1,
+                     page_size=PAGE)
+        del k, v, sc
+        torch.cuda.synchronize()
+    return errors
+
+
+@contextlib.contextmanager
+def _flash_shapes(fa):
+    """Tally every flash-forward launch by (query rows, keys) as the kernel
+    gets them (padded to the blocks) while inside: wraps the CUDA wrapper,
+    whose own count (``fa.LAUNCHES``) stays the record."""
+    import collections
+    tally = collections.Counter()
+    orig = fa._flash_fwd_cuda
+
+    def call(q3, k3, *args, **kw):
+        out = orig(q3, k3, *args, **kw)
+        tally[(q3.shape[1], k3.shape[1])] += 1
+        return out
+    fa._flash_fwd_cuda = call
+    try:
+        yield tally
+    finally:
+        fa._flash_fwd_cuda = orig
+
+
+def _whisper_inputs(torch, cfg, batch, seq, seed):
+    """Prompt tokens (batch, seq) and frames (batch, 1500, 80) from ``seed``."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    frames = torch.randn(batch, cfg.frontend_len, cfg.frontend_dim, generator=gen, device=DEV)
+    return tokens, frames
+
+
+def encdec_serve_part(torch, cfg, params):
+    """Greedy ``generate`` of whisper-medium at its published size: B x
+    ENC_PROMPT tokens after B x 1500 frames, NEW new tokens, kernel mode,
+    under the config's sequential prefill (the encoder, then one decode
+    step a prompt token) and under ``parallel_prefill``, each over fp2fx8
+    and float32 caches.  Exact launches per generate: sequential, kernel 3
+    E + L x ENC_PROMPT + L x (NEW - 1) (the encoder and each step's
+    cross-attention at Sq = 1) and kernel 6 L x (ENC_PROMPT + NEW - 1);
+    parallel, kernel 3 E + 2 L + L x (NEW - 1), kernel 6 L x (NEW - 1).
+    Encoder ms (3 calls), prefill ms (the prompt inside the main run),
+    decode ms a token, tokens/s, peak memory.
+    Returns {(prefill, cache): (launches, flash launches by shape)}."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec as ed
+    from repro_torch.serve.engine import generate
+
+    E, L = cfg.enc_layers, cfg.n_layers
+    tokens, frames = _whisper_inputs(torch, cfg, B, ENC_PROMPT, SEED + 1)
+    batch = {"tokens": tokens, "frames": frames}
+    out_of, launches = {}, {}
+    seen, orig = {}, ed.prefill
+
+    def prefill(*args, **kw):                          # generate's prompt, timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        torch.cuda.synchronize()
+        seen.update(ms=(time.perf_counter() - t0) * 1e3,
+                    launches={**fa.LAUNCHES, **hs.LAUNCHES})
+        return out
+    for prefill_kind in ("sequential", "parallel"):
+        model = build_model(cfg.with_(parallel_prefill=prefill_kind == "parallel",
+                                      attn_mode="kernel"))
+        for cache_dtype in ("fp2fx8", "float32"):
+            scfg = ServeConfig(max_len=ENC_PROMPT + NEW + 1, cache_dtype=cache_dtype,
+                               attn_mode="kernel")
+            run = lambda n: generate(model, params, batch, scfg, max_new=n,  # noqa: E731
+                                     device=DEV)
+            if not out_of:
+                _timed(torch, lambda: run(2))          # warm-up
+                model.encode(params, frames)
+            _, t_enc = _timed(torch, lambda: [model.encode(params, frames) for _ in range(3)])
+            t_enc /= 3
+            torch.cuda.reset_peak_memory_stats()
+            _zero(fa.LAUNCHES, hs.LAUNCHES)            # the main path's run
+            ed.prefill = prefill
+            try:
+                with _flash_shapes(fa) as shapes:
+                    out, t_all = _timed(torch, lambda: run(NEW))
+            finally:
+                ed.prefill = orig
+            got = {**fa.LAUNCHES, **hs.LAUNCHES}
+            prompt = seen["launches"]
+            if prefill_kind == "sequential":
+                want = _want(fa, hs, hyft_flash_fwd=E + L * ENC_PROMPT + L * (NEW - 1),
+                             hyft_splitk_decode=L * (ENC_PROMPT + NEW - 1))
+                want_prompt = _want(fa, hs, hyft_flash_fwd=E + L * ENC_PROMPT,
+                                    hyft_splitk_decode=L * ENC_PROMPT)
+            else:
+                want = _want(fa, hs, hyft_flash_fwd=E + 2 * L + L * (NEW - 1),
+                             hyft_splitk_decode=L * (NEW - 1))
+                want_prompt = _want(fa, hs, hyft_flash_fwd=E + 2 * L)
+            t_decode = t_all - seen["ms"] / 1e3
+            emit({"phase": "encdec", "part": "generate", "arch": cfg.name,
+                  "prefill": prefill_kind, "cache": cache_dtype, "launches": got,
+                  "expected": want, "launches_prompt": prompt,
+                  "flash_launches_by_shape": {f"{a}x{b}": n for (a, b), n in shapes.items()},
+                  "encoder_ms": t_enc * 1e3, "prefill_ms": seen["ms"],
+                  "decode_ms_per_token": t_decode / (NEW - 1) * 1e3,
+                  "decode_tokens_per_s": B * (NEW - 1) / t_decode, "generate_ms": t_all * 1e3,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated()})
+            assert prompt == want_prompt, f"whisper {prefill_kind} prompt launches {prompt}"
+            assert got == want, f"whisper {prefill_kind} generate launches {got} != {want}"
+            assert out.shape == (B, NEW) and bool(((out >= 0) & (out < cfg.vocab)).all())
+            launches[(prefill_kind, cache_dtype)] = (got, dict(shapes))
+            out_of[(prefill_kind, cache_dtype)] = out
+    ref = out_of[("sequential", "float32")]
+    emit({"phase": "encdec", "part": "generate", "token_agreement_vs_sequential_float32": {
+        f"{p},{c}": float((o == ref).float().mean()) for (p, c), o in out_of.items()}})
+    encdec_profile_part(torch, cfg, params, tokens, frames)
+    return launches
+
+
+def encdec_profile_part(torch, cfg, params, tokens, frames):
+    """Where a whisper decode step's time goes: torch.profiler over 3 decode
+    steps after the parallel prefill (fp2fx8, kernel mode; ``_window``), and
+    the share of a step that the cross-attention's K/V projections of the
+    memory take (recomputed every step, as in the JAX package): CUDA-event
+    time of those 2 L bf16 GEMMs (with the keys' RoPE), as each step runs
+    them, over the step's unprofiled time."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import _layers
+
+    model = build_model(cfg.with_(parallel_prefill=True, attn_mode="kernel"))
+    cache = model.init_cache(params, B, ENC_PROMPT + 8, "fp2fx8", device=DEV)
+    model.prefill(params, cache, {"tokens": tokens, "frames": frames})
+
+    def steps(n=3):
+        for i in range(n):
+            model.decode_step(params, cache, tokens[:, i:i + 1], ENC_PROMPT + i)
+    decode = _window(torch, steps)
+    _, t_steps = _timed(torch, steps)
+    memory = cache["memory"].to(cfg.cdtype)
+    h = torch.zeros(B, 1, cfg.d_model, dtype=cfg.cdtype, device=DEV)
+    pos = torch.zeros(B, 1, dtype=torch.int32, device=DEV)
+    mem_pos = torch.arange(memory.shape[1], dtype=torch.int32, device=DEV).expand(B, -1)
+    layers = _layers(params["dec_blocks"], cfg.n_layers)
+
+    def cross_kv(i):
+        for lp in layers:
+            attn.qkv_proj(lp["cross"], h, memory, cfg, pos, mem_pos)
+    cross_ms = _event_ms(torch, cross_kv, 10)
+    step_ms = t_steps / 3 * 1e3
+    del cache
+    emit({"phase": "profile", "arch": cfg.name, "cache": "fp2fx8", "attn_mode": "kernel",
+          "3_decode_steps": decode, "launches_per_decode_step": decode["launches"] / 3,
+          "decode_step_ms": step_ms, "cross_kv_ms_per_step": cross_ms,
+          "cross_kv_share_of_step": cross_ms / step_ms})
+
+
+def encdec_pool_part(torch, cfg, params):
+    """whisper-medium's continuous cell: ``SlotPoolEngine`` over a dense fp2fx8
+    pool of ENC_POOL_SLOTS slots, ENC_POOL_REQ requests with frames at once,
+    prompts in chunks of ENC_POOL_CHUNK (one gated decode step a lane),
+    bursts of BURST.  Each admitted group is encoded once (kernel 3 once a
+    encoder layer) and each ``decode_step`` call launches kernels 6 and 3
+    once a decoder layer; nothing else runs.  TTFT and TBT p50 / p99,
+    tokens/s.  Returns the run's launches."""
+    import numpy as np
+    from repro_torch.configs import ServeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec as ed
+    from repro_torch.serve.scheduler import Request, SlotPoolEngine
+
+    rng = np.random.default_rng(SEED + 3)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab, int(rng.integers(
+                        ENC_POOL_PROMPT[0], ENC_POOL_PROMPT[1] + 1))).astype(np.int32),
+                    max_new=int(rng.integers(ENC_POOL_NEW[0], ENC_POOL_NEW[1] + 1)),
+                    frames=rng.standard_normal((cfg.frontend_len, cfg.frontend_dim),
+                                               dtype=np.float32))
+            for i in range(ENC_POOL_REQ)]
+    scfg = ServeConfig(scheduler="continuous", kv_layout="dense", n_slots=ENC_POOL_SLOTS,
+                       max_len=ENC_POOL_PROMPT[1] + ENC_POOL_NEW[1] + 1,
+                       prefill_chunk=ENC_POOL_CHUNK, decode_burst=BURST, attn_mode="kernel",
+                       cache_dtype="fp2fx8", audit=True)
+    eng = SlotPoolEngine(build_model(cfg), params, scfg, device=DEV)
+    calls = {"decode_step": 0, "encode": 0}
+    orig = ed.decode_step, ed.encode
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return call
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fa.LAUNCHES, hs.LAUNCHES)                    # the main path's run
+    ed.decode_step, ed.encode = counted("decode_step", orig[0]), counted("encode", orig[1])
+    try:
+        done, wall = _timed(torch, lambda: eng.run(reqs))
+    finally:
+        ed.decode_step, ed.encode = orig
+    got = {**fa.LAUNCHES, **hs.LAUNCHES}
+    want = _want(fa, hs, hyft_flash_fwd=cfg.n_layers * calls["decode_step"]
+                 + cfg.enc_layers * calls["encode"],
+                 hyft_splitk_decode=cfg.n_layers * calls["decode_step"])
+    st = eng.stats
+    ttft = [c.ttft for c in done.values()]
+    tbt = [t for c in done.values() for t in _tbt(c)]
+    n_tok = sum(len(c.tokens) for c in done.values())
+    emit({"phase": "encdec", "part": "continuous", "arch": cfg.name, "cache": "fp2fx8",
+          "slots": ENC_POOL_SLOTS, "requests": ENC_POOL_REQ, "prefill_chunk": ENC_POOL_CHUNK,
+          "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+          "ttft_p50_s": _pct(ttft, 0.5), "ttft_p99_s": _pct(ttft, 0.99),
+          "tbt_p50_s": _pct(tbt, 0.5), "tbt_p99_s": _pct(tbt, 0.99),
+          "decode_step_calls": calls["decode_step"], "encoder_calls": calls["encode"],
+          "launches": got, "expected": want,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(), "stats": st})
+    assert got == want, f"whisper continuous launches {got} != {want}"
+    assert 1 <= calls["encode"] <= ENC_POOL_REQ
+    assert sorted(done) == [r.rid for r in reqs], "a request has no outcome"
+    for r in reqs:
+        c = done[r.rid]
+        assert c.ok, f"request {r.rid}: {c.failure}"
+        assert len(c.tokens) == r.max_new and all(0 <= t < cfg.vocab for t in c.tokens)
+    return got
+
+
+def encdec_parity_part(torch, published):
+    """fp32 compute and HYFT32 at whisper-medium's full size (24 + 24
+    layers), B x ENC_PROMPT prompts after 1500 frames through the parallel
+    prefill, the parity step (position ENC_PROMPT) and ENC_GREEDY - 1 greedy
+    steps:
+      * kernel mode against the unfused mode: each prompt's last position
+        and the parity step within PARITY_BOUND of the std; every prompt
+        position by band of POS_BANDS (``decode_train``), printed;
+      * kernel mode with kernels 3 and 6 swapped for their plain versions:
+        every greedy token equal, the logits within HYBRID_PLAIN_GAP of the
+        std."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.models import build_model, transformer
+    from repro_torch.models import encdec as ed
+
+    pcfg = published.with_(param_dtype="float32", compute_dtype="float32",
+                           softmax_impl="hyft32", parallel_prefill=True)
+    E, L = pcfg.enc_layers, pcfg.n_layers
+    params = build_model(pcfg).init(SEED, device=DEV)
+    tokens, frames = _whisper_inputs(torch, pcfg, B, ENC_PROMPT, SEED + 2)
+    kmodel = build_model(pcfg.with_(attn_mode="kernel"))
+    umodel = build_model(pcfg.with_(attn_mode="unfused"))
+
+    def run(model):
+        cache = model.init_cache(params, B, ENC_PROMPT + ENC_GREEDY + 1, "float32", device=DEV)
+        lp, cache, _ = model.prefill(params, cache, {"tokens": tokens, "frames": frames})
+        ld, cache = model.decode_step(params, cache, tokens[:, :1], ENC_PROMPT)
+        toks = [ld[:, -1].argmax(-1)]
+        for i in range(ENC_GREEDY - 1):
+            lg, cache = model.decode_step(params, cache, toks[-1][:, None].int(),
+                                          ENC_PROMPT + 1 + i)
+            toks.append(lg[:, -1].argmax(-1))
+        return lp[:, -1], ld[:, -1], torch.stack(toks, 1)
+
+    _zero(fa.LAUNCHES, hs.LAUNCHES)
+    kern = run(kmodel)
+    got = {**fa.LAUNCHES, **hs.LAUNCHES}
+    want = _want(fa, hs, hyft_flash_fwd=E + 2 * L + L * ENC_GREEDY,
+                 hyft_splitk_decode=L * ENC_GREEDY)
+    assert got == want, f"whisper parity launches {got} != {want}"
+    _zero(fa.LAUNCHES, hs.LAUNCHES)
+    unf = run(umodel)
+    assert not any({**fa.LAUNCHES, **hs.LAUNCHES}.values()), "the unfused mode launched"
+    with _flash_as(fa, fa._flash_fwd_plain, fa._flash_bwd_dq_plain, fa._flash_bwd_dkv_plain), \
+            _splitk_plain(fa):
+        _zero(fa.LAUNCHES, hs.LAUNCHES)
+        plain = run(kmodel)
+        assert not any({**fa.LAUNCHES, **hs.LAUNCHES}.values()), "a kernel ran in the plain run"
+    for x in kern + unf + plain:
+        assert torch.isfinite(x.float()).all()
+    res = {"phase": "encdec", "part": "parity", "arch": pcfg.name, "layers": [E, L],
+           "compute": "float32", "softmax": "hyft32", "bound": PARITY_BOUND,
+           "plain_bound": HYBRID_PLAIN_GAP}
+    for i, name in enumerate(("prefill", "decode")):
+        a, b, p = kern[i], unf[i], plain[i]
+        res[f"{name}_maxdiff_over_std"] = float((a - b).abs().max() / b.std())
+        res[f"{name}_argmax_agreement"] = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        res[f"{name}_plain_maxdiff_over_std"] = float((a - p).abs().max() / p.std())
+    res["greedy_tokens_equal_plain"] = bool(torch.equal(kern[2], plain[2]))
+    res["greedy_token_agreement_unfused"] = float((kern[2] == unf[2]).float().mean())
+    full = {}
+    for mode, model in (("kernel", kmodel), ("unfused", umodel)):
+        mem = ed.encode(params, frames, model.cfg, remat="none")
+        hidden = ed.decode_train(params, tokens, mem, model.cfg, remat="none")
+        full[mode] = transformer.logits_fn(params, hidden, model.cfg)
+        del mem, hidden
+    res["prefill_by_position"] = _band_max((full["kernel"] - full["unfused"]).abs().amax(-1),
+                                           float(full["unfused"].std()))
+    del full, params
+    emit(res)
+    assert res["prefill_maxdiff_over_std"] <= PARITY_BOUND, "whisper parity: prefill"
+    assert res["decode_maxdiff_over_std"] <= PARITY_BOUND, "whisper parity: decode"
+    assert res["greedy_tokens_equal_plain"], "whisper: plain versions' greedy tokens differ"
+    assert res["prefill_plain_maxdiff_over_std"] <= HYBRID_PLAIN_GAP, "whisper plain: prefill"
+    assert res["decode_plain_maxdiff_over_std"] <= HYBRID_PLAIN_GAP, "whisper plain: decode"
+
+
+def _train_cell(torch, arch, model, batch_fn, steps, want, tokens_per_step):
+    """One warm-up and ``steps`` timed AdamW steps (lr 1e-3, remat "full",
+    kernel mode) of ``model`` from the seed on ``batch_fn(i)``, each with
+    exactly ``want`` launches; the mean step ms and peak memory."""
+    from repro_torch import optim
+    from repro_torch.configs import TrainConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import build_train_step
+
+    tcfg = TrainConfig(lr=1e-3, remat="full", total_steps=steps + 2, optimizer="adamw",
+                       attn_mode="kernel")
+    ocfg = optim.OptConfig(name="adamw", lr=1e-3)
+    state = init_state(model, ocfg, SEED, device=DEV)
+    step = build_train_step(model, tcfg, ocfg)
+    torch.cuda.reset_peak_memory_stats()
+    timed = []
+    for i in range(1 + steps):
+        batch = batch_fn(i)
+        _zero(fa.LAUNCHES, hs.LAUNCHES)                # the main path's run
+        (state, metrics), dt = _timed(torch, lambda: step(state, batch))
+        got = {**fa.LAUNCHES, **hs.LAUNCHES}
+        rec = {"phase": arch, "part": "train", "step": i, "warmup": i == 0, "ms": dt * 1e3,
+               "tokens_per_s": tokens_per_step / dt, "loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]), "launches": got}
+        emit(rec)
+        assert got == want, f"{arch} train launch counts {got} != {want}"
+        assert math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])
+        if i:
+            timed.append(rec["ms"])
+    step_ms = sum(timed) / len(timed)
+    emit({"phase": arch, "part": "train", "arch": model.cfg.name, "timed_steps": len(timed),
+          "tokens_per_step": tokens_per_step, "mean_step_ms": step_ms,
+          "tokens_per_s": tokens_per_step / step_ms * 1e3,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches_per_step": want})
+    del state, step
+    torch.cuda.empty_cache()
+
+
+def _train_parity(torch, arch, model, params, batch, want, bidirectional=False):
+    """fp32 loss and gradients of ``model`` on ``batch`` in kernel mode:
+    the loss against the unfused mode's and the gradients over all leaves
+    against a reference's, both within TRAIN_PARITY_BOUND; every leaf within
+    HYBRID_LEAF_GAP of kernel mode through the flash kernels' plain
+    versions.  The gradients' reference is the unfused mode's, or for a
+    ``bidirectional`` model the unfused mode's with the exact softmax
+    (autograd's exact VJP, the formula the kernels' backward applies to
+    Hyft probabilities), as bert's parity holds them: there the Hyft
+    softmax's own VJP gives other gradients by design, in the JAX package
+    too (ROADMAP, queue 3), and the gap to it is printed."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.models import build_model
+    from repro_torch.train.step import grads_of, make_loss_fn
+    from repro_torch.tree import tree_leaves
+
+    names = _leaf_names(params)
+    runs = [("kernel", model), ("unfused", model), ("plain", model)]
+    if bidirectional:
+        runs.append(("exact", build_model(model.cfg.with_(softmax_impl="exact"))))
+    res = {}
+    for mode, m in runs:
+        ctx = (_flash_as(fa, fa._flash_fwd_plain, fa._flash_bwd_dq_plain,
+                         fa._flash_bwd_dkv_plain) if mode == "plain" else contextlib.nullcontext())
+        with ctx:
+            _zero(fa.LAUNCHES, hs.LAUNCHES)
+            loss, _, grads = grads_of(make_loss_fn(m, TrainConfig(
+                attn_mode="kernel" if mode in ("kernel", "plain") else "unfused")), params, batch)
+            res[mode] = (float(loss), tree_leaves(grads), {**fa.LAUNCHES, **hs.LAUNCHES})
+    (lk, gk, nk), (lu, gu, _), (lp, gp, _) = res["kernel"], res["unfused"], res["plain"]
+
+    def gap(ref):
+        d2 = sum(float(((a - b) ** 2).sum()) for a, b in zip(gk, ref))
+        return (d2 / sum(float((b ** 2).sum()) for b in ref)) ** 0.5
+    leaf_plain = [float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(gk, gp)]
+    worst = max(range(len(names)), key=lambda i: leaf_plain[i])
+    ref = "exact" if bidirectional else "unfused"
+    out = {"phase": arch, "part": "train_parity", "arch": model.cfg.name, "loss_kernel": lk,
+           "loss_unfused": lu, "loss_gap": abs(lk - lu) / abs(lu), "grad_gap": gap(gu),
+           "grad_reference": ref, "grad_gap_gated": gap(res[ref][1]),
+           "loss_gap_plain": abs(lk - lp) / abs(lp),
+           "leaf_gap_plain_worst": [leaf_plain[worst], names[worst]],
+           "launches_kernel": nk, "bound": TRAIN_PARITY_BOUND, "leaf_bound": HYBRID_LEAF_GAP}
+    emit(out)
+    assert nk == want, f"{arch} train parity launches {nk} != {want}"
+    assert all(not any(r[2].values()) for k, r in res.items() if k != "kernel"), \
+        f"{arch} train parity: a kernel ran outside kernel mode"
+    assert math.isfinite(lk) and math.isfinite(lu)
+    assert out["loss_gap"] <= TRAIN_PARITY_BOUND["loss"], f"{arch} train parity: loss"
+    assert out["grad_gap_gated"] <= TRAIN_PARITY_BOUND["grad"], f"{arch} train parity: gradients"
+    assert leaf_plain[worst] <= HYBRID_LEAF_GAP, f"{arch}: a leaf off the plain versions'"
+
+
+def encdec_train_part(torch, published):
+    """whisper-medium's training cell at ENC_TRAIN_LAYERS + ENC_TRAIN_LAYERS
+    layers, full width, bf16 compute, fp32 params, hyft16: ENC_TRAIN_B x
+    ENC_TRAIN_S text tokens of ``lm_batch`` after 1500 frames a sequence;
+    each step launches the flash forward 2 x (E + 2 L) times (the encoder,
+    the decoder's self- and cross-attention, twice under remat "full") and
+    dq and dk/dv E + 2 L times.  Then its parity at fp32 and HYFT32 on one
+    sequence (``_train_parity``; the encoder is bidirectional, so the
+    gradients are held to the exact softmax's, as bert's).  Returns one
+    step's launches."""
+    from repro_torch.data.synthetic import DataConfig, lm_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.models import build_model
+
+    cfg = published.with_(n_layers=ENC_TRAIN_LAYERS, enc_layers=ENC_TRAIN_LAYERS,
+                          softmax_impl="hyft16")
+    n = cfg.enc_layers + 2 * cfg.n_layers
+    want = _want(fa, hs, hyft_flash_fwd=2 * n, hyft_flash_bwd_dq=n, hyft_flash_bwd_dkv=n)
+
+    def batch_fn(i, batch=ENC_TRAIN_B, c=cfg):
+        b = lm_batch(DataConfig(vocab=c.vocab, seq_len=ENC_TRAIN_S, global_batch=batch,
+                                seed=SEED), i, device=DEV)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 100 + i)
+        b["frames"] = torch.randn(batch, c.frontend_len, c.frontend_dim, generator=gen,
+                                  device=DEV)
+        return b
+    _train_cell(torch, "encdec", build_model(cfg), batch_fn, ENC_TRAIN_STEPS, want,
+                ENC_TRAIN_B * ENC_TRAIN_S)
+    pcfg = cfg.with_(compute_dtype="float32", softmax_impl="hyft32")
+    model = build_model(pcfg)
+    params = model.init(SEED, device=DEV)
+    _train_parity(torch, "encdec", model, params, batch_fn(0, 1, pcfg), want,
+                  bidirectional=True)
+    del params
+    torch.cuda.empty_cache()
+    return want
+
+
+def encdec_phase(torch):
+    """whisper-medium at its published size (configs/whisper_medium.py: 24
+    encoder and 24 decoder layers, d_model 1024, 16 / 16 heads of 64, d_ff
+    4096, GELU, LayerNorm, vocab 51865, tied; 1500 frames of 80 through the
+    stub frontend's projection; fp32 params, bf16 compute), random weights
+    and frames from the seed, hyft16, kernel mode: ``encdec_serve_part``,
+    ``encdec_pool_part``, ``encdec_parity_part`` (fp32),
+    ``encdec_train_part``.  Returns the launches for the kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    published = get_config(ENCDEC_ARCH)
+    assert published.frontend_len == ENC_FRAMES
+    cfg = published.with_(softmax_impl="hyft16")
+    params = build_model(cfg).init(SEED, device=DEV)
+    emit({"phase": "init", "arch": cfg.name, "layers": [cfg.enc_layers, cfg.n_layers],
+          "params": sum(t.numel() for t in _leaves(params)),
+          "bytes": sum(t.numel() * t.element_size() for t in _leaves(params))})
+    launches = {"generate": encdec_serve_part(torch, cfg, params),
+                "continuous": encdec_pool_part(torch, cfg, params)}
+    del params
+    torch.cuda.empty_cache()
+    encdec_parity_part(torch, published)
+    torch.cuda.empty_cache()
+    launches["train"] = encdec_train_part(torch, published)
+    return launches
+
+
+def vlm_phase(torch):
+    """internvl2-1b at its published size (configs/internvl2_1b.py: 24
+    layers, d_model 896, 14 / 2 heads of 64 (a GQA group of 7) with QKV
+    bias, gated MLP of 4864, vocab 151655, tied; 256 patches of 1024
+    through ``frontend_proj``; fp32 params, bf16 compute), random weights
+    from the seed, hyft16, kernel mode, served text-only as the JAX package
+    serves it: ``serve_phase`` (generate at B x 1024, 32 new tokens, per
+    cache: kernel 8 once a layer, kernel 6 once a layer a step), the
+    continuous cell of ``continuous_serve_phase`` over VLM_POOL_REQ of the
+    chat requests (kernels 7 and 9), ``parity_phase`` (fp32, HYFT32); then
+    training at 24 layers on B x (VLM_PATCHES patches + VLM_TEXT tokens),
+    the loss on the text (forward 2 L, dq L, dk/dv L launches a step), and
+    the training parity on one sequence at VLM_PARITY_LAYERS layers.
+    Returns the launches for the kernels line."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig, lm_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.models import build_model
+
+    published = get_config(VLM_ARCH)
+    cfg = published.with_(softmax_impl="hyft16")
+    params = build_model(cfg).init(SEED, device=DEV)
+    emit({"phase": "init", "arch": cfg.name, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "params": sum(t.numel() for t in _leaves(params)),
+          "bytes": sum(t.numel() * t.element_size() for t in _leaves(params))})
+    launches = {"generate": serve_phase(torch, params, cfg)}
+    reqs = _chat_requests(np, cfg.vocab)[:VLM_POOL_REQ]
+    rec, _ = _serve_run(torch, build_model(cfg), params, _serve_config(cache_dtype="fp2fx8"),
+                        reqs, cfg)
+    emit({"phase": "vlm", "part": "continuous", "arch": cfg.name, "requests": len(reqs), **rec})
+    launches["continuous"] = rec["launches"]
+    parity_phase(torch, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+
+    L = cfg.n_layers
+    want = _want(fa, hs, hyft_flash_fwd=2 * L, hyft_flash_bwd_dq=L, hyft_flash_bwd_dkv=L)
+
+    def batch_fn(i, batch=B, c=cfg):
+        b = lm_batch(DataConfig(vocab=c.vocab, seq_len=VLM_TEXT, global_batch=batch,
+                                seed=SEED), i, device=DEV)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 200 + i)
+        b["embeds"] = torch.randn(batch, VLM_PATCHES, c.frontend_dim, generator=gen,
+                                  device=DEV)
+        return b
+    _train_cell(torch, "vlm", build_model(cfg), batch_fn, 2, want, B * (VLM_PATCHES + VLM_TEXT))
+    pcfg = cfg.with_(n_layers=VLM_PARITY_LAYERS, compute_dtype="float32",
+                     softmax_impl="hyft32")
+    model = build_model(pcfg)
+    params = model.init(SEED, device=DEV)
+    n = VLM_PARITY_LAYERS
+    _train_parity(torch, "vlm", model, params, batch_fn(0, 1, pcfg),
+                  _want(fa, hs, hyft_flash_fwd=2 * n, hyft_flash_bwd_dq=n, hyft_flash_bwd_dkv=n))
+    del params
+    torch.cuda.empty_cache()
+    launches["train"] = want
+    return launches
+
+
+def families_kernels_phase(torch, errors, enc, vlm):
+    """The kernels line's rows at this slice's shapes, HYFT16: whisper's
+    kernel 3 at the encoder's B x 1500 x 1500, the parallel prefill's
+    cross-attention (ENC_PROMPT x 1500) and the decode step's (1 x 1500),
+    each with its launches in a generate; kernels 3-5 at the training
+    step's encoder (1500 x 1500), cross-attention (448 x 1500) and causal
+    self-attention (448), batch ENC_TRAIN_B; kernel 6 at the decode step's
+    self-attention over ENC_PROMPT + NEW - 1 keys; internvl2-1b's kernels 6
+    and 8 (``kernels_phase``), 7 and 9 (``paged_kernels_phase``) at 14 / 2
+    heads of 64, and 3-5 at its training step (B x 1024, causal)."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    ecfg = get_config(ENCDEC_ARCH)
+    hq, hkv, d = ecfg.n_heads, ecfg.n_kv_heads, ecfg.d_head
+    seq_launches, seq_shapes = enc["generate"][("sequential", "fp2fx8")]
+    _, par_shapes = enc["generate"][("parallel", "fp2fx8")]
+    pad = -(-ENC_FRAMES // 128) * 128                 # the keys as the kernel gets them
+    rows = []
+    for case, sq, runs, what in (
+            ("encoder", ENC_FRAMES, seq_shapes, "per generate (the encoder; either prefill)"),
+            ("cross_prefill", ENC_PROMPT, par_shapes,
+             "per generate under parallel_prefill (the sequential prefill: 0)"),
+            ("cross_decode", 1, seq_shapes,
+             "per generate, sequential prefill (each prompt token and each new one)")):
+        key = (pad if sq == ENC_FRAMES else sq, pad)
+        for row in _flash_rows(torch, gen, torch.bfloat16, B, hq, hkv, sq, d, False, errors,
+                               {"hyft_flash_fwd": runs.get(key, 0)},
+                               f"[{ENCDEC_ARCH},{case},bf16,d{d}]", f"[{ENCDEC_ARCH},{case}]",
+                               sk=ENC_FRAMES, fwd_only=True):
+            row.update(launches_are=what, launches_by_phase={
+                "encdec_sequential": seq_shapes.get(key, 0),
+                "encdec_parallel": par_shapes.get(key, 0)})
+            rows.append(row)
+    n = ENC_TRAIN_LAYERS                              # encoder and decoder layers alike
+    per_case = {"hyft_flash_fwd": 2 * n, "hyft_flash_bwd_dq": n, "hyft_flash_bwd_dkv": n}
+    for case, sq, sk, causal in (("encoder", ENC_FRAMES, ENC_FRAMES, False),
+                                 ("cross_train", ENC_TRAIN_S, ENC_FRAMES, False),
+                                 ("self_train", ENC_TRAIN_S, None, True)):
+        for row in _flash_rows(torch, gen, torch.bfloat16, ENC_TRAIN_B, hq, hkv, sq, d, causal,
+                               errors, per_case, f"[{ENCDEC_ARCH},{case},train,bf16,d{d}]",
+                               f"[{ENCDEC_ARCH},{case}]", sk=sk):
+            row.update(launches_are=f"per training step ({n} + {n} layers)")
+            rows.append(row)
+    rows += _encdec_decode_rows(torch, gen, ecfg, seq_launches["hyft_splitk_decode"])
+    vcfg = get_config(VLM_ARCH)
+    heads = (vcfg.n_heads, vcfg.n_kv_heads, vcfg.d_head)
+    rows += kernels_phase(torch, errors, vlm["generate"], heads, vcfg.n_layers, VLM_ARCH)
+    paged = {c: vlm["continuous"] for c in ("fp2fx8", "float32")}
+    for row in paged_kernels_phase(torch, errors, paged, heads, vcfg.n_layers, VLM_ARCH):
+        if "float32" in row["name"]:
+            row.update(launches=0, launches_are="the continuous cell runs fp2fx8 alone")
+        rows.append(row)
+    for row in _flash_rows(torch, gen, torch.float32, B, *heads[:2], SEQ, heads[2], True,
+                           errors, vlm["train"], f"[{VLM_ARCH},train,f32,d{heads[2]}]",
+                           f"[{VLM_ARCH},train]"):
+        row.update(launches_are="per training step (24 layers)", heads=list(heads[:2]))
+        rows.append(row)
+    return rows
+
+
+def _encdec_decode_rows(torch, gen, cfg, launches):
+    """Kernel 6 at whisper's decode step: B x 16 heads over the self cache of
+    ENC_PROMPT + NEW - 1 live keys (of ENC_PROMPT + NEW + 1), fp2fx8,
+    rotating over one cache a decoder layer."""
+    from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import flash_attention as fa
+
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    total, live = ENC_PROMPT + NEW + 1, ENC_PROMPT + NEW - 1
+    BH = B * hkv
+    mask = (torch.arange(total, device=DEV)[None] < live).float().expand(B, total).contiguous()
+    bk = fa._block_k(total, 256)
+    bufs = [_cache_kv(torch, gen, "fp2fx8", (BH, total, d)) for _ in range(cfg.n_layers)]
+    q3 = torch.randn(BH, hq // hkv, d, generator=gen, device=DEV)
+    k, v, sc, vf = bufs[0]
+    flat = (k, v, sc["k_scale"], sc["v_scale"])
+    kw = dict(cfg=HYFT16, sm_scale=d ** -0.5, bk=bk, hkv=hkv, sq=None)
+    err = fa.out_errors(fa._splitk_attention_cuda(q3, *flat, mask, **kw),
+                        fa.splitk_tiles_plain(q3, *flat, mask, **kw), HYFT16,
+                        float(vf.abs().max()))
+    assert err["out"] <= 1, "whisper decode disagrees with its plain version"
+
+    def call(attend):
+        def fn(i):
+            k, v, sc, _ = bufs[i % len(bufs)]
+            return attend(q3, k, v, sc["k_scale"], sc["v_scale"], mask, **kw)
+        return fn
+    event_ms = _event_ms(torch, call(fa._splitk_attention_cuda), 200)
+    timing = _kernel_ms(torch, call(fa._splitk_attention_cuda), 200, "decode_kernel", event_ms)
+    plain_ms = _event_ms(torch, call(fa.splitk_attention_plain), 20)
+    nbytes = (2 * BH * hq // hkv * d * 4 + 2 * BH * live * d + 2 * BH * live * 4
+              + mask.numel() * 4)
+    flops = 4 * d * B * hq * live
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    del bufs
+    return [{"name": f"hyft_splitk_decode[{ENCDEC_ARCH},fp2fx8,d{d}]", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/hyft_splitk.cu",
+             "instantiated_in": f"src/repro_torch/kernels/csrc/hyft_attend_d{d}.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:541",
+             "tpu_kernel": "_decode_fwd_kernel", "heads": [hq, hkv], "keys": live,
+             "launches": launches,
+             "launches_are": "per generate, sequential prefill (95 steps x 24 layers)",
+             "max_abs_err": err["max_abs_err"], **timing, "kernel_ms": event_ms,
+             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "bytes": nbytes, "flops": flops, "library_ms": None}]
+
+
 def main():
     import torch
 
@@ -4223,6 +5060,7 @@ def main():
     flash_errs = flash_check_phase(torch)
     paged_errs = paged_check_phase(torch)
     width_errs = widths_check_phase(torch)
+    family_errs = families_check_phase(torch)
     softmax_errs = softmax_check_phase(torch)
 
     from repro_torch.configs import get_config
@@ -4264,13 +5102,18 @@ def main():
     torch.cuda.empty_cache()
     ssm_phase(torch)
     torch.cuda.empty_cache()
+    encdec_launches = encdec_phase(torch)
+    torch.cuda.empty_cache()
+    vlm_launches = vlm_phase(torch)
+    torch.cuda.empty_cache()
     emit({"kernels": kernels_phase(torch, errors, launches)
           + paged_kernels_phase(torch, paged_errs, paged_launches)
           + flash_kernels_phase(torch, flash_errs, train_launches, bert_launches)
           + softmax_kernels_phase(torch, softmax_errs, unfused_launches,
                                   unfused_train_launches, moe_launches)
           + widths_kernels_phase(torch, width_errs, flash_errs, spec)
-          + hybrid_kernels_phase(torch, hybrid_errs, hybrid_launches)})
+          + hybrid_kernels_phase(torch, hybrid_errs, hybrid_launches)
+          + families_kernels_phase(torch, family_errs, encdec_launches, vlm_launches)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
 

@@ -5,9 +5,8 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, ServeConfig, TrainConfig  # noqa: F401
 
-# the architectures the port runs so far: the dense, MoE, SSM and hybrid
-# families; encdec and VLM come with the slices that port their families
-# (ROADMAP queue 1, the other families)
+# every architecture of the JAX package: the dense, MoE, SSM, hybrid,
+# encoder-decoder and VLM families
 ARCHS = {
     "mistral-nemo-12b": "mistral_nemo_12b",
     "nemotron-4-340b": "nemotron_4_340b",
@@ -18,6 +17,8 @@ ARCHS = {
     "mamba2-370m": "mamba2_370m",
     "zamba2-7b": "zamba2_7b",
     "bert-base": "bert_base",
+    "whisper-medium": "whisper_medium",
+    "internvl2-1b": "internvl2_1b",
 }
 
 
@@ -25,7 +26,7 @@ def get_config(name: str) -> ModelConfig:
     try:
         mod = importlib.import_module(f"repro_torch.configs.{ARCHS[name]}")
     except KeyError:
-        raise KeyError(f"arch {name!r} is not ported yet; have {sorted(ARCHS)}") from None
+        raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}") from None
     return mod.CONFIG
 
 

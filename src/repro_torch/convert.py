@@ -2,9 +2,11 @@
 
 The JAX package's ``unbox(model.init(key))`` tree, mapped to numpy
 (``jax.tree.map(np.asarray, tree)``), has the same nested keys and shapes as
-the port's parameter tree, with the leading layer axis under ``"blocks"``;
-the cache (``{"blocks": ...}``, and the hybrid's ``"shared_attn"``)
-likewise.  So the bridge is a key-for-key copy.
+the port's parameter tree, with the leading layer axis under ``"blocks"``
+(encdec: ``"enc_blocks"`` and ``"dec_blocks"``; encdec and the VLM also
+``"frontend_proj"``); the cache (``{"blocks": ...}``, the hybrid's
+``"shared_attn"``, encdec's ``{"self": ..., "memory": ...}``) likewise.  So
+the bridge is a key-for-key copy.
 """
 from __future__ import annotations
 

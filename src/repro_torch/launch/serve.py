@@ -29,6 +29,12 @@ over a slot pool (dense or paged KV cache), on the card.
       --softmax hyft16_kernel --scheduler continuous --kv-layout paged \
       --attn-mode kernel --cache-dtype fp2fx8
 
+  # the encoder-decoder (whisper-medium: random frames from --seed, the
+  # encoder once per request) and the VLM (internvl2-1b, text-only serving
+  # as in the JAX package)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
+      --scheduler continuous --attn-mode kernel --cache-dtype fp2fx8
+
   # any of them at smoke size on the CPU (plain PyTorch versions of the
   # kernels)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \
@@ -42,7 +48,10 @@ over a slot pool (dense or paged KV cache), on the card.
       --telemetry --trace /tmp/t.json --metrics-out /tmp/m.jsonl \
       --xla-profile /tmp/prof
 
-Weights are random, made from ``--seed``.  The paged layout, the prefix
+Weights are random, made from ``--seed``; so are encdec's frames (numpy,
+``default_rng(seed + 1)``, one (frontend_len, frontend_dim) draw a request
+or a batch row; the JAX launcher's ``jax.random`` stream is not
+reproduced).  The paged layout, the prefix
 cache, speculative decoding and chunked prefill live in the slot-pool
 scheduler, so those flags route through it under ``--scheduler lockstep``
 too.  ``--xla-profile`` keeps the JAX launcher's name; here it opens a
@@ -203,6 +212,11 @@ def main(argv=None):
     profile_note = (f"# wrote torch.profiler trace {args.xla_profile}/{TRACE_FILE} "
                     "(load in ui.perfetto.dev)")
 
+    frames = None
+    if cfg.family == "encdec":
+        frames = np.random.default_rng(args.seed + 1).standard_normal(
+            (args.batch, cfg.frontend_len, cfg.frontend_dim), dtype=np.float32)
+
     if (args.scheduler in ("continuous", "spec") or args.kv_layout != "dense"
             or args.prefix_cache or args.prefill_chunk > 0):
         rng = np.random.default_rng(args.seed)
@@ -213,6 +227,7 @@ def main(argv=None):
                 rid=rid, tokens=rng.integers(0, cfg.vocab, plen).astype(np.int32),
                 max_new=int(rng.integers(max(1, args.max_new // 2),
                                          args.max_new + 1)),
+                frames=None if frames is None else frames[rid],
                 deadline=args.deadline))
         eng = SlotPoolEngine(model, params, scfg, generator=gen, device=dev, obs=obs)
         if obs is not None:
@@ -259,8 +274,11 @@ def main(argv=None):
 
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prefill),
                            generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens}
+    if frames is not None:
+        batch["frames"] = torch.from_numpy(frames).to(dev)
     with xla_profile(args.xla_profile):
-        out = generate(model, params, {"tokens": tokens}, scfg,
+        out = generate(model, params, batch, scfg,
                        max_new=args.max_new, generator=gen, device=dev,
                        tracer=obs.tracer if obs is not None else None)
     for i, row in enumerate(out.tolist()):

@@ -9,9 +9,10 @@
   decode_step(params, cache, tok, pos)  -> (logits (B, 1, V), cache)
   init_cache(params, batch, max_len, dtype, device=None)
   init_paged_cache(params, n_pages, page_size, dtype, device=None), None
-                                           for the recurrent families
-The dense, MoE, SSM and hybrid families so far (ROADMAP queue 1, the other
-families).
+                                           for the recurrent families and encdec
+  encode(params, frames)                -> encoder memory, encdec only (None
+                                           for the others)
+Every family of the JAX package: dense, MoE, VLM, SSM, hybrid and encdec.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,8 +37,11 @@ class Model:
     decode_step: Callable
     init_cache: Callable
     # the paged serving cache (page pools; the caller adds block tables);
-    # None where the layout does not apply (the recurrent families)
+    # None where the layout does not apply (the recurrent families, encdec)
     init_paged_cache: Optional[Callable]
+    # encdec only: (params, frames) -> encoder memory, which the slot pool's
+    # admission installs into the slot's cache before any prefill_chunk
+    encode: Optional[Callable] = None
 
 
 def resolve_attn_mode(model: Model, attn_mode) -> Model:
@@ -49,15 +53,30 @@ def resolve_attn_mode(model: Model, attn_mode) -> Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in transformer.FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP queue 1, the other families")
+    if cfg.family not in transformer.FAMILIES + ("encdec",):
+        raise ValueError(f"unknown family {cfg.family!r}")
+    mod = encdec if cfg.family == "encdec" else transformer
 
     def init(seed: int = 0, device=None):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return transformer.init(gen, cfg, dev)
+        return mod.init(gen, cfg, dev)
 
+    if cfg.family == "encdec":
+        return Model(
+            cfg=cfg,
+            init=init,
+            loss=lambda p, b, **kw: encdec.loss(p, b, cfg, **kw),
+            prefill=lambda p, c, b: encdec.prefill(p, c, b, cfg),
+            prefill_chunk=lambda p, c, t, start, **kw: encdec.prefill_chunk(
+                p, c, t, start, cfg, **kw),
+            decode_step=lambda p, c, t, pos, **kw: encdec.decode_step(
+                p, c, t, pos, cfg, **kw),
+            init_cache=lambda p, batch, max_len, dtype, device=None:
+                encdec.init_cache(p, cfg, batch, max_len, dtype, resolve_device(device)),
+            init_paged_cache=None,
+            encode=lambda p, frames: encdec.encode(p, frames, cfg, remat="none"),
+        )
     return Model(
         cfg=cfg,
         init=init,

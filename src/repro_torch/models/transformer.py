@@ -1,5 +1,6 @@
-"""Decoder-only LM stack, dense, MoE, SSM and hybrid families: init, the
-training forward and loss, cache, decode step, prefill and chunk prefill.
+"""Decoder-only LM stack, dense, MoE, VLM, SSM and hybrid families: init,
+the training forward and loss, cache, decode step, prefill and chunk
+prefill.
 
 The PyTorch counterpart of ``repro.models.transformer``.  Parameters keep
 the JAX tree — per-layer leaves stacked on a leading layer axis under
@@ -14,6 +15,10 @@ kept; the block's forward runs again in the backward); ``"dots"`` keeps
 the outputs of the products without batch dimensions and recomputes the
 rest, JAX's ``checkpoint_dots_with_no_batch_dims``.  The hybrid's shared
 block is its own remat region after its Mamba2 block's, as JAX wraps it.
+The VLM (internvl2) is the dense stack with ``"frontend_proj"``, which
+projects precomputed patch embeddings to ``d_model``: ``forward`` prepends
+them to the text (``embeds_prefix``) and ``lm_loss`` scores the text
+positions only; serving is text-only, as in the JAX package.
 
 The cache is ``{"blocks": ...}``, stacked the same way and updated in
 place: ``{"k", "v"[, "k_scale", "v_scale"]}`` for the attention families
@@ -24,8 +29,9 @@ on a leading invocation axis, ``(n_invocations, B, Hkv, L, D)``.  The
 recurrent families keep the conv tail in the cache's storage dtype: where
 that differs from the promoted dtype of the decode's conv window (a bf16
 cache under fp32 compute), JAX's functional cache takes the window's
-dtype and the port's in-place one rounds to its own.  The encdec and VLM
-families come with later slices (ROADMAP queue 1, the other families).
+dtype and the port's in-place one rounds to its own.  The encoder-decoder
+family lives in ``models/encdec.py`` and reuses ``_layers``, ``_remat``,
+``_prefill_chunk_scan`` and ``logits_fn``.
 """
 from __future__ import annotations
 
@@ -46,14 +52,14 @@ F32 = torch.float32
 I32 = torch.int32
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")   # the families ported so far
-ATTENTION_FAMILIES = ("dense", "moe")          # of those, the ones with a paged cache
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")   # this module's families
+ATTENTION_FAMILIES = ("dense", "moe", "vlm")          # of those, the ones with a paged cache
 
 
 def _check_family(cfg):
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP queue 1, the other families")
+        raise ValueError(f"family {cfg.family!r} is not a decoder-only family: "
+                         f"have {FAMILIES} (encdec: models/encdec.py)")
 
 
 def _layers(tree, n: int) -> list:
@@ -91,15 +97,13 @@ def _stacked(generator, cfg, n_layers, device):
     return rnd, norm
 
 
-def _block_init(generator, cfg, device, n_layers=None):
-    """An attention block's tree (norms, attention, MLP or experts), its
-    leaves stacked on a leading axis of ``n_layers`` (None: the hybrid's
-    shared block, one parameter set)."""
-    dm, dff = cfg.d_model, cfg.d_ff
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+def attn_init(generator, cfg, device, n_layers=None):
+    """An attention layer's tree (q/k/v/o projections, the biases with
+    ``qkv_bias``), stacked on a leading axis of ``n_layers`` (None: none)."""
+    dm, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     pd = cfg.pdtype
     lead = () if n_layers is None else (n_layers,)
-    rnd, norm = _stacked(generator, cfg, n_layers, device)
+    rnd, _ = _stacked(generator, cfg, n_layers, device)
     a = {"wq": rnd((dm, hq, dh), dm ** -0.5),
          "wk": rnd((dm, hkv, dh), dm ** -0.5),
          "wv": rnd((dm, hkv, dh), dm ** -0.5),
@@ -108,6 +112,17 @@ def _block_init(generator, cfg, device, n_layers=None):
         a["bq"] = torch.zeros(lead + (hq, dh), dtype=pd, device=device)
         a["bk"] = torch.zeros(lead + (hkv, dh), dtype=pd, device=device)
         a["bv"] = torch.zeros(lead + (hkv, dh), dtype=pd, device=device)
+    return a
+
+
+def _block_init(generator, cfg, device, n_layers=None):
+    """An attention block's tree (norms, attention, MLP or experts), its
+    leaves stacked on a leading axis of ``n_layers`` (None: the hybrid's
+    shared block, one parameter set)."""
+    dm, dff = cfg.d_model, cfg.d_ff
+    pd = cfg.pdtype
+    rnd, norm = _stacked(generator, cfg, n_layers, device)
+    a = attn_init(generator, cfg, device, n_layers)
     blocks = {"norms": {"pre_attn": norm(), "pre_mlp": norm()}, "attn": a}
     if cfg.family == "moe":
         blocks["moe"] = moe_mod.moe_init(generator, cfg, pd, device, n_layers=n_layers)
@@ -145,6 +160,8 @@ def init(generator: torch.Generator, cfg, device=None) -> dict[str, Any]:
     p["blocks"] = blocks
     if cfg.family == "hybrid":
         p["shared_attn"] = _block_init(generator, cfg, device)
+    if cfg.family == "vlm":
+        p["frontend_proj"] = {"w": rnd((cfg.frontend_dim, dm), cfg.frontend_dim ** -0.5)}
     return p
 
 
@@ -309,11 +326,18 @@ def _remat(fn, policy: str):
     raise ValueError(f"unknown remat policy {policy!r}")
 
 
-def forward(params, tokens, cfg, *, remat="full", causal=True):
+def forward(params, tokens, cfg, *, embeds_prefix=None, remat="full", causal=True):
     """tokens: (B, S) -> hidden states (B, S, dm) and the scalar MoE aux,
-    summed over the layers (zero for the other families)."""
+    summed over the layers (zero for the other families).  The VLM's
+    ``embeds_prefix`` (B, P, frontend_dim), projected by
+    ``frontend_proj``, goes before the text: the states are then (B, P +
+    S, dm)."""
     _check_family(cfg)
     x = embed_lookup(params["embed"], tokens).to(cfg.cdtype)
+    if embeds_prefix is not None:
+        pe = torch.matmul(embeds_prefix.to(cfg.cdtype),
+                          params["frontend_proj"]["w"].to(cfg.cdtype))
+        x = torch.cat([pe, x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=I32, device=x.device).expand(B, S)
     block = _remat(lambda y, lp: _block_apply(lp, y, cfg, positions,
@@ -341,9 +365,14 @@ def forward(params, tokens, cfg, *, remat="full", causal=True):
 
 def lm_loss(params, batch, cfg, *, remat="full", z_loss=1e-4,
             moe_aux_weight=0.01):
-    """Teacher-forced LM loss.  batch: tokens, targets, (mask).  Returns
-    (loss, {"nll", "aux"}), 0-d fp32 tensors."""
-    hidden, aux = forward(params, batch["tokens"], cfg, remat=remat)
+    """Teacher-forced LM loss.  batch: tokens, targets, (mask), (embeds: the
+    VLM's patches, scored not).  Returns (loss, {"nll", "aux"}), 0-d fp32
+    tensors."""
+    embeds = batch.get("embeds")
+    hidden, aux = forward(params, batch["tokens"], cfg, embeds_prefix=embeds,
+                          remat=remat)
+    if embeds is not None:
+        hidden = hidden[:, embeds.shape[1]:]           # the text positions
     logits = logits_fn(params, hidden, cfg)
     targets = batch["targets"]
     mask = batch.get("mask")
@@ -438,7 +467,9 @@ def prefill_chunk(params, cache, tokens, start, cfg, lengths=None,
     nv = (torch.full((B,), S, dtype=I32, device=dev) if lengths is None
           else torch.as_tensor(lengths, dtype=I32, device=dev))
     if cfg.family not in ATTENTION_FAMILIES:
-        return _prefill_chunk_scan(params, cache, tokens, pos_b, cfg, nv, write_mask)
+        return _prefill_chunk_scan(
+            params, cache, tokens, pos_b, nv, write_mask,
+            lambda p, c, t, pos, wm: decode_step(p, c, t, pos, cfg, write_mask=wm))
     x = embed_lookup(params["embed"], tokens).to(cfg.cdtype)
     positions = pos_b[:, None] + torch.arange(S, dtype=I32, device=dev)[None, :]
     bt = cache.get("block_tables")
@@ -462,19 +493,19 @@ def prefill_chunk(params, cache, tokens, start, cfg, lengths=None,
     return logits_fn(params, x, cfg), cache
 
 
-def _prefill_chunk_scan(params, cache, tokens, pos_b, cfg, nv, write_mask):
-    """``prefill_chunk`` for the recurrent families: one gated
-    ``decode_step`` per lane.  Lane ``i`` feeds ``tokens[:, i]`` at position
-    ``pos_b + i`` with its writes gated by ``write_mask & (i < nv)``, the
-    per-lane gate of the one-pass attention chunk, so the contract and the
-    stacked (B, S, V) logits are the same."""
+def _prefill_chunk_scan(params, cache, tokens, pos_b, nv, write_mask, step_fn):
+    """``prefill_chunk`` for the recurrent families and encdec: one gated
+    ``step_fn(params, cache, tokens1, pos, write_mask)`` (their
+    ``decode_step``) per lane.  Lane ``i`` feeds ``tokens[:, i]`` at
+    position ``pos_b + i`` with its writes gated by ``write_mask & (i <
+    nv)``, the per-lane gate of the one-pass attention chunk, so the
+    contract and the stacked (B, S, V) logits are the same."""
     B, S = tokens.shape
     base = (torch.ones((B,), dtype=torch.bool, device=tokens.device)
             if write_mask is None else torch.as_tensor(write_mask, dtype=torch.bool))
     logits = []
     for i in range(S):
-        lg, cache = decode_step(params, cache, tokens[:, i:i + 1], pos_b + i, cfg,
-                                write_mask=base & (i < nv))
+        lg, cache = step_fn(params, cache, tokens[:, i:i + 1], pos_b + i, base & (i < nv))
         logits.append(lg[:, -1, :])
     return torch.stack(logits, dim=1), cache
 

@@ -3,9 +3,10 @@
 The PyTorch counterpart of the lockstep ``generate`` of
 ``repro.serve.engine``.  As in the JAX engine, the attention families'
 prompt goes through ``prefill_chunk`` as one chunk (the attend-at-offset
-primitive the slot pool admits with) and the recurrent families' through
-``model.prefill`` (``build_prefill``: the parallel or the sequential state
-build); each new token goes through ``decode_step``.
+primitive the slot pool admits with) and the recurrent families' and
+encdec's through ``model.prefill`` (``build_prefill``: the parallel or the
+sequential build; encdec's encodes ``batch["frames"]`` first); each new
+token goes through ``decode_step``.
 
 ``ServeConfig.decode_loop``: ``"scan"`` and ``"host"`` run the same Python
 loop.  Its body never reads the device (no ``.item()``, ``.cpu()`` or
@@ -64,8 +65,18 @@ def _sample(logits, generator, temperature, top_k: int = 0,
 
 def build_prefill(model):
     """(params, cache, batch) -> (logits (B, 1, V), cache, len): the whole
-    prompt through ``model.prefill``, the recurrent families' prompt path."""
+    prompt through ``model.prefill``, the recurrent families' and encdec's
+    prompt path."""
     return model.prefill
+
+
+def build_encode(model):
+    """(params, frames (B, T, frontend_dim)) -> encoder memory (B, T, dm):
+    the slot pool's encdec admission encodes its admitted rows with it and
+    installs each row's memory before the first chunk."""
+    if model.encode is None:
+        raise ValueError(f"family {model.cfg.family!r} has no encoder")
+    return model.encode
 
 
 def build_prefill_chunk(model, scfg: ServeConfig, width: int):
@@ -94,7 +105,8 @@ def generate(model, params, batch: dict, scfg: ServeConfig, max_new: int,
     max_new) int32 on ``device`` (None = the card).
 
     ``batch["tokens"]`` (B, S) int; optional ``batch["lengths"]`` (B,)
-    bounds ragged prompts.  ``params`` must live on ``device``.
+    bounds ragged prompts; encdec takes ``batch["frames"]`` (B, T,
+    frontend_dim).  ``params`` must live on ``device``.
     ``tracer``: an optional ``obs.trace.Tracer``, which records the decode
     loop as one span named as the JAX package's (``decode_scan`` or
     ``decode_host_loop``).
@@ -120,6 +132,8 @@ def generate(model, params, batch: dict, scfg: ServeConfig, max_new: int,
         pb = {"tokens": toks}
         if lens is not None:
             pb["lengths"] = torch.as_tensor(lens, dtype=I32, device=dev)
+        if batch.get("frames") is not None:
+            pb["frames"] = torch.as_tensor(batch["frames"], device=dev)
         logits, cache, _ = build_prefill(model)(params, cache, pb)
         last = logits[:, -1, :]
     sample = lambda lg: _sample(lg, generator, scfg.temperature,  # noqa: E731

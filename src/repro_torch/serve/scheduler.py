@@ -1,15 +1,15 @@
 """Continuous-batching scheduler: a slot-pool KV cache serving ragged traffic.
 
 The PyTorch counterpart of ``repro.serve.scheduler``'s ``SlotPoolEngine``
-for the dense, MoE, SSM and hybrid families.  Three pieces, as in the JAX
-package:
+for every family.  Three pieces, as in the JAX package:
 
   slot pool    — the KV cache is allocated once with a fixed batch (slot)
                  dimension ``n_slots`` (dense or paged, float or fp2fx8);
                  host mirrors track each slot's ``length`` (next write
                  position), ``active``, ``prefilling`` and token ``budget``.
   chunked prefill — admission is host bookkeeping only (the recurrent
-                 families' admitted rows are also reset to fresh state);
+                 families' and encdec's admitted rows are also reset to
+                 fresh state, and encdec's get their encoder memory);
                  prompt tokens go through ``engine.build_prefill_chunk`` in
                  place over the slot's own cache rows, up to
                  ``prefill_chunk`` tokens per row per call, every
@@ -94,6 +94,7 @@ class Request:
     arrival: float = 0.0
     deadline: Optional[float] = None
     resume: bool = False
+    frames: Any = None                # encdec: (frontend_len, frontend_dim)
 
 
 @dataclasses.dataclass
@@ -306,9 +307,13 @@ class SlotPoolEngine:
         self._pending: deque = deque()  # submitted, not yet arrived
         # chunk prefill writes attention rows in place (the kv_index <=
         # position mask hides a previous occupant's stale KV), but the
-        # recurrent families continue from the slot's stored state, so
-        # their admission writes fresh rows first
+        # recurrent families continue from the slot's stored state and
+        # encdec reads the slot's memory, so their admission writes fresh
+        # rows first
         self._needs_reset = self.model.init_paged_cache is None
+        self._encode = (engine.build_encode(self.model)
+                        if self.model.encode is not None else None)
+        self._axes = None                        # each cache leaf's slot axis
         if self.spec:
             self._spec_step = spec_mod.build_spec_step(self.model, scfg, scfg.draft_k)
         else:
@@ -446,24 +451,51 @@ class SlotPoolEngine:
                 self._admit_dense(reqs, free)
 
     def _admit_dense(self, reqs, free):
-        # the recurrent families chunk-prefill through gated decode steps,
-        # which continue from the slot's stored state: the admitted rows
-        # start fresh.  Attention rows need no reset: the kv_index <=
-        # position mask hides a previous occupant's stale KV
+        """The recurrent families and encdec chunk-prefill through gated
+        decode steps, which continue from the slot's stored state and read
+        its memory: the admitted rows start fresh, and encdec's get the
+        encoder memory of their frames before the first chunk.  The
+        encoder runs on the admitted rows alone (eager PyTorch has no
+        compile to bucket the group for, as the JAX engine does).
+        Attention rows need no reset: the kv_index <= position mask hides a
+        previous occupant's stale KV."""
         if self._needs_reset:
-            self._reset_rows(free[:len(reqs)])
+            slots = free[:len(reqs)]
+            self._reset_rows(slots)
+            if reqs[0].frames is not None:
+                if any(r.frames is None for r in reqs):
+                    raise ValueError("mixed group: some requests carry "
+                                     "encoder frames and some do not")
+                fr = np.stack([np.asarray(r.frames) for r in reqs])
+                mem = self._encode(self.params, self._to_device(fr))
+                buf = self.cache["memory"]
+                idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+                buf[idx] = mem.to(buf.dtype)
         for j, r in enumerate(reqs):
             self._start_prefill(free[j], r, 0)
 
+    def _cache_batch_axes(self) -> list:
+        """Each cache leaf's slot axis (``tree_leaves`` order), found by
+        comparing ``init_cache``'s shapes at one and two slots on the meta
+        device: 1 for layer-stacked leaves (after the layer or invocation
+        axis), 0 for the encoder memory."""
+        if self._axes is None:
+            shapes = [[tuple(t.shape) for t in tree_leaves(self.model.init_cache(
+                self.params, n, self.scfg.max_len, self.scfg.cache_dtype, device="meta"))]
+                for n in (1, 2)]
+            self._axes = [next(i for i, (a, b) in enumerate(zip(s1, s2)) if a != b)
+                          for s1, s2 in zip(*shapes)]
+        return self._axes
+
     def _reset_rows(self, slots) -> None:
         """Rewrite the dense cache's rows of ``slots`` with ``init_cache``'s
-        values, in every leaf: each has its slot on axis 1, after the layer
-        (or, for the hybrid's shared block, the invocation) axis."""
+        values, in every leaf, along its slot axis (``_cache_batch_axes``)."""
         fresh = self.model.init_cache(self.params, 1, self.scfg.max_len,
                                       self.scfg.cache_dtype, device=self.device)
         idx = torch.as_tensor(list(slots), dtype=torch.long, device=self.device)
-        for leaf, row in zip(tree_leaves(self.cache), tree_leaves(fresh)):
-            leaf[:, idx] = row
+        for leaf, row, ax in zip(tree_leaves(self.cache), tree_leaves(fresh),
+                                 self._cache_batch_axes()):
+            leaf.movedim(ax, 0)[idx] = row.movedim(ax, 0)
 
     def _alloc_pages(self, n: int) -> Optional[list]:
         """``n`` pages from the pool, evicting prefix-cache LRU leaves on
@@ -661,7 +693,8 @@ class SlotPoolEngine:
         # the request never received tokens for
         self._queue.appendleft(Request(
             rid=rid, tokens=toks, max_new=orig.max_new - len(done),
-            arrival=orig.arrival, deadline=orig.deadline, resume=True))
+            frames=orig.frames, arrival=orig.arrival, deadline=orig.deadline,
+            resume=True))
         return True
 
     def _preempt_latest(self) -> bool:
@@ -937,10 +970,11 @@ class SlotPoolEngine:
 
     def _scrub_dense_slot(self, s: int) -> None:
         """Rewrite slot ``s``'s dense cache rows with ``init_cache``'s
-        values, every leaf's (the recurrent state and the hybrid's shared
-        KV too): a NaN or Inf left there would reach the slot's next
-        occupant, through the PV products of masked keys (0 * NaN) or the
-        state it continues from."""
+        values, every leaf's (the recurrent state, the hybrid's shared KV
+        and encdec's memory too, which re-admission encodes anew): a NaN or
+        Inf left there would reach the slot's next occupant, through the PV
+        products of masked keys (0 * NaN) or the state it continues
+        from."""
         self._reset_rows([s])
 
     def _scrub_slot_pages(self, s: int) -> None:
@@ -1008,7 +1042,7 @@ class SlotPoolEngine:
                                np.asarray(done, np.int32)])
         rem = (orig.deadline - now) if orig.deadline is not None else None
         comp = eng.run([Request(rid=rid, tokens=toks, max_new=orig.max_new - len(done),
-                                deadline=rem)])[rid]
+                                frames=orig.frames, deadline=rem)])[rid]
         fin = self._now()
         self.outputs[rid].extend(comp.tokens)
         self.out_times[rid].extend([fin] * len(comp.tokens))

@@ -372,36 +372,22 @@ def _dq_to(q3, k3, v3, maskf, stats, cfg, nkeys):
 
 def _dq_skipped(q3, k3, v3, maskf, stats, cfg):
     """dq as the kernel computes it when it drops the key sub-tiles past each
-    64-row tile's causal frontier: each tile's rows over keys up to its
-    frontier's sub-tile only."""
+    64-row tile's causal frontier: each tile's rows (at their query
+    positions) over keys up to its frontier's sub-tile only.  The plain dq is
+    row by row, so a tile's rows alone give the bits they give among all
+    rows (``_tile_forward`` slices the forward alike)."""
+    do3, delta, m, l = stats
     Sk = k3.shape[1]
     out = torch.empty(q3.shape)
     for t in range(q3.shape[1] // SKIP_ROWS):
         nkeys = min(Sk, ((t + 1) * SKIP_ROWS - 1) // DQ_SUB * DQ_SUB + DQ_SUB)
         rows = slice(t * SKIP_ROWS, (t + 1) * SKIP_ROWS)
-        out[:, rows] = _dq_to(q3, k3, v3, maskf, stats, cfg, nkeys)[:, rows]
+        out[:, rows] = tfa._flash_bwd_dq_plain(
+            q3[:, rows], k3[:, :nkeys], v3[:, :nkeys],
+            None if maskf is None else maskf[:, :nkeys].contiguous(), do3[:, rows],
+            delta[:, rows], m[:, rows], l[:, rows], cfg=cfg, sm_scale=D ** -0.5,
+            causal=True, bk=DQ_SUB, group=HQ // HKV, q_offset=t * SKIP_ROWS)
     return out
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_flash_dq_causal_skip_bounds(name, dtype):
-    """The dq kernel's skip: dropping the key sub-tiles past a 64-row
-    tile's causal frontier takes the last terms off each of its dq chains.
-    On these inputs every row's masked term counts 0 (the kernel's guard),
-    so the skip is allowed; under HYFT32 the masked probability is then
-    exactly 0 and dq keeps every bit, under HYFT16 it stays within
-    ``grad_errors`` of the full walk."""
-    _, ct = CONFIGS[name]
-    q3, k3, v3 = _skip_inputs(dtype)
-    stats = _dq_stats(q3, k3, v3, None, ct)
-    assert bool((tfa.masked_counts(stats[2], ct) == 0).all())
-    full = _dq_to(q3, k3, v3, None, stats, ct, SKIP_KEYS)
-    got = _dq_skipped(q3, k3, v3, None, stats, ct)
-    if ct.total_bits == 24:
-        assert torch.equal(got, full), name
-    else:
-        assert tfa.grad_errors((got,), (full,), ct)["dq"] <= 1
 
 
 def test_flash_dq_skip_needs_the_guard():

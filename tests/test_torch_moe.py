@@ -428,5 +428,5 @@ def test_moe_models_build_through_the_zoo():
     cache = model.init_paged_cache(params, 6, 4, "fp2fx8", device="cpu")
     assert tuple(cache["blocks"]["k"].shape) == (cfg.n_layers, 7, cfg.n_kv_heads, 4,
                                                  cfg.d_head)
-    with pytest.raises(NotImplementedError, match="the other families"):
-        build_model(cfg.with_(family="encdec"))
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(cfg.with_(family="rnn"))
