@@ -113,6 +113,22 @@ script exits non-zero without its last line:
               ``PARITY_BOUND``; and, not gated, the token agreement of the
               paged engine with the dense continuous engine on the same
               requests;
+ 11a. cost_book  the cost book (``obs/profile.py``) at full width
+              (``cost_book_phase``): the continuous cell's first 8 chat
+              requests, all at 0, with ``Obs.enabled()`` (fp2fx8 pages of
+              16): ``prewarm`` counts the prefill chunk at each width and
+              the burst, each dispatch is observed; per executable its
+              calls, mean wall, FLOPs, bytes, bound, the term that sets it,
+              roofline fraction and GB/s, and the ``roofline.*`` counter
+              events of the trace it writes to build/cost_book/; then
+              ``generate(profile=)`` at 4 x 1024 with 32 new tokens (its
+              prefill chunk and decode loop rows, launches exactly the
+              run's plus one counted call each); the tokens of both equal
+              those without a book; every fraction in (0, 1.05]; then
+              ``microbench`` over the ten registry entries at the kernels
+              line's shapes, each bound equal to the kernels line's for the
+              same work, both times on one line (after phase 19); at most
+              60 s;
  11b. chaos   the continuous cell under the chaos harness, ``audit=True``
               (``chaos_phase``): bf16 in kernel mode under the JAX
               package's sweep plan beside a fault-free run (faults by kind,
@@ -215,7 +231,9 @@ script exits non-zero without its last line:
               ``bound_ms``, the least time the card could take (bytes over
               3.35 TB/s or fp32 FLOPs over 67 TFLOP/s, whichever is larger,
               each input read and each output written once, FLOPs counted
-              over the keys the mask admits to each row);
+              over the keys the mask admits to each row; the counts of
+              ``repro_torch/kernels/cost.py``, which the cost book and the
+              microbench share);
               the softmax kernels timed over input buffers that together
               exceed the 50 MB L2, and bound by bytes or by the
               function's operations (``SOFTMAX_OPS``), one a lane a clock
@@ -316,11 +334,6 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 DEV = "cuda"   # the card; the serving phases' engines live here
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and fp32
-# outside the tensor cores; the kernels use fp32 FMAs only
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-
 B, HQ, HKV, D = 4, 12, 2, 128
 D64, CHUNK64 = 64, 128                # the second head width, its chunk checks
 PROMPT, NEW = 1024, 32
@@ -353,26 +366,13 @@ TRAIN_PARITY_BOUND = {"loss": 0.01, "grad": 0.25}
 # chunk, burst; the chat traffic: requests, shared system prompt, rate (1/s)
 PAGE, SLOTS, SERVE_LEN, CHUNK, BURST = 16, 8, 2048, 256, 8
 N_REQ, SYS_PROMPT, RATE = 24, 512, 8.0
+CHUNK_START = 768                     # the timed paged chunk's first lane
 STARVED_PAGES = 200
 UNFUSED_STEPS = 2                     # timed steps of the unfused training
 # the unfused training step with the kernel softmax against the plain Hyft
 # softmax on the same weights and batch: the same arithmetic (bitwise while
 # every row's sum stays within the precondition of kernels/hyft_softmax.py)
 UNFUSED_TRAIN_GATE = {"loss": 1e-6, "grad": 1e-5}
-# operations per element of the Hyft softmax as the paper's datapath
-# defines it, one for each block an element passes through, whatever
-# instructions carry it: forward FP2FX (a conversion), then the max, the
-# exponent unit, the adder tree and the log-subtract divide (integer);
-# backward the two fx_quantize (conversions to fixed point), then the two
-# log-domain multiplies, the adder tree and the fixed-point subtract
-# (integer)
-SOFTMAX_OPS = {"hyft_softmax_fwd": {"int": 4, "other": 1},
-               "hyft_softmax_bwd": {"int": 4, "other": 2}}
-# instruction issue of an H100 SXM: one instruction a lane a clock, the
-# fp32 peak over its two FLOPs of an FMA; 32-bit integer operations run on
-# half the lanes
-LANE_INSTR_PER_S = FP32_FLOPS_PER_S / 2
-INT_INSTR_PER_S = LANE_INSTR_PER_S / 2
 L2_BYTES = 50e6
 MAX_BUFFERS = 512                     # input buffers a timing rotates over, at most
 PROFILED_LAUNCHES = 200               # the least launches of one profiled window
@@ -424,6 +424,19 @@ T0 = time.monotonic()
 def emit(obj):
     """One JSON line, with the seconds since the script started (``t_s``)."""
     print(json.dumps({**obj, "t_s": round(time.monotonic() - T0, 1)}), flush=True)
+
+
+def _bound(count, **extra):
+    """A kernels-line row's bound fields from a kernel's count
+    (``repro_torch/kernels/cost.py``): ``bound_ms``, the larger of the bytes
+    over the HBM rate (``bound_bytes_ms``) and the operations over their
+    peak (``bound_ops_ms``; ``roofline/analysis.py``), the term that sets
+    it, and the count."""
+    from repro_torch.kernels import cost as kcost
+    roof, by = kcost.bound(count)
+    return {"bound_ms": roof.step_time_s * 1e3, "bound_by": by,
+            "bound_bytes_ms": roof.memory_s * 1e3, "bound_ops_ms": roof.compute_s * 1e3,
+            "bytes": count["bytes"], "flops": count["flops"], **extra}
 
 
 def device_phase(torch):
@@ -1172,6 +1185,208 @@ def paged_parity_phase(torch, params, cfg, paged_outs, reqs):
                                     for r in reqs)})
 
 
+# the cost_book phase: the continuous cell's requests it serves with the book
+# (all at 0, so that both runs schedule alike), the trace it writes, the
+# most seconds it may take, and the most a roofline fraction may read
+# (above 1 a count is wrong; 5% leaves room for the clock's noise)
+BOOK_REQUESTS = 8
+BOOK_DIR = ROOT / "build" / "cost_book"
+BOOK_SECONDS = 60.0
+BOOK_MAX_FRACTION = 1.05
+# the microbench entries at the main path's shapes, each with the kernels
+# line's rows that do the same work (flash_bwd: the gradient, all three)
+MICRO_ROWS = {"softmax_fwd": ["hyft_softmax_fwd[prompt]"],
+              "softmax_bwd": ["hyft_softmax_bwd[train]"],
+              "flash_fwd": ["hyft_flash_fwd[f32]"],
+              "flash_bwd": ["hyft_flash_fwd[f32]", "hyft_flash_bwd_dq[f32]",
+                            "hyft_flash_bwd_dkv[f32]"],
+              "splitk_decode[float32]": ["hyft_splitk_decode[float32]"],
+              "splitk_decode[fp2fx8]": ["hyft_splitk_decode[fp2fx8]"],
+              "paged_decode[float32]": ["hyft_paged_decode[float32]"],
+              "paged_decode[fp2fx8]": ["hyft_paged_decode[fp2fx8]"],
+              "verify[dense]": ["hyft_splitk_verify[float32]"],
+              "verify[paged,fp2fx8]": ["hyft_paged_verify[fp2fx8]"]}
+SUMMARY_KEYS = ("calls", "wall_mean_us", "flops", "flops_fp32", "bytes", "bound_us",
+                "bound_dominant", "roofline_fraction", "achieved_gflops", "achieved_gbps",
+                "trip_factor")
+
+
+def _book_rows(book):
+    """The cost book's summary rows, the keys the phase prints; gates every
+    dispatched executable's roofline fraction in (0, BOOK_MAX_FRACTION]."""
+    rows = {}
+    for name, row in book.summary().items():
+        rows[name] = {k: row[k] for k in SUMMARY_KEYS if k in row}
+        if "calls" in row:
+            frac = row["roofline_fraction"]
+            assert 0 < frac <= BOOK_MAX_FRACTION, f"{name}: roofline fraction {frac}"
+    return rows
+
+
+def _micro_entries(torch):
+    """``obs/profile.py::microbench``'s ten entries at the kernels line's
+    shapes (``MICRO_ROWS``): the softmax at the prompt's and the training
+    step's rows, the flash kernels at the training step's 4 x 1024, decode
+    and the prompt's chunk over 4 x 1057 keys, the paged pool's decode over
+    8 x 2048 keys and its chunk of 256 lanes at 768, HYFT16."""
+    from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.obs import profile as prof
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 15)
+    shapes = {s[0]: s for s in _softmax_shapes(torch)}
+    _, shape, keep, _ = shapes["prompt"]
+    entries = [prof.softmax_entry("softmax_fwd", "fwd", _scores(torch, gen, shape, keep),
+                                  HYFT16)]
+    _, shape, keep, _ = shapes["train"]
+    s16 = hs.hyft_softmax_fwd_kernel(_scores(torch, gen, shape, keep), HYFT16)
+    entries.append(prof.softmax_entry(
+        "softmax_bwd", "bwd", s16, HYFT16, out_dtype=torch.float32,
+        dy=torch.randn(shape, generator=gen, device=DEV).half()))
+    q = torch.randn(B, HQ, SEQ, D, generator=gen, device=DEV)
+    k, v = (torch.randn(B, HKV, SEQ, D, generator=gen, device=DEV) for _ in range(2))
+    entries += [prof.flash_entry("flash_fwd", q, k, v, HYFT16),
+                prof.flash_entry("flash_bwd", q, k, v, HYFT16, backward=True)]
+    q1 = torch.randn(B, HQ, 1, D, generator=gen, device=DEV)
+    causal = (torch.arange(MAX_LEN, device=DEV)[None, None]
+              <= torch.arange(PROMPT, device=DEV)[None, :, None])
+    causal = causal.float().expand(B, PROMPT, MAX_LEN).contiguous()
+    qp = torch.randn(B, HQ, PROMPT, D, generator=gen, device=DEV)
+    for cache_dtype in ("float32", "fp2fx8"):
+        kc, vc, sc, _ = _cache_kv(torch, gen, cache_dtype, (B, HKV, MAX_LEN, D))
+        entries.append(prof.attend_entry(f"splitk_decode[{cache_dtype}]", q1, kc, vc,
+                                         torch.ones(B, MAX_LEN, device=DEV), HYFT16, **sc))
+        if cache_dtype == "float32":
+            verify = prof.attend_entry("verify[dense]", qp, kc, vc, causal, HYFT16)
+    qs = torch.randn(SLOTS, HQ, 1, D, generator=gen, device=DEV)
+    for cache_dtype in ("float32", "fp2fx8"):
+        kp, vp, sc, _, bt, mask, _ = _paged_case(torch, gen, PAGE, cache_dtype,
+                                                 [SERVE_LEN] * SLOTS)
+        entries.append(prof.attend_entry(f"paged_decode[{cache_dtype}]", qs, kp, vp, mask,
+                                         HYFT16, block_tables=bt, **sc))
+    entries.append(verify)
+    kp, vp, sc, _, bt, _, lens = _paged_case(torch, gen, PAGE, "fp2fx8",
+                                             [CHUNK_START + CHUNK] * SLOTS)
+    entries.append(prof.attend_entry(
+        "verify[paged,fp2fx8]", torch.randn(SLOTS, HQ, CHUNK, D, generator=gen, device=DEV),
+        kp, vp, _chunk_mask(torch, lens, CHUNK), HYFT16, block_tables=bt, **sc))
+    return entries
+
+
+def cost_book_phase(torch, params, cfg):
+    """The cost book on the card (``obs/profile.py``), qwen2-1.5b at full
+    width, hyft16, kernel mode, bf16 compute:
+
+    * the continuous cell's first BOOK_REQUESTS chat requests, all at 0,
+      over fp2fx8 pages of 16 with ``Obs.enabled()``: ``prewarm`` counts
+      the prefill chunk at each width and the burst (kernels 9 and 7),
+      each dispatch is observed; each executable's summary row and the
+      ``roofline.*`` counter events of the written trace; the tokens must
+      be those of the same requests without a book;
+    * ``generate(profile=)`` at 4 x 1024 with 32 new tokens, fp2fx8: its
+      two rows (kernels 8 and 6), the tokens those without a book, the
+      launches exactly the run's plus the two counted calls';
+    * ``microbench`` at the kernels line's shapes (``_micro_entries``),
+      whose bounds ``main`` holds to the kernels line's.
+
+    Every dispatched executable's fraction must lie in (0,
+    BOOK_MAX_FRACTION], and the phase take at most BOOK_SECONDS.  Returns
+    the microbench rows."""
+    import numpy as np
+    from repro_torch.configs import ServeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.obs import Obs
+    from repro_torch.obs import profile as prof
+    from repro_torch.serve.engine import generate
+    from repro_torch.serve.scheduler import SlotPoolEngine
+
+    t0 = time.monotonic()
+    model = build_model(cfg.with_(softmax_impl="hyft16"))
+    reqs = [dataclasses.replace(r, arrival=0.0)
+            for r in _chat_requests(np, cfg.vocab)[:BOOK_REQUESTS]]
+    scfg = _serve_config(cache_dtype="fp2fx8")
+    plain = SlotPoolEngine(model, params, scfg, device=DEV).run(reqs)
+    obs = Obs.enabled()
+    eng = SlotPoolEngine(model, params, scfg, device=DEV, obs=obs)
+    _zero(fa.LAUNCHES)                              # the main path's run
+    eng.prewarm(max(len(r.tokens) for r in reqs))
+    done, wall = _timed(torch, lambda: eng.run(reqs))
+    got = dict(fa.LAUNCHES)
+    BOOK_DIR.mkdir(parents=True, exist_ok=True)
+    trace = BOOK_DIR / "trace.json"
+    obs.tracer.write(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    tracks = {}
+    for e in events:
+        if e["name"].startswith("roofline."):
+            tracks[e["name"]] = tracks.get(e["name"], 0) + 1
+    rows = _book_rows(obs.profile)
+    same = all(done[r.rid].tokens == plain[r.rid].tokens for r in reqs)
+    emit({"phase": "cost_book", "part": "continuous", "requests": len(reqs),
+          "cache": "fp2fx8", "wall_s": wall, "launches": got, "executables": rows,
+          "roofline_counter_events": sum(tracks.values()), "tracks": tracks,
+          "tokens_equal_without_book": same, "trace": str(trace.relative_to(ROOT))})
+    assert same, "the cost book changed the continuous cell's tokens"
+    assert got["hyft_paged_decode"] > 0 and got["hyft_paged_verify"] > 0, got
+    assert sum(got.values()) == got["hyft_paged_decode"] + got["hyft_paged_verify"], got
+    assert "roofline.decode_burst" in tracks and any(n.startswith("roofline.prefill_chunk")
+                                            for n in tracks), tracks
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    gcfg = ServeConfig(max_len=MAX_LEN, cache_dtype="fp2fx8", attn_mode="kernel")
+    base = generate(model, params, {"tokens": tokens}, gcfg, max_new=NEW, device=DEV)
+    book = prof.CostBook(enabled=True)
+    _zero(fa.LAUNCHES)                              # the main path's run
+    out, wall = _timed(torch, lambda: generate(model, params, {"tokens": tokens}, gcfg,
+                                               max_new=NEW, device=DEV, profile=book))
+    got = dict(fa.LAUNCHES)
+    want = dict.fromkeys(fa.LAUNCHES, 0)            # the run's, and one counted call each
+    want.update(hyft_splitk_verify=2 * cfg.n_layers, hyft_splitk_decode=cfg.n_layers * NEW)
+    rows = _book_rows(book)
+    emit({"phase": "cost_book", "part": "generate", "batch": B, "prompt": PROMPT,
+          "new_tokens": NEW, "cache": "fp2fx8", "wall_s": wall, "launches": got,
+          "expected": want, "executables": rows,
+          "tokens_equal_without_book": bool(torch.equal(out, base))})
+    assert got == want, f"launch counts {got} != {want}"
+    assert torch.equal(out, base), "the cost book changed generate's tokens"
+    assert set(rows) == {f"prefill_chunk[w={PROMPT}]", f"decode_loop[steps={NEW - 1}]"}
+
+    micro = prof.microbench(_micro_entries(torch), iters=20)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    emit({"phase": "cost_book", "part": "microbench", "rows": micro, "phase_s": seconds})
+    assert seconds <= BOOK_SECONDS, f"the cost_book phase took {seconds:.1f} s"
+    return micro
+
+
+def micro_vs_kernels(micro, kernels):
+    """Each microbench row beside the kernels line's rows of the same work
+    (``MICRO_ROWS``): both times on one line, and the bounds equal (one
+    count of ``kernels/cost.py`` through two callers' shapes; the units'
+    rounding aside)."""
+    from repro_torch.kernels import cost as kcost
+
+    by_name = {r["name"]: r for r in kernels}
+    for row in micro:
+        ks = [by_name[n] for n in MICRO_ROWS[row["kernel"]]]
+        count = kcost.add(*({"flops": r["flops"], "flops_fp32": r["flops"],
+                             "bytes": r["bytes"], "transcendentals": 0.0} for r in ks))
+        want_ms = (ks[0]["bound_ms"] if len(ks) == 1
+                   else kcost.bound(count)[0].step_time_s * 1e3)
+        emit({"phase": "cost_book", "part": "microbench_vs_kernels", "entry": row["kernel"],
+              "kernels_rows": MICRO_ROWS[row["kernel"]],
+              "microbench_us_per_call": row["us_per_call"],
+              "kernels_ms": sum(r["ms"] for r in ks),
+              "kernels_event_ms": sum(r["kernel_ms"] for r in ks),
+              "microbench_bound_us": row["bound_us"], "kernels_bound_ms": want_ms,
+              "microbench_roofline_fraction": row["roofline_fraction"]})
+        assert math.isclose(row["bound_us"] * 1e-3, want_ms, rel_tol=1e-12), \
+            f"{row['kernel']}: bound {row['bound_us']} us != the kernels line's {want_ms} ms"
+
+
 # the chaos phase: the JAX package's sweep plan (tests/test_chaos.py) over the
 # continuous cell's traffic; a plan of tick faults alone at the sweep's
 # squeeze hold, at rates that fire each of them in a run of this traffic;
@@ -1639,8 +1854,9 @@ def kernels_phase(torch, errors, launches, heads=(HQ, HKV, D), n_layers=28, labe
     from device memory and not from the 50 MB L2.  The bound counts every
     input once (q, K/V and their scales, the mask) and the one output,
     (rows, D) fp32 per (b, kv head); FLOPs over the (row, key) pairs the
-    mask admits."""
+    mask admits (``kernels/cost.py::attend_cost``)."""
     from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -1675,16 +1891,7 @@ def kernels_phase(torch, errors, launches, heads=(HQ, HKV, D), n_layers=28, labe
             timing = _kernel_ms(torch, fn, reps, f"{kind}_kernel", event_ms)
             plain_ms = _event_ms(torch, call(fa.splitk_attention_plain),
                                  50 if kind == "decode" else 3)
-            kv_bytes = 1 if cache_dtype == "fp2fx8" else 4
-            nbytes = (BH * rows * d * 4 + 2 * BH * MAX_LEN * d * kv_bytes
-                      + (2 * BH * MAX_LEN * 4 if cache_dtype == "fp2fx8" else 0)
-                      + mask.numel() * 4 + BH * rows * d * 4)
-            # QK^T + PV over the admitted pairs: the mask is shared by the g
-            # query heads of each of the hkv heads (decode: every row its own)
-            pairs = int(mask.sum()) * hkv * g if sq is not None else BH * rows * MAX_LEN
-            flops = 4 * d * pairs
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / FP32_FLOPS_PER_S * 1e3
+            count = kcost.attend_cost(q3, bufs[0][0], mask, hkv=hkv)
             entry = "hyft_splitk_decode" if kind == "decode" else "hyft_splitk_verify"
             tag = cache_dtype if label is None else f"{label},{cache_dtype},d{d}"
             kernels.append({
@@ -1703,10 +1910,7 @@ def kernels_phase(torch, errors, launches, heads=(HQ, HKV, D), n_layers=28, labe
                 **timing,
                 "kernel_ms": event_ms,
                 "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes,
-                "flops": flops,
+                **_bound(count),
                 "library_ms": None,
             })
             del bufs
@@ -1722,14 +1926,15 @@ def paged_kernels_phase(torch, errors, launches, heads=(HQ, HKV, D), n_layers=28
     layer) so that the pages come from device memory; a prompt chunk of 256
     lanes per slot starting at 768.  The bound counts every input once (q,
     the live pages and their scales, the block table, the mask) and the one
-    output, (rows, D) fp32 per (b, kv head)."""
+    output, (rows, D) fp32 per (b, kv head) (``kernels/cost.py::attend_cost``)."""
     from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     hq, hkv, d = heads
-    BH, g, nb = SLOTS * hkv, hq // hkv, SERVE_LEN // PAGE
-    start = 768
+    BH, g = SLOTS * hkv, hq // hkv
+    start = CHUNK_START
     kernels = []
     for kind, sq in (("decode", None), ("verify", CHUNK)):
         for cache_dtype in ("float32", "fp2fx8"):
@@ -1756,16 +1961,8 @@ def paged_kernels_phase(torch, errors, launches, heads=(HQ, HKV, D), n_layers=28
             timing = _kernel_ms(torch, fn, reps, f"{kind}_kernel", event_ms)
             plain_ms = _event_ms(torch, call(fa.paged_attention_plain),
                                  20 if sq is None else 3)
-            kv_bytes = 1 if cache_dtype == "fp2fx8" else 4
-            keys = SLOTS * hkv * live                  # live (head, key) rows
-            nbytes = (BH * rows * d * 4 + 2 * keys * d * kv_bytes
-                      + (2 * keys * 4 if cache_dtype == "fp2fx8" else 0)
-                      + SLOTS * nb * 4 + mask.numel() * 4 + BH * rows * d * 4)
-            attended = (SERVE_LEN if sq is None
-                        else sq * (start + 1) + sq * (sq - 1) // 2)   # per (b, h, g)
-            flops = 4 * BH * g * attended * d   # QK^T + PV over the real keys
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / FP32_FLOPS_PER_S * 1e3
+            count = kcost.attend_cost(q3, bufs[0][0], mask, hkv=hkv,
+                                      block_tables=bufs[0][4])
             entry = f"hyft_paged_{kind}"
             tag = cache_dtype if label is None else f"{label},{cache_dtype},d{d}"
             kernels.append({
@@ -1781,9 +1978,7 @@ def paged_kernels_phase(torch, errors, launches, heads=(HQ, HKV, D), n_layers=28
                    if label is None else {"heads": [hq, hkv]}),
                 **timing,
                 "kernel_ms": event_ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "flops": flops, "library_ms": None,
+                **_bound(count), "library_ms": None,
             })
             del bufs
     return kernels
@@ -1812,6 +2007,7 @@ def _flash_rows(torch, gen, dtype, batch, hq, hkv, S, d, causal, errors, launche
     ``sk`` keys (S without it; padded to the blocks and masked past sk);
     kernel 3 alone with ``fwd_only``."""
     from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import flash_attention as fa
 
     sk = S if sk is None else sk
@@ -1821,33 +2017,26 @@ def _flash_rows(torch, gen, dtype, batch, hq, hkv, S, d, causal, errors, launche
               q_offset=0)
     o, m, l = fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw)
     args = (q3, k3, v3, maskf, do3, fa._flash_delta(do3, o).contiguous(), m, l)
-    BH, BHkv, isz = batch * hq, batch * hkv, q3.element_size()
-    pairs = BH * S * (S + 1) // 2 if causal else BH * S * sk
-    qkv = (BH * S + 2 * BHkv * sk) * d * isz + (0 if maskf is None else batch * sk * 4)
-    rows = BH * S * 4                                # one fp32 / int32 per row
+    BH, BHkv = batch * hq, batch * hkv
     specs = [
         ("hyft_flash_fwd", "flash_fwd_kernel", ":96", "_flash_fwd_kernel",
          lambda: fa._flash_fwd_cuda(q3, k3, v3, maskf, **kw),
-         lambda: fa._flash_fwd_plain(q3, k3, v3, maskf, **kw),
-         qkv + BH * S * d * 4 + 2 * rows, 4),
+         lambda: fa._flash_fwd_plain(q3, k3, v3, maskf, **kw)),
         ("hyft_flash_bwd_dq", "flash_bwd_dq_kernel", ":229", "_flash_bwd_dq_kernel",
          lambda: fa._flash_bwd_dq_cuda(*args, **kw),
-         lambda: fa._flash_bwd_dq_plain(*args, **kw),
-         qkv + 2 * BH * S * d * 4 + 3 * rows, 6),
+         lambda: fa._flash_bwd_dq_plain(*args, **kw)),
         ("hyft_flash_bwd_dkv", "flash_bwd_dkv_kernel", ":260", "_flash_bwd_dkv_kernel",
          lambda: fa._flash_bwd_dkv_cuda(*args, **kw),
-         lambda: fa._flash_bwd_dkv_plain(*args, **kw),
-         qkv + BH * S * d * 4 + 3 * rows + 2 * BHkv * sk * d * 4, 8),
+         lambda: fa._flash_bwd_dkv_plain(*args, **kw)),
     ]
     kernels = []
-    for entry, kname, line, tpu, kernel, plain, nbytes, per_pair in specs[:1 if fwd_only else 3]:
+    for entry, kname, line, tpu, kernel, plain in specs[:1 if fwd_only else 3]:
         reps = 10 if causal else 50
         event_ms = _event_ms(torch, lambda i: kernel(), reps)
         timing = _kernel_ms(torch, lambda i: kernel(), reps, kname, event_ms)
         plain_ms = _event_ms(torch, lambda i: plain(), 3)
-        flops = per_pair * d * pairs
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        count = kcost.flash_cost(entry, (batch, hq, S, d), (batch, hkv, sk, d),
+                                 q3.element_size(), causal=causal, masked=maskf is not None)
         kernels.append({
             "name": f"{entry}{name}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/hyft_flash.cu",
@@ -1859,9 +2048,7 @@ def _flash_rows(torch, gen, dtype, batch, hq, hkv, S, d, causal, errors, launche
             "max_abs_err": errors[entry + tag],
             **timing,
             "kernel_ms": event_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops, "library_ms": None})
+            **_bound(count), "library_ms": None})
     return kernels
 
 
@@ -2386,6 +2573,7 @@ def softmax_kernels_phase(torch, errors, serve_launches, train_launches, moe_lau
     lane a clock and the integer ones at half that.  The fp16-dz row is a
     side timing: the training step makes no such launch."""
     from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import hyft_softmax as hs
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
@@ -2423,7 +2611,10 @@ def softmax_kernels_phase(torch, errors, serve_launches, train_launches, moe_lau
         _, shape, keep, _ = shapes[name]
         rows, cols = math.prod(shape[:-1]), shape[-1]
         bwd = entry == "hyft_softmax_bwd"
-        nbytes = rows * cols * ((2 + 2 + out_dtype.itemsize) if bwd else (4 + 2))
+        # fp32 z in and fp16 out; fp16 s and dy in and dz out
+        count = kcost.softmax_cost(entry, shape, 2 + 2 if bwd else 4,
+                                   out_dtype.itemsize if bwd else 2)
+        nbytes = count["bytes"]
         nbuf = min(MAX_BUFFERS, max(1, math.ceil(2 * L2_BYTES / nbytes)))
         bufs = []
         for _ in range(nbuf):
@@ -2449,10 +2640,6 @@ def softmax_kernels_phase(torch, errors, serve_launches, train_launches, moe_lau
         timing = _kernel_ms(torch, kernel, reps, "softmax_bwd" if bwd else "softmax_fwd",
                             event_ms)
         plain_ms = _event_ms(torch, plain, 5 if big else 50)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        per = SOFTMAX_OPS[entry]
-        ops = (per["int"] + per["other"]) * rows * cols
-        t_ops = max(ops / LANE_INSTR_PER_S, per["int"] * rows * cols / INT_INSTR_PER_S) * 1e3
         err_key = entry + ("_f32" if out_dtype == torch.float32 else "")
         kernels.append({
             "name": f"{entry}[{row}]", "route": "cuda",
@@ -2464,10 +2651,8 @@ def softmax_kernels_phase(torch, errors, serve_launches, train_launches, moe_lau
             "max_abs_err": errors[err_key, name],
             **timing,
             "kernel_ms": event_ms, "kernel_ms_buffers": nbuf, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
-            "bytes": nbytes, "ops": ops, "ops_per_element": per, "library_ms": None})
+            **_bound(count, ops=count["ops"], ops_per_element=kcost.SOFTMAX_OPS[entry]),
+            "library_ms": None})
         del bufs
         torch.cuda.empty_cache()
     return kernels
@@ -2591,6 +2776,7 @@ def _attend_row(torch, entry, d, hq, hkv, cache_dtype, sq, live, gen):
     width d: 8 slots of ``live`` keys each (of SERVE_LEN), decode or a chunk
     of ``sq`` lanes ending at the length, HYFT16."""
     from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import flash_attention as fa
 
     g = hq // hkv
@@ -2626,21 +2812,10 @@ def _attend_row(torch, entry, d, hq, hkv, cache_dtype, sq, live, gen):
     timing = _kernel_ms(torch, call(kernel), reps,
                         "decode_kernel" if sq is None else "verify_kernel", event_ms)
     plain_ms = _event_ms(torch, call(plain), 20)
-    kv_bytes = {"fp2fx8": 1, "bfloat16": 2}.get(cache_dtype, 4)
-    keys = BH * live
-    nbytes = (2 * BH * rows * d * 4 + 2 * keys * d * kv_bytes
-              + (2 * keys * 4 if cache_dtype == "fp2fx8" else 0) + mask.numel() * 4
-              + (SLOTS * bt.shape[1] * 4 if paged else 0))
-    lanes = sq or 1
-    attended = lanes * (live - lanes) + lanes * (lanes + 1) // 2   # per (b, query head)
-    flops = 4 * d * SLOTS * hq * attended
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    count = kcost.attend_cost(q3, k, mask, hkv=hkv, block_tables=bt if paged else None)
     return {"max_abs_err": err["max_abs_err"], "out_ratio": err["out"],
             **timing, "kernel_ms": event_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops, "library_ms": None}
+            **_bound(count), "library_ms": None}
 
 
 _ENTRY_SOURCES = {
@@ -4196,6 +4371,7 @@ def hybrid_kernels_phase(torch, errors, launches):
     memory, 403 a generate.  mamba2-370m's path launches none of them."""
     from repro_torch.configs import get_config
     from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import flash_attention as fa
 
     cfg = get_config(HYBRID_ARCH)
@@ -4234,14 +4410,7 @@ def hybrid_kernels_phase(torch, errors, launches):
         timing = _kernel_ms(torch, call(fa._splitk_attention_cuda), 200, "decode_kernel",
                             event_ms)
         plain_ms = _event_ms(torch, call(fa.splitk_attention_plain), 20)
-        kv_bytes = 1 if cache_dtype == "fp2fx8" else 4
-        live = sum(HYBRID_DECODE_LENGTHS) * hkv          # live (head, key) rows
-        nbytes = (BH * hq // hkv * d * 4 + 2 * live * d * kv_bytes
-                  + (2 * live * 4 if cache_dtype == "fp2fx8" else 0) + mask.numel() * 4
-                  + BH * hq // hkv * d * 4)
-        flops = 4 * d * live * (hq // hkv)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        count = kcost.attend_cost(q3, bufs[0][0], mask, hkv=hkv)
         n = launches["generate"][cache_dtype]["hyft_splitk_decode"]
         rows.append({
             "name": f"hyft_splitk_decode[zamba2,{cache_dtype},d{d}]", "route": "cuda",
@@ -4254,9 +4423,8 @@ def hybrid_kernels_phase(torch, errors, launches):
                                   "ssm": 0},
             "keys": list(HYBRID_DECODE_LENGTHS),
             "max_abs_err": errors[("hyft_splitk_decode", cache_dtype)], **timing,
-            "kernel_ms": event_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops, "library_ms": None})
+            "kernel_ms": event_ms, "plain_ms": plain_ms, **_bound(count),
+            "library_ms": None})
         del bufs
     return rows
 
@@ -5004,6 +5172,7 @@ def _encdec_decode_rows(torch, gen, cfg, launches):
     ENC_PROMPT + NEW - 1 live keys (of ENC_PROMPT + NEW + 1), fp2fx8,
     rotating over one cache a decoder layer."""
     from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import flash_attention as fa
 
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -5029,11 +5198,7 @@ def _encdec_decode_rows(torch, gen, cfg, launches):
     event_ms = _event_ms(torch, call(fa._splitk_attention_cuda), 200)
     timing = _kernel_ms(torch, call(fa._splitk_attention_cuda), 200, "decode_kernel", event_ms)
     plain_ms = _event_ms(torch, call(fa.splitk_attention_plain), 20)
-    nbytes = (2 * BH * hq // hkv * d * 4 + 2 * BH * live * d + 2 * BH * live * 4
-              + mask.numel() * 4)
-    flops = 4 * d * B * hq * live
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    count = kcost.attend_cost(q3, k, mask, hkv=hkv)
     del bufs
     return [{"name": f"hyft_splitk_decode[{ENCDEC_ARCH},fp2fx8,d{d}]", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/hyft_splitk.cu",
@@ -5043,9 +5208,7 @@ def _encdec_decode_rows(torch, gen, cfg, launches):
              "launches": launches,
              "launches_are": "per generate, sequential prefill (95 steps x 24 layers)",
              "max_abs_err": err["max_abs_err"], **timing, "kernel_ms": event_ms,
-             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "bytes": nbytes, "flops": flops, "library_ms": None}]
+             "plain_ms": plain_ms, **_bound(count), "library_ms": None}]
 
 
 def main():
@@ -5074,6 +5237,7 @@ def main():
     profile_phase(torch, params, cfg)
     paged_launches, paged_outs, reqs = continuous_serve_phase(torch, params, cfg)
     paged_parity_phase(torch, params, cfg, paged_outs, reqs)
+    micro = cost_book_phase(torch, params, cfg)
     chaos_phase(torch, params, cfg, reqs, info["nvidia_smi"])
     torch.cuda.empty_cache()
     unfused_launches = unfused_serve_phase(torch, params, cfg)
@@ -5106,14 +5270,16 @@ def main():
     torch.cuda.empty_cache()
     vlm_launches = vlm_phase(torch)
     torch.cuda.empty_cache()
-    emit({"kernels": kernels_phase(torch, errors, launches)
-          + paged_kernels_phase(torch, paged_errs, paged_launches)
-          + flash_kernels_phase(torch, flash_errs, train_launches, bert_launches)
-          + softmax_kernels_phase(torch, softmax_errs, unfused_launches,
-                                  unfused_train_launches, moe_launches)
-          + widths_kernels_phase(torch, width_errs, flash_errs, spec)
-          + hybrid_kernels_phase(torch, hybrid_errs, hybrid_launches)
-          + families_kernels_phase(torch, family_errs, encdec_launches, vlm_launches)})
+    kernels = (kernels_phase(torch, errors, launches)
+               + paged_kernels_phase(torch, paged_errs, paged_launches)
+               + flash_kernels_phase(torch, flash_errs, train_launches, bert_launches)
+               + softmax_kernels_phase(torch, softmax_errs, unfused_launches,
+                                       unfused_train_launches, moe_launches)
+               + widths_kernels_phase(torch, width_errs, flash_errs, spec)
+               + hybrid_kernels_phase(torch, hybrid_errs, hybrid_launches)
+               + families_kernels_phase(torch, family_errs, encdec_launches, vlm_launches))
+    micro_vs_kernels(micro, kernels)
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
 

@@ -59,6 +59,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import numerics as nm
 from repro_torch.core.hyft import HyftConfig
+from repro_torch.kernels import cost
 
 F32 = torch.float32
 I32 = torch.int32
@@ -437,12 +438,13 @@ def flash_hyft_decode(q, k, v, cfg: HyftConfig, sm_scale: float | None = None,
     maskf = (kv_len_mask.to(F32).contiguous() if kv_len_mask is not None
              else torch.ones((B, Sk), dtype=F32, device=q.device))
     q3 = q.reshape(B * Hkv, g, D).to(F32).contiguous()
-    out = _splitk_attention_for(q.device)(
-        q3, k.reshape(B * Hkv, Sk, D), v.reshape(B * Hkv, Sk, D),
-        None if k_scale is None else k_scale.reshape(B * Hkv, Sk),
-        None if v_scale is None else v_scale.reshape(B * Hkv, Sk),
-        maskf, cfg=cfg, sm_scale=scale, bk=_block_k(Sk, block_k), hkv=Hkv,
-        sq=None)
+    with cost.scope(cost.attend_cost, q3, k, maskf, hkv=Hkv):
+        out = _splitk_attention_for(q.device)(
+            q3, k.reshape(B * Hkv, Sk, D), v.reshape(B * Hkv, Sk, D),
+            None if k_scale is None else k_scale.reshape(B * Hkv, Sk),
+            None if v_scale is None else v_scale.reshape(B * Hkv, Sk),
+            maskf, cfg=cfg, sm_scale=scale, bk=_block_k(Sk, block_k), hkv=Hkv,
+            sq=None)
     return out.reshape(B, Hq, 1, D)
 
 
@@ -472,10 +474,12 @@ def flash_hyft_decode_paged(q, k_pages, v_pages, block_tables, cfg: HyftConfig,
     maskf = (kv_len_mask.to(F32).contiguous() if kv_len_mask is not None
              else torch.ones((B, nb * ps), dtype=F32, device=q.device))
     q3 = q.reshape(B * Hkv, g, D).to(F32).contiguous()
-    out = _paged_attention_for(q.device)(
-        q3, k_pages, v_pages, k_scale, v_scale,
-        block_tables.to(I32).contiguous(), maskf, cfg=cfg, sm_scale=scale,
-        hkv=Hkv, sq=None)
+    bt = block_tables.to(I32).contiguous()
+    with cost.scope(cost.attend_cost, q3, k_pages, maskf, hkv=Hkv,
+                    block_tables=bt):
+        out = _paged_attention_for(q.device)(
+            q3, k_pages, v_pages, k_scale, v_scale, bt, maskf, cfg=cfg,
+            sm_scale=scale, hkv=Hkv, sq=None)
     return out.reshape(B, Hq, 1, D)
 
 
@@ -500,19 +504,23 @@ def flash_hyft_verify(q, k, v, kv_pos_mask, cfg: HyftConfig,
     g = Hq // Hkv
     scale = sm_scale if sm_scale is not None else D ** -0.5
     q3 = q.reshape(B * Hkv, g * Sq, D).to(F32).contiguous()
+    maskf = kv_pos_mask.to(F32).contiguous()
     if block_tables is not None:          # paged pool: pages as splits
-        out = _paged_attention_for(q.device)(
-            q3, k, v, k_scale, v_scale, block_tables.to(I32).contiguous(),
-            kv_pos_mask.to(F32).contiguous(), cfg=cfg, sm_scale=scale,
-            hkv=Hkv, sq=Sq)
+        bt = block_tables.to(I32).contiguous()
+        with cost.scope(cost.attend_cost, q3, k, maskf, hkv=Hkv,
+                        block_tables=bt):
+            out = _paged_attention_for(q.device)(
+                q3, k, v, k_scale, v_scale, bt, maskf, cfg=cfg, sm_scale=scale,
+                hkv=Hkv, sq=Sq)
         return out.reshape(B, Hq, Sq, D)
     Sk = k.shape[2]
-    out = _splitk_attention_for(q.device)(
-        q3, k.reshape(B * Hkv, Sk, D), v.reshape(B * Hkv, Sk, D),
-        None if k_scale is None else k_scale.reshape(B * Hkv, Sk),
-        None if v_scale is None else v_scale.reshape(B * Hkv, Sk),
-        kv_pos_mask.to(F32).contiguous(), cfg=cfg, sm_scale=scale,
-        bk=_block_k(Sk, block_k), hkv=Hkv, sq=Sq)
+    with cost.scope(cost.attend_cost, q3, k, maskf, hkv=Hkv):
+        out = _splitk_attention_for(q.device)(
+            q3, k.reshape(B * Hkv, Sk, D), v.reshape(B * Hkv, Sk, D),
+            None if k_scale is None else k_scale.reshape(B * Hkv, Sk),
+            None if v_scale is None else v_scale.reshape(B * Hkv, Sk),
+            maskf, cfg=cfg, sm_scale=scale, bk=_block_k(Sk, block_k), hkv=Hkv,
+            sq=Sq)
     return out.reshape(B, Hq, Sq, D)
 
 
@@ -893,14 +901,19 @@ class _FlashHyftAttention(torch.autograd.Function):
     """The fused forward, and a backward through the two backward kernels
     (``_flash_attn`` and its ``custom_vjp``, :374-412), on pre-padded 4D
     operands.  The forward saves ``(q, k, v, maskf, o, m, l)``; the backward
-    takes do in fp32 and returns dq, dk, dv in the inputs' dtypes."""
+    takes do in fp32 and returns dq, dk, dv in the inputs' dtypes.
+    ``count(kernel)`` is each kernel's count (``kernels/cost.py``) at the
+    unpadded operands, which the forward's and the backward's cost scopes
+    add once a kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, maskf, cfg, sm_scale, causal, bk, q_offset):
+    def forward(ctx, q, k, v, maskf, cfg, sm_scale, causal, bk, q_offset, count):
         fwd, _, _ = _flash_impls(q.device)
         ctx.opts = dict(cfg=cfg, sm_scale=sm_scale, causal=causal, bk=bk,
                         group=q.shape[1] // k.shape[1], q_offset=q_offset)
-        o3, m2, l2 = fwd(_h3(q), _h3(k), _h3(v), maskf, **ctx.opts)
+        ctx.count = count
+        with cost.scope(count, "hyft_flash_fwd"):
+            o3, m2, l2 = fwd(_h3(q), _h3(k), _h3(v), maskf, **ctx.opts)
         ctx.save_for_backward(q, k, v, maskf, o3, m2, l2)
         return o3.reshape(q.shape)
 
@@ -910,10 +923,13 @@ class _FlashHyftAttention(torch.autograd.Function):
         _, bwd_dq, bwd_dkv = _flash_impls(q.device)
         q3, k3, v3, do3 = _h3(q), _h3(k), _h3(v), _h3(do.to(F32))
         args = (q3, k3, v3, maskf, do3, _flash_delta(do3, o3).contiguous(), m2, l2)
-        dq = bwd_dq(*args, **ctx.opts)
-        dk, dv = bwd_dkv(*args, **ctx.opts)
+        with cost.scope(ctx.count, "hyft_flash_bwd_dq"):
+            dq = bwd_dq(*args, **ctx.opts)
+        with cost.scope(ctx.count, "hyft_flash_bwd_dkv"):
+            dk, dv = bwd_dkv(*args, **ctx.opts)
         return (dq.reshape(q.shape).to(q.dtype), dk.reshape(k.shape).to(k.dtype),
-                dv.reshape(v.shape).to(v.dtype), None, None, None, None, None, None)
+                dv.reshape(v.shape).to(v.dtype), None, None, None, None, None, None,
+                None)
 
 
 def flash_hyft_attention(q, k, v, cfg: HyftConfig, sm_scale: float | None = None,
@@ -938,16 +954,23 @@ def flash_hyft_attention(q, k, v, cfg: HyftConfig, sm_scale: float | None = None
     Hkv = k.shape[1]
     assert Hq % Hkv == 0
     scale = sm_scale if sm_scale is not None else D ** -0.5
+    q_shape, k_shape, itemsize = tuple(q.shape), tuple(k.shape), q.element_size()
     q, k, v, maskf, bk = flash_operands(q, k, v, kv_len_mask, block_q, block_k)
     q_offset = int(q_offset)
 
+    def count(kernel):
+        return cost.flash_cost(kernel, q_shape, k_shape, itemsize, causal=causal,
+                               q_offset=q_offset, kv_len_mask=kv_len_mask,
+                               masked=maskf is not None)
+
     if return_stats:  # forward only
         fwd, _, _ = _flash_impls(q.device)
-        with torch.no_grad():
+        with torch.no_grad(), cost.scope(count, "hyft_flash_fwd"):
             o, m2, l2 = fwd(_h3(q), _h3(k), _h3(v), maskf, cfg=cfg, sm_scale=scale,
                             causal=causal, bk=bk, group=Hq // Hkv, q_offset=q_offset)
         return (o.reshape(q.shape)[:, :, :Sq], m2.reshape(B, Hq, -1)[:, :, :Sq],
                 l2.reshape(B, Hq, -1)[:, :, :Sq])
 
-    out = _FlashHyftAttention.apply(q, k, v, maskf, cfg, scale, causal, bk, q_offset)
+    out = _FlashHyftAttention.apply(q, k, v, maskf, cfg, scale, causal, bk, q_offset,
+                                    count)
     return out[:, :, :Sq]

@@ -44,6 +44,7 @@ import torch
 from repro_torch.core import numerics as nm
 from repro_torch.core.hyft import (HyftConfig, hyft_exp_fields, hyft_softmax_bwd,
                                    hyft_softmax_fwd)
+from repro_torch.kernels import cost
 from repro_torch.kernels.flash_attention import _hyft_args, _launch, _ptr
 
 F32 = torch.float32
@@ -79,11 +80,11 @@ def hyft_softmax_fwd_kernel(z: torch.Tensor, cfg: HyftConfig,
     """Hyft softmax over the last axis of ``z`` (..., cols), in ``cfg.dtype``."""
     _check_rows(z, "z")
     _check_block_rows(block_rows)
-    if z.device.type == "cpu":
-        return hyft_softmax_fwd(z, cfg)
-    if z.device.type == "cuda":
-        return _fwd_cuda(z, cfg)
-    raise ValueError(f"no Hyft softmax kernel for device {z.device}")
+    if z.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no Hyft softmax kernel for device {z.device}")
+    with cost.scope(cost.softmax_cost, "hyft_softmax_fwd", z.shape,
+                    z.element_size(), cfg.dtype.itemsize):
+        return hyft_softmax_fwd(z, cfg) if z.device.type == "cpu" else _fwd_cuda(z, cfg)
 
 
 def hyft_softmax_bwd_kernel(s: torch.Tensor, dy: torch.Tensor, cfg: HyftConfig,
@@ -104,11 +105,13 @@ def hyft_softmax_bwd_kernel(s: torch.Tensor, dy: torch.Tensor, cfg: HyftConfig,
     if s.device != dy.device:
         raise ValueError(f"s on {s.device} and dy on {dy.device}")
     _check_block_rows(block_rows)
-    if s.device.type == "cpu":
-        return hyft_softmax_bwd(s, dy, cfg).to(out_dtype)
-    if s.device.type == "cuda":
+    if s.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no Hyft softmax kernel for device {s.device}")
+    with cost.scope(cost.softmax_cost, "hyft_softmax_bwd", s.shape,
+                    s.element_size() + dy.element_size(), out_dtype.itemsize):
+        if s.device.type == "cpu":
+            return hyft_softmax_bwd(s, dy, cfg).to(out_dtype)
         return _bwd_cuda(s, dy, cfg, out_dtype)
-    raise ValueError(f"no Hyft softmax kernel for device {s.device}")
 
 
 def _fwd_cuda(z, cfg: HyftConfig):

@@ -231,9 +231,11 @@ def main(argv=None):
                 deadline=args.deadline))
         eng = SlotPoolEngine(model, params, scfg, generator=gen, device=dev, obs=obs)
         if obs is not None:
-            # build the kernels up front, so the trace separates the build
-            # (its "compile" span) from steady-state serving
-            eng.prewarm()
+            # build the kernels and count every executable up front, so the
+            # trace separates the build (its "compile" span) from
+            # steady-state serving and the cost book has rows for the
+            # roofline counter tracks
+            eng.prewarm(max(len(r.tokens) for r in reqs))
         try:
             with xla_profile(args.xla_profile):
                 done = eng.run(reqs)
@@ -280,7 +282,8 @@ def main(argv=None):
     with xla_profile(args.xla_profile):
         out = generate(model, params, batch, scfg,
                        max_new=args.max_new, generator=gen, device=dev,
-                       tracer=obs.tracer if obs is not None else None)
+                       tracer=obs.tracer if obs is not None else None,
+                       profile=obs.profile if obs is not None else None)
     for i, row in enumerate(out.tolist()):
         print(f"[{i}] {row}")
     if args.xla_profile:

@@ -12,10 +12,19 @@ three through an engine:
              exponent range, fp2fx8 scale histogram, int8 saturation,
              convert volume, fed per burst when ``ServeConfig.telemetry``
              is on
+  profile  — the per-executable cost book (``obs.profile``): FLOPs and
+             bytes counted up front, joined with measured dispatch walls
+             into achieved GFLOP/s, GB/s and roofline-fraction gauges
+             against the H100's bound, and ``roofline.<name>`` counter
+             tracks.  Counting is gated on ``profile.enabled`` (on for the
+             ``--trace`` bundle), so plain engines never pay the extra
+             counted call.
 
-The JAX bundle's fourth field, ``profile`` (the ``CostBook``: XLA's HLO
-cost analysis joined with dispatch times into TPU-roofline tracks), is
-not ported (ROADMAP queue 1, the rest of obs/ and port benches).
+Not ported: ``repro.obs.trace``'s ``compile_watch`` and
+``CompileListener``, which read JAX's compile log; eager PyTorch retraces
+nothing, and the port's one compile, the kernel build, is a
+``compile_span`` of the engine's prewarm.  ``repro.obs.ledger`` comes with
+the port's benchmark (ROADMAP queue 1).
 
 Every ``SlotPoolEngine`` owns an Obs (a fresh one with the tracer off by
 default, so two engines never share counters unless the caller passes a
@@ -30,6 +39,7 @@ from typing import Optional
 
 from repro_torch.obs.metrics import Registry
 from repro_torch.obs.numerics import NumericsMonitor
+from repro_torch.obs.profile import CostBook
 from repro_torch.obs.trace import NULL_TRACER, Tracer  # noqa: F401
 
 
@@ -40,6 +50,7 @@ class Obs:
     metrics: Registry = dataclasses.field(default_factory=Registry)
     numerics: NumericsMonitor = dataclasses.field(
         default_factory=NumericsMonitor)
+    profile: CostBook = dataclasses.field(default_factory=CostBook)
     # periodic metrics JSONL export (None = no export); snapshots are
     # appended from the serving loop every ``snapshot_every_s`` seconds and
     # once more at the end of every run
@@ -47,12 +58,17 @@ class Obs:
     snapshot_every_s: float = 1.0
     _last_snapshot: float = dataclasses.field(default=0.0, repr=False)
 
+    def __post_init__(self):
+        # the cost book emits through THIS bundle's registry and tracer
+        self.profile.bind(self.metrics, self.tracer)
+
     @classmethod
     def enabled(cls, metrics_path: Optional[str] = None,
                 snapshot_every_s: float = 1.0) -> "Obs":
-        """An Obs with the tracer on (the ``--trace`` bundle)."""
-        return cls(tracer=Tracer(enabled=True), metrics_path=metrics_path,
-                   snapshot_every_s=snapshot_every_s)
+        """An Obs with the tracer and the cost book on (the ``--trace``
+        bundle)."""
+        return cls(tracer=Tracer(enabled=True), profile=CostBook(enabled=True),
+                   metrics_path=metrics_path, snapshot_every_s=snapshot_every_s)
 
     def maybe_snapshot(self, force: bool = False) -> None:
         """Append a metrics snapshot line to ``metrics_path`` if the export

@@ -17,11 +17,14 @@ generator.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
 from repro_torch.configs.base import ServeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import resolve_attn_mode
+from repro_torch.obs.profile import block_until_ready
 from repro_torch.obs.trace import NULL_TRACER
 
 I32 = torch.int32
@@ -100,7 +103,8 @@ def build_prefill_chunk(model, scfg: ServeConfig, width: int):
 
 
 def generate(model, params, batch: dict, scfg: ServeConfig, max_new: int,
-             generator: torch.Generator | None = None, device=None, tracer=None):
+             generator: torch.Generator | None = None, device=None, tracer=None,
+             profile=None):
     """Prefill the prompt then decode ``max_new`` tokens; returns (B,
     max_new) int32 on ``device`` (None = the card).
 
@@ -110,7 +114,18 @@ def generate(model, params, batch: dict, scfg: ServeConfig, max_new: int,
     ``tracer``: an optional ``obs.trace.Tracer``, which records the decode
     loop as one span named as the JAX package's (``decode_scan`` or
     ``decode_host_loop``).
+    ``profile``: an optional ``obs.profile.CostBook``.  When it is enabled,
+    the JAX engine's executables are counted before their dispatch and
+    joined with their measured walls, under its names: the attention
+    families' ``prefill_chunk[w=S]`` (counted by one more call with the
+    writes gated off), and the decode loop, as ``decode_loop[steps=N]``
+    (one ``decode_step`` with its writes gated off, times N) under
+    ``decode_loop="scan"`` or ``serve_step`` (one step; its wall the
+    loop's mean a step) under ``"host"``.  The waits for the card that a
+    wall needs happen only with a book; the tokens are the same.
     """
+    if profile is not None and not profile.enabled:
+        profile = None
     dev = resolve_device(device)
     model = resolve_attn_mode(model, scfg.attn_mode)
     if scfg.decode_loop not in ("scan", "host"):
@@ -125,9 +140,20 @@ def generate(model, params, batch: dict, scfg: ServeConfig, max_new: int,
         # outputs match pooled serving for every cache dtype
         nv = (torch.as_tensor(lens, dtype=I32, device=dev) if lens is not None
               else torch.full((B,), S, dtype=I32, device=dev))
-        last, cache = build_prefill_chunk(model, scfg, S)(
-            params, cache, toks, torch.zeros((B,), dtype=I32, device=dev), nv,
-            torch.ones((B,), dtype=torch.bool, device=dev))
+        pc = build_prefill_chunk(model, scfg, S)
+        start = torch.zeros((B,), dtype=I32, device=dev)
+        if profile is None:
+            last, cache = pc(params, cache, toks, start, nv,
+                             torch.ones((B,), dtype=torch.bool, device=dev))
+        else:
+            name = f"prefill_chunk[w={S}]"
+            profile.record(name, pc, params, cache, toks, start, nv,
+                           torch.zeros((B,), dtype=torch.bool, device=dev))
+            t_pc = time.perf_counter()
+            last, cache = pc(params, cache, toks, start, nv,
+                             torch.ones((B,), dtype=torch.bool, device=dev))
+            block_until_ready(dev)
+            profile.observe(name, time.perf_counter() - t_pc)
     else:
         pb = {"tokens": toks}
         if lens is not None:
@@ -140,10 +166,22 @@ def generate(model, params, batch: dict, scfg: ServeConfig, max_new: int,
                                 scfg.top_k, scfg.top_p).to(I32)[:, None]
     tok = sample(last)
     out = [tok]
-    span = "decode_scan" if scfg.decode_loop == "scan" else "decode_host_loop"
+    scan = scfg.decode_loop == "scan"
+    name = f"decode_loop[steps={max_new - 1}]" if scan else "serve_step"
+    if profile is not None and max_new > 1 and name not in profile:
+        # one step with its writes gated off: the cache keeps its content
+        off = torch.zeros((B,), dtype=torch.bool, device=dev)
+        profile.record(name, lambda p, c, t: model.decode_step(p, c, t, S, write_mask=off),
+                       params, cache, tok, trip_factor=max_new - 1 if scan else 1)
+    span = "decode_scan" if scan else "decode_host_loop"
     with (tracer or NULL_TRACER).span(span, steps=max_new - 1):
+        t_loop = time.perf_counter()
         for i in range(max_new - 1):
             logits, cache = model.decode_step(params, cache, tok, S + i)
             tok = sample(logits[:, -1, :])
             out.append(tok)
+        if profile is not None and max_new > 1:
+            block_until_ready(dev)
+            wall = time.perf_counter() - t_loop
+            profile.observe(name, wall if scan else wall / (max_new - 1))
     return torch.cat(out, dim=1)

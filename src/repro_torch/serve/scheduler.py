@@ -73,6 +73,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import resolve_attn_mode
 from repro_torch.obs import Obs
 from repro_torch.obs import numerics as obs_numerics
+from repro_torch.obs.profile import block_until_ready
 from repro_torch.serve import engine, kvpool
 from repro_torch.train.loop import StragglerMonitor
 from repro_torch.tree import tree_leaves
@@ -380,20 +381,61 @@ class SlotPoolEngine:
         if self._converts_per_tok and n_tokens > 0:
             self.obs.numerics.add_converts(n_tokens * self._converts_per_tok)
 
-    def prewarm(self) -> None:
-        """Build the CUDA kernels before serving, under the tracer's
-        "compile" span: the port's counterpart of the JAX engine's
-        prewarm, which compiles every executable a run can hit.  Eager
-        PyTorch compiles nothing else; on the CPU there is nothing to
-        build."""
-        if not self.paged and self._needs_reset:
-            self._reset_rows(range(self.scfg.n_slots))
-        if self.device.type != "cuda":
-            return
-        from repro_torch.kernels import build
-        t0 = time.perf_counter()
-        build.load()
-        self.obs.tracer.compile_span("hyft_kernels", time.perf_counter() - t0, "nvcc")
+    def prewarm(self, max_prompt_len: int, frontend=None) -> None:
+        """Get every executable a run can hit ready, as the JAX engine's
+        prewarm does: build the CUDA kernels (under the tracer's "compile"
+        span; on the CPU there is nothing to build) and, with the cost book
+        on, count the prefill-chunk call at every width admission can
+        bucket to (up to ``max_prompt_len``), and the burst or the spec
+        step, so that the book has a row for each dispatch's roofline track.
+
+        Eager PyTorch compiles nothing else, so ``frontend`` (the JAX
+        engine's encoder warm-up shape for encdec models) has nothing to
+        warm here.  Each counted call writes nothing: the gate is all False
+        and the slots are inactive (paged writes land on the null page, as
+        an idle row's do in a burst), and a counted burst samples from a
+        generator of its own.  The burst is counted one step, times
+        ``decode_burst``."""
+        scfg = self.scfg
+        n = scfg.n_slots
+        tracer = self.obs.tracer
+        with tracer.span("prewarm", max_prompt_len=max_prompt_len):
+            if not self.paged and self._needs_reset:
+                self._reset_rows(range(n))
+            if self.device.type == "cuda":
+                from repro_torch.kernels import build
+                t0 = time.perf_counter()
+                build.load()
+                tracer.compile_span("hyft_kernels", time.perf_counter() - t0, "nvcc")
+            book = self.obs.profile
+            if not book.enabled:
+                return
+            cap = min(_bucket(max_prompt_len), scfg.max_len)
+            c0 = scfg.prefill_chunk
+            widths, b = set(), 4
+            while b < cap:
+                widths.add(min(c0, b) if c0 > 0 else b)
+                b *= 2
+            widths.add(min(c0, cap) if c0 > 0 else cap)
+
+            def zeros(*shape):
+                return torch.zeros(shape, dtype=I32, device=self.device)
+            off = torch.zeros(n, dtype=torch.bool, device=self.device)
+            if self.paged:
+                self.cache["block_tables"] = self._to_device(self.block_tables)
+            for w in sorted(widths):
+                book.record(f"prefill_chunk[w={w}]",
+                            engine.build_prefill_chunk(self.model, scfg, w), self.params,
+                            self.cache, zeros(n, w), zeros(n), zeros(n) + 1, off)
+            if self.spec:
+                book.record("spec_step", self._spec_step, self.params, self.cache,
+                            zeros(n, 1), zeros(n, scfg.draft_k), zeros(n), zeros(n), off,
+                            zeros(n))
+            else:
+                book.record("decode_burst", build_burst(self.model, scfg, 1), self.params,
+                            self.cache, zeros(n, 1), zeros(n), off, zeros(n),
+                            zeros(n) + TTL_NONE, torch.Generator(device=self.device),
+                            trip_factor=max(1, scfg.decode_burst))
 
     def _now(self) -> float:
         """Seconds since run() started (0 before/outside a run), from the
@@ -592,9 +634,14 @@ class SlotPoolEngine:
             self.cache["block_tables"] = self._to_device(self.block_tables)
         with self.obs.tracer.span("prefill_chunk", width=width, rows=len(rows)):
             pc = engine.build_prefill_chunk(self.model, scfg, width)
+            t_wall = time.perf_counter()
             last, self.cache = pc(self.params, self.cache, self._to_device(toks),
                                   self._to_device(self.lengths),
                                   self._to_device(n_valid), self._to_device(gate))
+            exe = f"prefill_chunk[w={width}]"
+            if exe in self.obs.profile:  # the cost join needs the real wall
+                block_until_ready(self.device)
+                self.obs.profile.observe(exe, time.perf_counter() - t_wall)
             fin = [s for s in rows if rem[s] <= width]
             # one read back: every gated row's finiteness, and the first
             # token of the rows whose prompt is now cached
@@ -806,6 +853,7 @@ class SlotPoolEngine:
         n = self.scfg.n_slots
         with self.obs.tracer.span("decode_burst", active=int(self.active.sum())):
             t_in = self._now()
+            t_wall = time.perf_counter()
             emits, oks, self.cache, tok, lengths, active, budget, ttl, tstats = \
                 self._burst(self.params, self.cache,
                             self._to_device(self.last_tok)[:, None],
@@ -825,6 +873,7 @@ class SlotPoolEngine:
             self.budget = tail[3].copy()
             ttl_out = tail[4]
             self._observe_burst(self._now() - t_in, steps)
+            self.obs.profile.observe("decode_burst", time.perf_counter() - t_wall)
         if tstats:
             self.obs.numerics.update(tstats)
         self._count("bursts")
@@ -901,6 +950,7 @@ class SlotPoolEngine:
         was_active = self.active.copy()
         with self.obs.tracer.span("spec_verify", active=int(self.active.sum())):
             t_in = self._now()
+            t_wall = time.perf_counter()
             emitted, self.cache, tok, lengths, active, budget, n_acc, ok, tstats = \
                 self._spec_step(self.params, self.cache,
                                 self._to_device(self.last_tok)[:, None],
@@ -918,6 +968,7 @@ class SlotPoolEngine:
             self.budget = tail[3].copy()
             n_acc, ok = tail[4], tail[5].astype(bool)
             self._observe_burst(self._now() - t_in, 1)
+            self.obs.profile.observe("spec_step", time.perf_counter() - t_wall)
         if tstats:
             self.obs.numerics.update(tstats)
         self._count("bursts")

@@ -260,7 +260,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "src/repro_torch/serve/spec.py", "src/repro_torch/serve/chaos.py",
             "src/repro_torch/obs/__init__.py", "src/repro_torch/obs/metrics.py",
             "src/repro_torch/obs/trace.py", "src/repro_torch/obs/numerics.py",
-            "src/repro_torch/obs/profile.py",
+            "src/repro_torch/obs/profile.py", "src/repro_torch/kernels/cost.py",
+            "src/repro_torch/roofline/hw.py", "src/repro_torch/roofline/analysis.py",
             "src/repro_torch/kernels/flash_attention.py",
             "src/repro_torch/core/costmodel.py", "src/repro_torch/configs/bert_base.py",
             "src/repro_torch/evaluation/table1_accuracy.py",
