@@ -209,8 +209,8 @@ script exits non-zero without its last line:
               1024, 32 new tokens, per cache; 16 chunk and 16 x 31 decode
               launches) and the parity phase (fp32, HYFT32) within
               PARITY_BOUND;
- 18. spec     speculative decoding with mistral-nemo-12b at full width and
-              depth (40 layers, bf16 params, 24.5 GB), hyft16, kernel mode,
+ 18. spec     speculative decoding with mistral-nemo-12b at full width,
+              SPEC_LAYERS of its 40 layers (bf16 params), hyft16, kernel mode,
               over a paged fp2fx8 pool with the prefix cache: the 24 chat
               requests served continuous (the reference), spec with the
               n-gram drafter and spec with the model drafter (qwen2-1.5b's
@@ -316,6 +316,34 @@ script exits non-zero without its last line:
               (``serve_phase``), the paged continuous cell over 16 chat
               requests, ``parity_phase``, training at 24 layers with 256
               patches a sequence and its parity at 2 layers;
+ 27. mesh     (after 21) ranks that share the card over gloo, spawned by
+              ``torch.multiprocessing`` (``mesh_phase``; each child on
+              cuda:0 loads the kernels built in phase 2): the gloo probe
+              on CUDA tensors, torch.distributed's collectives and the
+              functional ones DTensor calls, a collective that kills its
+              process recorded as crashed (the ``mesh_probe`` line); over
+              4 ranks the sequence-parallel decode at qwen2-1.5b's decode
+              shape (264 of 1,056 keys a rank, HYFT16): W=4 against W=1
+              within 2 * 2**-10 * max|v|, against kernel 6 on the whole
+              cache within SP_KERNEL6_BOUND, a lost rank planted beyond
+              it; the compressed all-reduce of one layer's gradient shapes
+              within 4 x the common scale of the exact sum; over 2 ranks
+              the data-parallel step (mesh (2, 1)) of qwen2-1.5b at full
+              width, MESH_LAYERS of its 28 layers, hyft16, kernel mode,
+              fp32 params, AdamW, remat "full", 4 x 1024 tokens: a warm-up
+              whose collectives ``CommDebugMode`` counts by kind,
+              MESH_STEPS timed steps and one in a device-only profiler
+              window (device busy time, idle share) a rank, each launching
+              kernels 3 / 4 / 5 2 x MESH_LAYERS / MESH_LAYERS / MESH_LAYERS
+              times in each rank; then its parity (fp32, HYFT32, 2 layers)
+              against one process on the same card within
+              MESH_PARITY_GATE: the loss, each rank's blocks of the
+              gradients (in their parameters' placements), and after one
+              step of ``build_train_step`` against ``make_step_fn`` the
+              blocks of the parameters; and the tensor-parallel (1, 2) parity where
+              the probe passed the functional collectives it needs (it did
+              not on torch 2.11: the all-gather crashes).  No time of this
+              phase is a scaling number: the ranks divide one card;
 
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -416,6 +444,47 @@ TABLE3_JAX = [
     "table3,hyft32,area=2620,latency=56.5,period=32.1,fom=3.04,area_x_fp32=14.9,"
     "latency_x_fp32=7.2",
 ]
+
+
+# the mesh phase: sequence-parallel decode at qwen2-1.5b's decode shape
+# (B 4, 12 / 2 heads of 128, a 1,024-token prompt plus 32: 1,056 keys, 264
+# a rank over 4 ranks, ragged lengths), HYFT16
+SP_RANKS, SP_KEYS = 4, PROMPT + NEW
+SP_LENGTHS = (1056, 1045, 1035, 1025)
+# max |sp_decode - kernel 6| over that cache: the split-K decode rescales
+# each of its 5 splits by a Hyft exponent where the sequence-parallel tree
+# subtracts the global max before its one exponent, so the two differ by
+# those rescales.  tests/test_torch_mesh.py holds JAX's own gap there
+# (its sp_decode_attention against its flash_hyft_decode) plus the port's
+# stated tolerance (2 * 2**-10 * max|v|) within this bound
+SP_KERNEL6_BOUND = 0.02
+# the data-parallel step: qwen2-1.5b at full width, MESH_LAYERS of its 28
+# layers (two processes' state on one card), global batch B x SEQ, 2 ranks:
+# a warm-up step (its collectives counted), MESH_STEPS timed steps, and one
+# step under a device-only profiler window
+MESH_LAYERS, MESH_STEPS = 8, 1
+# its parity against the one-process step on the same card (fp32, HYFT32,
+# 2 layers, one batch): |dloss| / |loss|, ||dgrad|| / ||grad|| over each
+# rank's blocks of the gradients, and, after one step of each,
+# ||dparams|| / ||update|| over each rank's blocks of the parameters.  The
+# same arithmetic but for the order of the gradients' and the loss's sums
+# over the ranks: 9.4e-8 and 2.1e-6 on mesh (2, 1) (NVIDIA H100 80GB HBM3,
+# 700.00 W), and 1.09e-4 of the update for the parameters after one AdamW
+# step (its first update is about lr x sign(g), so a gradient element
+# within its rounding of 0 moves by up to 2 lr); the gates keep 10x of that
+MESH_PARITY_LAYERS = 2
+MESH_PARITY_GATE = {"loss": 1e-6, "grad": 2e-5, "param": 1.1e-3}
+
+
+def sp_inputs(torch, device="cuda"):
+    """The sequence-parallel decode's q, K, V and lengths: drawn on the CPU
+    from SEED (so the CPU tests see the same data), then moved."""
+    gen = torch.Generator().manual_seed(SEED)
+    q = torch.randn((B, HQ, 1, D), generator=gen)
+    k = torch.randn((B, HKV, SP_KEYS, D), generator=gen)
+    v = torch.randn((B, HKV, SP_KEYS, D), generator=gen)
+    return {"q": q.to(device), "k": k.to(device), "v": v.to(device),
+            "lengths": torch.tensor(SP_LENGTHS).to(device)}
 
 
 T0 = time.monotonic()
@@ -1396,6 +1465,8 @@ CHAOS_PLAN = dict(seed=1, preempt_rate=0.1, evict_storm_rate=0.1, squeeze_rate=0
 CHAOS_TICK_PLAN = dict(seed=3, evict_storm_rate=0.3, squeeze_rate=0.3, squeeze_hold=2,
                        cancel_rate=0.1, max_faults=8)
 CHAOS_FP32_LAYERS = 8
+# the requests of the telemetry off / on pair (the first of the 24)
+CHAOS_TELEMETRY_REQ = 8
 CHAOS_DIR = ROOT / "build" / "chaos"           # the traced run's files
 
 
@@ -1483,8 +1554,9 @@ def chaos_phase(torch, params, cfg, reqs, card):
         before the fault); then one request alone (one slot) poisoned
         twice, which walks to the unfused fp32 retry and completes its
         budget;
-      * bf16, fp2fx8, kernel mode, every arrival at 0: telemetry off and on
-        give the same tokens; the numerics monitor's summary.
+      * bf16, fp2fx8, kernel mode, every arrival at 0, CHAOS_TELEMETRY_REQ
+        requests: telemetry off and on give the same tokens; the numerics
+        monitor's summary.
     Each run drives its kernels with their counts set to 0 before it
     (``_chaos_run``)."""
     import numpy as np
@@ -1578,7 +1650,7 @@ def chaos_phase(torch, params, cfg, reqs, card):
     for tel in (False, True):
         rec, done, eng, _ = _chaos_run(
             torch, model, params, _serve_config(cache_dtype="fp2fx8", audit=True,
-                                                telemetry=tel), at0, cfg)
+                                                telemetry=tel), at0[:CHAOS_TELEMETRY_REQ], cfg)
         outs[tel] = {rid: c.tokens for rid, c in done.items()}
         summary = eng.obs.numerics.summary()
         emit({"phase": "chaos", "part": f"bf16_telemetry_{'on' if tel else 'off'}",
@@ -2669,18 +2741,23 @@ GROUP24 = (48, 2)                        # kernel 7 at a GQA group of 24 rows, D
 SPEC_ARCH, SPEC_DRAFTER, SPEC_K = "mistral-nemo-12b", "qwen2-1.5b", 4
 SPEC_LANES = SPEC_K + 1
 SPEC_LIVE = 1024                         # keys per slot of the Sq 5 timings
+# the depth of mistral-nemo-12b's bf16 runs (of 40; 12.3 GB of bf16 params):
+# a decode step's time is its layers' launches, and verification, the
+# drafters and the pool do not depend on the depth
+SPEC_LAYERS = 16
 # the depth of mistral-nemo-12b's fp32 runs (of 40): the three fp32 serving
 # runs of the spec phase and the lockstep parity's fp32 prefill of 4 x 1024
-# tokens, in the time
-MISTRAL_FP32_LAYERS = 8
+# tokens, in the time: the exactness they check does not depend on the
+# depth
+MISTRAL_FP32_LAYERS = 4
 # bf16 serving: a spec token may differ from the continuous run's only
 # where the reference's top-2 logit margin is within this many bf16 ulps
 # of its top logit.  The logits come out of a bf16 GEMM (an ulp of 2 at
 # the top logits of 256-512 that random weights give); a verify call of 5
 # lanes and a decode step of one run their GEMMs on other shapes, which may
 # round each layer's output to the neighbouring bf16 value and so move a
-# logit by a few ulps after 40 layers.  A larger margin that flips is a
-# fault of the verify path.
+# logit by a few ulps after SPEC_LAYERS layers.  A larger margin that
+# flips is a fault of the verify path.
 BF16_FLIP_ULPS = 8
 
 
@@ -2971,8 +3048,9 @@ def _flip_margins(torch, model, params, reqs, ref, got, seen):
 
 def spec_phase(torch):
     """Speculative decoding on the card: mistral-nemo-12b at its published
-    width and depth (configs/mistral_nemo_12b.py: 40 layers, d_model 5120,
-    32 / 8 heads of 128, d_ff 14336, vocab 131072, bf16 params), random
+    width, SPEC_LAYERS of its 40 layers (configs/mistral_nemo_12b.py:
+    d_model 5120, 32 / 8 heads of 128, d_ff 14336, vocab 131072, bf16
+    params), random
     weights from the seed, hyft16, kernel mode, bf16 compute, served by
     ``SlotPoolEngine`` over a paged fp2fx8 pool (pages of 16, prefix cache,
     8 slots, max_len 2048, prefill chunks of 256): the 24 chat requests of
@@ -3004,7 +3082,7 @@ def spec_phase(torch):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model
 
-    cfg = get_config(SPEC_ARCH).with_(softmax_impl="hyft16")
+    cfg = get_config(SPEC_ARCH).with_(n_layers=SPEC_LAYERS, softmax_impl="hyft16")
     model = build_model(cfg)
     params = model.init(SEED, device=DEV)
     emit({"phase": "init", "arch": cfg.name,
@@ -4449,8 +4527,9 @@ ENC_FLASH = [("encoder", ENC_FRAMES, ENC_FRAMES, B, True, "the encoder (and its 
              ("cross_train", ENC_TRAIN_S, ENC_FRAMES, ENC_TRAIN_B, True,
               "the training step's cross-attention")]
 # whisper's continuous cell over a dense pool: prompts fed in chunks of 64
-# (one gated decode step a lane), 16 requests with frames at once
-ENC_POOL_SLOTS, ENC_POOL_REQ, ENC_POOL_CHUNK = 8, 16, 64
+# (one gated decode step a lane), 12 requests with frames at once (more
+# than the slots: slots are reused)
+ENC_POOL_SLOTS, ENC_POOL_REQ, ENC_POOL_CHUNK = 8, 12, 64
 ENC_POOL_PROMPT, ENC_POOL_NEW = (16, 64), (16, 32)   # each drawn uniformly, inclusive
 # internvl2-1b's training step: patches then text tokens a sequence
 VLM_PATCHES, VLM_TEXT = 256, 768
@@ -5211,6 +5290,464 @@ def _encdec_decode_rows(torch, gen, cfg, launches):
              "plain_ms": plain_ms, **_bound(count), "library_ms": None}]
 
 
+# ---------------------------------------------------------------------------
+# the mesh: ranks that share the card over gloo
+# ---------------------------------------------------------------------------
+
+# the collectives of the gloo probe on CUDA tensors: torch.distributed's
+# ("c10d") and the functional ones DTensor's redistributions call
+# ("funcol": Partial -> Replicate all-reduces, Shard -> Replicate gathers,
+# Partial -> Shard reduce-scatters, Shard -> Shard all-to-alls)
+# (last: on torch 2.11's gloo the functional all-gather of CUDA tensors
+# kills its process, and the ranks after a crash are spawned anew)
+MESH_PROBE = ["c10d_all_reduce_SUM_int32", "c10d_all_reduce_SUM_float32",
+              "c10d_all_reduce_MAX_int32", "c10d_all_reduce_MAX_float32", "c10d_broadcast",
+              "c10d_all_gather_into_tensor", "c10d_reduce_scatter_tensor",
+              "c10d_all_to_all_single", "funcol_all_reduce", "funcol_reduce_scatter_tensor",
+              "funcol_all_to_all_single", "funcol_all_gather_into_tensor"]
+# what the sharded step's redistributions call on the data axis (the
+# gradients' and the loss's partial sums) and, besides, on the model axis
+DP_COLLECTIVES = ("funcol_all_reduce",)
+TP_COLLECTIVES = ("funcol_all_reduce", "funcol_all_gather_into_tensor",
+                  "funcol_reduce_scatter_tensor", "funcol_all_to_all_single")
+
+
+def _probe_one(torch, dist, name, rank, world):
+    """One collective of MESH_PROBE on CUDA tensors: whether it gave the
+    right result (an error it raises propagates)."""
+    import torch.distributed._functional_collectives as fc
+    group = dist.group.WORLD
+    if "all_reduce" in name:
+        op, dt = (name.split("_")[3:] if name.startswith("c10d") else ("SUM", "float32"))
+        x = torch.full((8,), rank + 1, dtype=getattr(torch, dt), device="cuda")
+        if name.startswith("c10d"):
+            dist.all_reduce(x, op=getattr(dist.ReduceOp, op))
+        else:
+            x = fc.wait_tensor(fc.all_reduce(x, "sum", group))
+        return int(x[0]) == (world * (world + 1) // 2 if op == "SUM" else world)
+    if name == "c10d_broadcast":
+        x = torch.full((8,), float(rank), device="cuda")
+        dist.broadcast(x, 0)
+        return float(x.sum()) == 0.0
+    if name.endswith("all_gather_into_tensor"):
+        x = torch.full((4,), float(rank), device="cuda")
+        if name.startswith("c10d"):
+            out = torch.empty(4 * world, device="cuda")
+            dist.all_gather_into_tensor(out, x)
+        else:
+            out = fc.wait_tensor(fc.all_gather_tensor(x, 0, group))
+        return out.tolist() == [float(r) for r in range(world) for _ in range(4)]
+    if name.endswith("reduce_scatter_tensor"):
+        x = torch.ones(4 * world, device="cuda")
+        if name.startswith("c10d"):
+            out = torch.empty(4, device="cuda")
+            dist.reduce_scatter_tensor(out, x)
+        else:
+            out = fc.wait_tensor(fc.reduce_scatter_tensor(x, "sum", 0, group))
+        return out.tolist() == [float(world)] * 4
+    x = torch.arange(world, dtype=torch.float32, device="cuda")
+    if name.startswith("c10d"):
+        out = torch.empty(world, device="cuda")
+        dist.all_to_all_single(out, x)
+    else:
+        out = fc.wait_tensor(fc.all_to_all_single(x, None, None, group))
+    return out.tolist() == [float(rank)] * world
+
+
+def _probe(torch, dist, rank, world, log):
+    """Each collective of MESH_PROBE, in order; rank 0 logs each start and
+    result to ``log``, so a collective that kills its process is known by
+    name.  Returns whether every rank found TP_COLLECTIVES ok."""
+    ok = True
+    for name in MESH_PROBE:
+        if rank == 0:
+            with open(log, "a") as f:
+                print(json.dumps([name, "started"]), file=f, flush=True)
+        try:
+            res = "ok" if _probe_one(torch, dist, name, rank, world) else "wrong result"
+        except RuntimeError as e:              # a collective gloo refuses
+            res = f"{type(e).__name__}: {str(e)[:120]}"
+        torch.cuda.synchronize()
+        if rank == 0:
+            with open(log, "a") as f:
+                print(json.dumps([name, res]), file=f, flush=True)
+        ok = ok and (res == "ok" or name not in TP_COLLECTIVES)
+        dist.barrier()
+    agree = torch.tensor([int(ok)], device="cuda")
+    dist.all_reduce(agree, op=dist.ReduceOp.MIN)
+    return bool(agree[0])
+
+
+def _sp_part(torch, x, rank, world, group, drop_rank=None):
+    """This rank's 264 keys through sp_decode_attention (``drop_rank``'s
+    masked out: a planted fault)."""
+    from repro_torch.core.hyft import HYFT16
+    from repro_torch.models.attention import sp_decode_attention
+    n = SP_KEYS // world
+    sl = slice(rank * n, (rank + 1) * n)
+    valid = torch.arange(SP_KEYS, device="cuda")[None, :] < x["lengths"][:, None]
+    if rank == drop_rank:
+        valid = torch.zeros_like(valid)
+    return sp_decode_attention(x["q"], x["k"][:, :, sl], x["v"][:, :, sl], valid[:, sl],
+                               HYFT16, group=group)
+
+
+def _mesh_four(torch, dist, rank, world):
+    """The sequence-parallel decode and the compressed all-reduce over 4
+    ranks (rank 0's result; None elsewhere)."""
+    from repro_torch.core.hyft import HYFT16
+    from repro_torch.kernels.flash_attention import flash_hyft_decode
+    from repro_torch.optim.compression import compressed_psum_tree
+
+    res = {}
+    one = dist.new_group([0])
+    x = sp_inputs(torch)
+    sp4 = _sp_part(torch, x, rank, world, None)
+    planted = _sp_part(torch, x, rank, world, None, drop_rank=world - 1)
+    times = []
+    for _ in range(5):
+        (_, dt) = _timed(torch, lambda: _sp_part(torch, x, rank, world, None))
+        times.append(dt * 1e3)
+    if rank == 0:
+        sp1 = _sp_part(torch, x, 0, 1, one)
+        valid = (torch.arange(SP_KEYS, device="cuda")[None, :] < x["lengths"][:, None]).float()
+        k6 = flash_hyft_decode(x["q"], x["k"], x["v"], HYFT16, kv_len_mask=valid)
+        k6_ms = _timed(torch, lambda: flash_hyft_decode(x["q"], x["k"], x["v"], HYFT16,
+                                                        kv_len_mask=valid))[1] * 1e3
+        res["sp"] = {"w4_vs_w1": float((sp4 - sp1).abs().max()),
+                     "w4_vs_w1_bound": 2 * 2.0 ** -HYFT16.mant_bits * float(x["v"].abs().max()),
+                     "vs_kernel6": float((sp4 - k6).abs().max()),
+                     "planted_vs_kernel6": float((planted - k6).abs().max()),
+                     "finite": bool(torch.isfinite(sp4).all()),
+                     "sp4_ms": sorted(times)[len(times) // 2], "kernel6_ms": k6_ms}
+    # compressed all-reduce: each rank a tree of one qwen2-1.5b layer's
+    # gradient shapes, from its own seed
+    def tree(r):
+        g = torch.Generator(device="cuda").manual_seed(100 + r)
+        return {"wq": torch.randn((1536, 12, 128), generator=g, device="cuda") * (r + 1),
+                "w_up": torch.randn((1536, 8960), generator=g, device="cuda"),
+                "norm": torch.randn((1536,), generator=g, device="cuda")}
+    mine = tree(rank)
+    (summed, dt) = _timed(torch, lambda: compressed_psum_tree(
+        mine, None, torch.Generator(device="cuda").manual_seed(7 + rank)))
+    if rank == 0:
+        trees = [tree(r) for r in range(world)]
+        gaps = {}
+        for k in mine:
+            exact = sum(t[k] for t in trees)
+            scale = max(float(t[k].abs().max()) for t in trees) / 127.0
+            gaps[k] = {"max_abs_err": float((summed[k] - exact).abs().max()),
+                       "bound": world * scale}
+        res["psum"] = {"gaps": gaps, "ms": dt * 1e3,
+                       "elements": sum(t.numel() for t in mine.values())}
+    return res if rank == 0 else None
+
+
+def _mesh_state(torch, cfg, mesh):
+    """(model, step, state, batch_fn) of the sharded step on ``mesh``."""
+    from repro_torch import optim
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.synthetic import DataConfig, lm_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import build_model
+    from repro_torch.train.state import init_state, state_shardings
+    from repro_torch.train.step import build_train_step
+
+    model = build_model(cfg)
+    ocfg = optim.OptConfig(name="adamw", lr=1e-3)
+    tcfg = TrainConfig(global_batch=B, seq_len=SEQ, lr=1e-3, total_steps=MESH_STEPS + 2,
+                       remat="full", optimizer="adamw", attn_mode="kernel")
+    rules = shd.default_rules(mesh, cfg)
+    state_sh = state_shardings(mesh, model, ocfg, rules)
+    shape = (B, SEQ)
+    batch_sh = shd.batch_shardings(mesh, {"tokens": shape, "targets": shape,
+                                          "mask": shape}, rules)
+    state = init_state(model, ocfg, SEED, shardings=state_sh)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=SEQ, global_batch=B, seed=SEED)
+    step = build_train_step(model, tcfg, ocfg, mesh, state_sh, batch_sh)
+    return model, step, state, lambda s: lm_batch(dcfg, s, device="cuda")
+
+
+def _block_gaps(torch, ref, got, shardings, scale=None):
+    """(sum of squared differences, sum of squares) over this rank's blocks:
+    each leaf of ``got`` (DTensors) must have the placements of its
+    NamedSharding in ``shardings``, and its local block is held against the
+    same block of ``ref`` (whole tensors, one process); the squares are
+    those of ``scale``'s blocks (default ``ref``).  A reduction left undone
+    (a Partial gradient) shows here, where ``full_tensor()`` would do it."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.tree import tree_leaves
+
+    def block(t, sh):
+        return distribute_tensor(t, sh.mesh, sh.placements(), src_data_rank=None).to_local()
+    d2 = n2 = 0.0
+    scale = ref if scale is None else scale
+    for r, g, sh, s in zip(*map(tree_leaves, (ref, got)), tree_leaves(shardings),
+                           tree_leaves(scale)):
+        assert tuple(g.placements) == sh.placements(), (g.placements, sh.placements())
+        d2 += float(((g.to_local() - block(r, sh)) ** 2).sum())
+        n2 += float((block(s, sh) ** 2).sum())
+    return d2, n2
+
+
+def _mesh_parity(torch, mesh_shape):
+    """fp32 compute, HYFT32, MESH_PARITY_LAYERS layers, one batch, on
+    ``mesh_shape`` against one process on the same card (each rank of the
+    mesh runs the one-process reference too, from the same state): the
+    loss and each gradient of ``grads_of`` (``_block_gaps``), then one step
+    of ``build_train_step`` against ``make_step_fn``'s: its loss, and the
+    updated parameters' blocks against the one-process ones, over the
+    one-process update (the state starts at step 1, where the schedule's
+    scale is 1).  Returns this rank's sums; None off the mesh."""
+    from repro_torch import optim
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.synthetic import DataConfig, lm_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.state import init_state, state_shardings
+    from repro_torch.train.step import (build_train_step, grads_of, make_loss_fn,
+                                        make_step_fn)
+    from repro_torch.tree import tree_map
+
+    mesh = make_host_mesh(mesh_shape)      # every rank; its first ranks hold it
+    if mesh.get_coordinate() is None:
+        return None
+    cfg = get_config("qwen2-1.5b").with_(n_layers=MESH_PARITY_LAYERS, softmax_impl="hyft32",
+                                         compute_dtype="float32")
+    model = build_model(cfg)
+    ocfg = optim.OptConfig(name="adamw", lr=1e-3)
+    tcfg = TrainConfig(global_batch=B, seq_len=SEQ, lr=1e-3, warmup_steps=1, total_steps=10,
+                       remat="full", optimizer="adamw", attn_mode="kernel")
+    batch = lm_batch(DataConfig(vocab=cfg.vocab, seq_len=SEQ, global_batch=B, seed=SEED),
+                     0, device="cuda")
+    rules = shd.default_rules(mesh, cfg)
+    state_sh = state_shardings(mesh, model, ocfg, rules)
+    bsh = shd.batch_shardings(mesh, batch, rules)
+    one = init_state(model, ocfg, SEED)
+    one["step"].fill_(1)
+    dstate = tree_map(lambda t, sh: shd.place(t.clone(), sh), one, state_sh)
+    loss_fn = make_loss_fn(model, tcfg)
+    loss, _, grads = grads_of(loss_fn, one["params"], batch)
+    with shd.mesh_compute(mesh, cfg):
+        dloss, _, dgrads = grads_of(loss_fn, dstate["params"], tree_map(shd.place, batch, bsh))
+    res = {"rank": torch.distributed.get_rank(), "loss_one": float(loss),
+           "loss_mesh": float(dloss.full_tensor()),
+           "grad": _block_gaps(torch, grads, dgrads, state_sh["params"])}
+    del grads, dgrads
+    p0 = tree_map(torch.clone, one["params"])
+    one, m1 = make_step_fn(model, tcfg, ocfg)(one, batch)
+    dstate, md = build_train_step(model, tcfg, ocfg, mesh, state_sh, bsh)(dstate, batch)
+    update = tree_map(torch.sub, one["params"], p0)
+    res.update(step_loss_one=float(m1["loss"]), step_loss_mesh=float(md["loss"]),
+               lr_scale=float(m1["lr_scale"]),
+               param=_block_gaps(torch, one["params"], dstate["params"], state_sh["params"],
+                                 scale=update))
+    return res
+
+
+def _mesh_dp(torch, rank):
+    """The data-parallel step at full width on mesh (2, 1) over ranks 0
+    and 1 (MESH_LAYERS layers), with the launches of kernels 3-5 each step:
+    a warm-up step whose collectives ``CommDebugMode`` counts by kind,
+    MESH_STEPS timed steps, and one step in a device-only profiler window
+    (``_window``: this rank's device busy time, idle share, launches, top
+    kernels); the other ranks only take part in making the mesh."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import tree_leaves
+
+    mesh = make_host_mesh((2, 1))
+    if mesh.get_coordinate() is None:
+        return None
+    cfg = get_config("qwen2-1.5b").with_(n_layers=MESH_LAYERS, softmax_impl="hyft16")
+    model, step, state, batch_fn = _mesh_state(torch, cfg, mesh)
+    want = dict.fromkeys(fa.LAUNCHES, 0)
+    want.update(hyft_flash_fwd=2 * MESH_LAYERS, hyft_flash_bwd_dq=MESH_LAYERS,
+                hyft_flash_bwd_dkv=MESH_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    steps, comms, window = [], None, None
+    for i in range(2 + MESH_STEPS):
+        kind = "warmup" if i == 0 else "profiled" if i == 1 + MESH_STEPS else "timed"
+        batch = batch_fn(i)
+        _zero(fa.LAUNCHES)                             # the main path's run
+        if kind == "warmup":
+            cdm = CommDebugMode()
+            with cdm:
+                (state, metrics), dt = _timed(torch, lambda: step(state, batch))
+            comms = {str(k): n for k, n in cdm.get_comm_counts().items()}
+        elif kind == "profiled":
+            out = []
+            window = _window(torch, lambda: out.append(step(state, batch)))
+            (state, metrics), dt = out[0], window["wall_ms"] / 1e3
+        else:
+            (state, metrics), dt = _timed(torch, lambda: step(state, batch))
+        got = dict(fa.LAUNCHES)
+        assert got == want, f"rank {rank}: launch counts {got} != {want}"
+        print(f"[mesh rank {rank}] step {i} ({kind}): {dt:.3f} s", file=sys.stderr, flush=True)
+        steps.append({"step": i, "kind": kind, "ms": dt * 1e3,
+                      "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                      "launches": got})
+        assert math.isfinite(steps[-1]["loss"]) and math.isfinite(steps[-1]["grad_norm"])
+    # the data axis moves gradients, loss and norms by all-reduces alone
+    assert comms and all("all_reduce" in k for k in comms), comms
+    params = tree_leaves(state["params"])
+    res = {"rank": rank, "steps": steps, "peak_memory": torch.cuda.max_memory_allocated(),
+           "placements": sorted({str(p) for p in state["params"]["embed"]["table"].placements}),
+           "collectives_per_step": comms, "param_leaves": len(params),
+           "grad_bytes": sum(p.to_local().numel() * p.to_local().element_size()
+                             for p in params),
+           "profiled_step": window}
+    del state, step, model, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mesh_rank(rank, world, store, out_dir):
+    """One spawned rank on the shared card: the sequence-parallel decode and
+    the compressed all-reduce over all ranks, the data-parallel step and its
+    parity over ranks 0-1, then the gloo probe (last: a collective may kill
+    the ranks) and, where it passed, the tensor-parallel parity.  Each part
+    saves its results, and rank 0 the seconds of the parts so far
+    (``seconds.pt``), before the next starts."""
+    import datetime
+
+    t_start = time.monotonic()
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    assert build.library_path().exists(), "the parent builds the kernels"
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    out = Path(out_dir)
+    clock = {"joined": time.monotonic() - t_start}
+
+    def keep(name, fn):
+        t = time.monotonic()
+        res = fn()
+        if res is not None:
+            torch.save(res, out / f"{name}.pt")
+        dist.barrier()
+        clock[name.split(".")[0]] = time.monotonic() - t
+        if rank == 0:                  # rank 0's seconds a part, kept as they come
+            torch.save(clock, out / "seconds.pt")
+    try:
+        keep("four", lambda: _mesh_four(torch, dist, rank, world))
+        keep(f"dp.{rank}", lambda: _mesh_dp(torch, rank))
+        keep(f"parity_2x1.{rank}", lambda: _mesh_parity(torch, (2, 1)))
+        t = time.monotonic()
+        tp = _probe(torch, dist, rank, world, out / "probe.log")   # the same on every rank
+        clock["probe"] = time.monotonic() - t
+        if tp:
+            keep(f"parity_1x2.{rank}", lambda: _mesh_parity(torch, (1, 2)))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(torch):
+    """Ranks that share the one card over gloo: SP_RANKS processes spawned
+    by ``torch.multiprocessing`` (each on ``cuda:0``, loading the kernels
+    the parent built; ``_mesh_rank``).  The sequence-parallel decode at
+    qwen2-1.5b's decode shape (W=4 against W=1, and against kernel 6 within
+    SP_KERNEL6_BOUND, with a planted lost rank that must break it), the
+    compressed all-reduce (within 4 x the scale of the exact sum), the
+    data-parallel step at full width (MESH_LAYERS layers) on ranks 0-1 and
+    its parity on (2, 1), the gloo probe on CUDA tensors (the
+    ``mesh_probe`` line), and where it passed the tensor-parallel (1, 2)
+    parity.  A rank that fails fails the phase, unless the probe's log
+    shows that a probed collective killed it (that is the probe's
+    finding).  No time here is a scaling number: the ranks divide one
+    card's time."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ctx = mp.start_processes(_mesh_rank, args=(SP_RANKS, f"{tmp}/store", tmp),
+                                 nprocs=SP_RANKS, join=False, start_method="spawn")
+        try:
+            while not ctx.join():
+                pass
+            crash = None
+        except mp.ProcessExitedException as e:     # killed by a signal, not raised
+            crash = str(e)[:160]
+        tmp = Path(tmp)
+        log = tmp / "probe.log"
+        probe = dict(json.loads(ln) for ln in log.read_text().splitlines()) if log.exists() else {}
+        if crash is not None:
+            started = [n for n, r in probe.items() if r == "started"]
+            if not started:
+                raise RuntimeError(f"a mesh rank died outside the probe: {crash}")
+            probe[started[0]] = f"crashed: {crash}"
+        four = torch.load(tmp / "four.pt", weights_only=False)
+        dp = [torch.load(tmp / f"dp.{r}.pt", weights_only=False) for r in range(2)]
+        parity = [_parity_gaps([torch.load(tmp / f"parity_{m}.{r}.pt", weights_only=False)
+                                for r in range(2)], m)
+                  for m in ("2x1", "1x2") if (tmp / f"parity_{m}.0.pt").exists()]
+        seconds = torch.load(tmp / "seconds.pt", weights_only=False)
+    sp = four["sp"]
+    emit({"phase": "mesh", "part": "sp_decode", "ranks": SP_RANKS, "keys": SP_KEYS,
+          "keys_per_rank": SP_KEYS // SP_RANKS, "lengths": list(SP_LENGTHS),
+          "bound": SP_KERNEL6_BOUND, **sp})
+    assert sp["finite"] and sp["w4_vs_w1"] <= sp["w4_vs_w1_bound"], sp
+    assert sp["vs_kernel6"] <= SP_KERNEL6_BOUND, sp
+    assert sp["planted_vs_kernel6"] > SP_KERNEL6_BOUND, "the sp gate misses a lost rank"
+    ps = four["psum"]
+    emit({"phase": "mesh", "part": "compressed_psum", "ranks": SP_RANKS, **ps})
+    assert all(g["max_abs_err"] <= g["bound"] for g in ps["gaps"].values()), ps
+    for r in dp:
+        timed = [s["ms"] for s in r["steps"] if s["kind"] == "timed"]
+        prof = r["profiled_step"]
+        emit({"phase": "mesh", "part": "dp_step", "mesh": [2, 1], "rank": r["rank"],
+              "arch": "qwen2-1.5b", "n_layers": MESH_LAYERS, "global_batch": [B, SEQ],
+              "steps": r["steps"], "mean_step_ms": sum(timed) / len(timed),
+              "profiled_step_ms": prof["wall_ms"], "device_busy_ms": prof["device_busy_ms"],
+              "device_idle_share": prof["device_idle_share"],
+              "device_launches": prof["launches"], "top_kernels": prof["top_kernels"],
+              "collectives_per_step": r["collectives_per_step"],
+              "param_leaves": r["param_leaves"], "grad_bytes": r["grad_bytes"],
+              "peak_memory": r["peak_memory"], "embed_placements": r["placements"]})
+    emit({"phase": "mesh", "part": "mesh_probe", "backend": "gloo", "tensors": "cuda",
+          "ranks": SP_RANKS, "torch": torch.__version__, "collectives": probe})
+    assert set(probe) == set(MESH_PROBE), probe
+    assert all(probe[c] == "ok" for c in DP_COLLECTIVES), probe
+    for par in parity:
+        emit({"phase": "mesh", "part": "parity", **par})
+        for k, gate in MESH_PARITY_GATE.items():
+            assert par[f"{k}_gap"] <= gate and par.get(f"step_{k}_gap", 0.0) <= gate, par
+    tp = all(probe[c] == "ok" for c in TP_COLLECTIVES)
+    assert len(parity) == 1 + tp, parity
+    emit({"phase": "mesh", "seconds": time.monotonic() - t0, "rank0_seconds": seconds,
+          "tensor_parallel_on_card": tp})
+    return tp
+
+
+def _parity_gaps(ranks, mesh):
+    """The parity line of ``_mesh_parity``'s per-rank sums: relative loss
+    gaps, and the gradient and parameter gaps over all ranks' blocks."""
+    r0 = ranks[0]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    def norm(k):
+        return (sum(r[k][0] for r in ranks) / sum(r[k][1] for r in ranks)) ** 0.5
+    return {"mesh": mesh, "loss_mesh": r0["loss_mesh"], "loss_one": r0["loss_one"],
+            "loss_gap": rel(r0["loss_mesh"], r0["loss_one"]),
+            "step_loss_gap": rel(r0["step_loss_mesh"], r0["step_loss_one"]),
+            "grad_gap": norm("grad"), "param_gap": norm("param"),
+            "lr_scale": r0["lr_scale"], "gate": MESH_PARITY_GATE}
+
+
 def main():
     import torch
 
@@ -5262,6 +5799,7 @@ def main():
     torch.cuda.empty_cache()
     restart_phase(torch)
     torch.cuda.empty_cache()
+    mesh_phase(torch)
     hybrid_errs, hybrid_launches = hybrid_phase(torch)
     torch.cuda.empty_cache()
     ssm_phase(torch)

@@ -1,4 +1,4 @@
-"""Config dataclasses: model, train and serve (own copies of
+"""Config dataclasses: model, train, serve and mesh (own copies of
 ``repro.configs.base``).
 
 The fields and defaults are those of the JAX package, so a configuration
@@ -113,13 +113,15 @@ class ServeConfig:
     """The serving knobs of the lockstep ``generate`` path, of the
     slot-pool scheduler (``repro_torch.serve.scheduler``) and of its
     speculative mode (``repro_torch.serve.spec``), with the JAX defaults.
-    The sequence-parallel fields come with the slice that ports that layer
-    (ROADMAP queue 1: distributed and the mesh)."""
+    ``seq_parallel`` is the JAX field, read by no serving path of either
+    package: the sequence-parallel decode is
+    ``models.attention.sp_decode_attention``, called over a process group."""
 
     max_len: int = 256
     # KV-cache storage: a dtype name, or "fp2fx8" = int8 FP2FX raws +
     # per-(head, position) fp32 scale (dequant fused into the kernels)
     cache_dtype: str = "bfloat16"
+    seq_parallel: bool = False       # sequence-parallel decode attention
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
@@ -190,3 +192,14 @@ class ServeConfig:
     # before and after the max subtraction; fp2fx8 scale histogram and int8
     # saturation of the cache after the burst), read back once per burst
     telemetry: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The production mesh's geometry (``launch/mesh.py``)."""
+    shape: tuple = (16, 16)
+    axes: tuple = ("data", "model")
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axes

@@ -1,1 +1,2 @@
-"""Fault tolerance (own copy of ``repro.distributed``'s one-device parts)."""
+"""The distributed layer (own copy of ``repro.distributed``): sharding
+rules over DTensor, and fault tolerance."""

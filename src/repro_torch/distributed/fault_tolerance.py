@@ -1,4 +1,4 @@
-"""Fault tolerance: restart manager and straggler monitor.
+"""Fault tolerance: restart manager, straggler monitor, elastic re-meshing.
 
 Own copy of ``repro.distributed.fault_tolerance``:
   * RestartManager supervises the train loop; on failure it reloads the
@@ -7,8 +7,10 @@ Own copy of ``repro.distributed.fault_tolerance``:
   * StragglerMonitor keeps a per-step wall-time EMA and flags a step above
     ``threshold`` times it (after ``warm`` steps); a flagged step stays out
     of the EMA.
-``elastic_remesh`` (re-meshing over the devices still alive) comes with the
-mesh (ROADMAP queue 1, distributed and the mesh).
+  * elastic_remesh rebuilds a (data, model) mesh over the ranks still
+    alive: the data axis shrinks, the model axis is kept whole (a TP group
+    must stay whole), and ``checkpointer.restore(shardings=)`` re-places a
+    checkpoint on the new mesh: that is elastic scaling.
 """
 from __future__ import annotations
 
@@ -16,7 +18,10 @@ import dataclasses
 import time
 from typing import Callable, Optional
 
+import torch.distributed as dist
+
 from repro_torch.checkpoint import checkpointer
+from repro_torch.launch.mesh import mesh_over
 
 
 @dataclasses.dataclass
@@ -40,6 +45,19 @@ class StragglerMonitor:
         else:  # don't pollute the EMA with outliers
             self.ema = self.beta * self.ema + (1 - self.beta) * dt
         return is_straggler
+
+
+def elastic_remesh(model_size: int, axes=("data", "model"), ranks=None,
+                   device=None):
+    """A mesh over the ranks still alive (``ranks``; None: every rank of the
+    process group); the data axis absorbs the loss, dropping the ranks past
+    the last whole model group.  Every rank of the group calls it, the
+    dropped ones too (the mesh's process groups are made collectively)."""
+    ranks = list(range(dist.get_world_size())) if ranks is None else list(ranks)
+    n = (len(ranks) // model_size) * model_size
+    if n == 0:
+        raise RuntimeError("not enough ranks to keep a model-parallel group")
+    return mesh_over(ranks[:n], (n // model_size, model_size), axes, device)
 
 
 @dataclasses.dataclass

@@ -1,8 +1,8 @@
 """Attention: GQA projections, the three modes, the KV cache, and the decode
 / chunk attention entries of the serving path.
 
-The PyTorch counterpart of ``repro.models.attention`` for the dense family
-(the sequence-parallel decode comes later).  Modes (``cfg.attn_mode``):
+The PyTorch counterpart of ``repro.models.attention``.  Modes
+(``cfg.attn_mode``):
 
   unfused  — QK^T -> registry softmax (hyft/exact) -> PV; the reference,
              differentiable through the Hyft softmax's own backward.
@@ -12,6 +12,14 @@ The PyTorch counterpart of ``repro.models.attention`` for the dense family
   kernel   — the CUDA kernels (plain PyTorch versions on the CPU): the fused
              flash forward and backward for whole sequences, split-K for
              decode and prompt chunks.
+
+On DTensors (a sharded training step) ``attention_fwd`` runs its mode on
+each rank's local (batch, head) blocks through ``local_map``: attention is
+independent per (batch, head), so it needs no collective, and the kernels
+(raw pointers) and the Hyft bit arithmetic see plain local tensors.
+``sp_decode_attention`` is the paper's two-level tree across ranks: an
+all-reduce of the fixed-point max, then of the fixed sums and PV
+accumulators.
 
 The cache is ``{"k", "v"[, "k_scale", "v_scale"]}`` per layer, the JAX
 layout: (B, Hkv, L, D) dense, or a page pool (n_pages + 1, Hkv, page_size,
@@ -30,6 +38,7 @@ from repro_torch.core import numerics as nm
 from repro_torch.core.registry import get_softmax, hyft_config_for
 from repro_torch.configs.base import torch_dtype
 from repro_torch.core.hyft import HyftConfig
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import gather_pages, hyft_alpha, hyft_finalize
 from repro_torch.models.layers import apply_rope
@@ -229,8 +238,10 @@ def attention_fwd(q, k, v, cfg, *, causal=True, q_offset=0, kv_len_mask=None):
     All three modes honor the mask contract (``kernels/ops.py``).  The
     unfused mode takes over for non-Hyft softmaxes, a ``q_offset`` that is
     not an int, and (chunked mode only) a KV length the chunk size does not
-    divide.
+    divide.  On DTensors it runs on the local blocks (``_sharded_attention``).
     """
+    if is_dtensor(q):
+        return _sharded_attention(q, k, v, cfg, causal, q_offset, kv_len_mask)
     hcfg = hyft_config_for(cfg.softmax_impl)
     mode = getattr(cfg, "attn_mode", "unfused")
     if hcfg is not None and isinstance(q_offset, int):
@@ -246,6 +257,108 @@ def attention_fwd(q, k, v, cfg, *, causal=True, q_offset=0, kv_len_mask=None):
                                       kv_len_mask=maskf).to(q.dtype)
     return unfused_attention(q, k, v, cfg.softmax_impl, causal=causal,
                              q_offset=q_offset, kv_len_mask=kv_len_mask)
+
+
+def _sharded_attention(q, k, v, cfg, causal, q_offset, mask):
+    """``attention_fwd`` on DTensors q (B, Hq, S, D), k/v (B, Hkv, Sk, D):
+    the batch may be sharded (``Shard(0)``) and the heads (``Shard(1)``);
+    any other placement is made whole first.  k/v follow q's batch
+    placement, and q's head placement where Hkv divides it.  Where q's heads
+    are sharded and the kv heads are not (qwen2's 2 kv heads at ``model``
+    4), each rank takes the kv heads its q heads read, and their gradient
+    is a partial sum over those ranks."""
+    from torch.distributed.tensor import Partial, Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    Hq, Hkv = q.shape[1], k.shape[1]
+    head_dims = [i for i, p in enumerate(q.placements) if p == Shard(1)]
+    n_head_shards = 1
+    for i in head_dims:
+        n_head_shards *= mesh.size(i)
+    kv_split = Hkv % n_head_shards == 0
+    qp, kp, gp = [], [], []
+    for i, p in enumerate(q.placements):
+        if p == Shard(0):
+            qp.append(p), kp.append(p), gp.append(p)
+        elif p == Shard(1):
+            qp.append(p)
+            kp.append(p if kv_split else Replicate())
+            gp.append(p if kv_split else Partial())
+        else:
+            qp.append(Replicate()), kp.append(Replicate()), gp.append(Replicate())
+    q = q.redistribute(mesh, qp)
+    k, v = k.redistribute(mesh, kp), v.redistribute(mesh, kp)
+    mp = None
+    if mask is not None:
+        mp = tuple(p if p == Shard(0) else Replicate() for p in qp)
+        mask = (mask.redistribute(mesh, mp) if is_dtensor(mask) else
+                distribute_tensor(mask, mesh, mp, src_data_rank=None))
+    # the global index of this rank's first q head (heads major to minor
+    # in mesh-dim order)
+    coord, off, chunk = mesh.get_coordinate(), 0, Hq
+    for i in head_dims:
+        chunk //= mesh.size(i)
+        off += coord[i] * chunk
+
+    def body(ql, kl, vl, ml):
+        if head_dims and not kv_split:
+            g, hl = Hq // Hkv, ql.shape[1]
+            first, last = off // g, (off + hl - 1) // g
+            if hl % g == 0 or first == last:   # whole groups, or one group's part
+                kl, vl = kl[:, first:last + 1], vl[:, first:last + 1]
+            else:                              # one kv head a q head
+                idx = [(off + i) // g for i in range(hl)]
+                kl, vl = kl[:, idx], vl[:, idx]
+        return (attention_fwd(ql, kl.contiguous(), vl.contiguous(), cfg, causal=causal,
+                              q_offset=q_offset, kv_len_mask=ml),)
+    run = local_map(body, out_placements=(tuple(qp),),
+                    in_placements=(tuple(qp), tuple(kp), tuple(kp), mp),
+                    in_grad_placements=(tuple(qp), tuple(gp), tuple(gp), mp),
+                    device_mesh=mesh)
+    return run(q, k, v, mask)[0]
+
+
+# --------------------------------------------------------------------------
+# sequence-parallel decode: the Hyft L1/L2 tree across ranks
+# --------------------------------------------------------------------------
+
+
+def sp_decode_attention(q, k_shard, v_shard, valid_mask, cfg: HyftConfig,
+                        group=None):
+    """One rank's part of a decode step whose KV cache is split on the
+    sequence axis over the ranks of ``group`` (a process group; None: the
+    world).
+
+    q: (B, Hq, 1, D), the same on every rank; k/v_shard: (B, Hkv, Ss, D),
+    this rank's keys; valid_mask: (B, Ss) bool.  L1 is the local Hyft
+    stages 1-2; L2 is an all-reduce (MAX) of the int32 fixed-point max,
+    then an all-reduce (SUM) of the fixed sums and of the fp32 PV
+    accumulators, then the DIV unit.  Plain torch ops, as the JAX body is
+    plain ``jnp``.  Returns (B, Hq, 1, D) fp32, the same on every rank.
+    """
+    import torch.distributed as dist
+
+    B, Hq, _, D = q.shape
+    Hkv = k_shard.shape[1]
+    g = Hq // Hkv
+    qg = q.reshape(B, Hkv, g, 1, D).to(F32) * (D ** -0.5)
+    z = torch.matmul(qg, k_shard.to(F32)[:, :, None].transpose(-1, -2))
+    z = torch.where(valid_mask[:, None, None, None, :], z, NEG_BIG)
+    # L1: local fixed-point max
+    z_raw = nm.fp2fx(z, cfg.frac_bits, cfg.total_bits)
+    m_glob = torch.amax(z_raw, dim=-1, keepdim=True)
+    # L2a: global max (integer all-reduce)
+    dist.all_reduce(m_glob, op=dist.ReduceOp.MAX, group=group)
+    e, m = nm.exp_unit(z_raw - m_glob, cfg.frac_bits, cfg.mant_bits)
+    addend = nm.expfloat_to_fx(e, m, cfg.mant_bits, cfg.acc_bits)
+    l_glob = torch.sum(addend, dim=-1, keepdim=True)
+    p = ((1 << cfg.mant_bits) + m).to(F32) * nm.pow2_float(e - cfg.mant_bits)
+    acc_glob = torch.matmul(p, v_shard.to(F32)[:, :, None])
+    # L2b: global fixed-point sum and accumulator reduce
+    dist.all_reduce(l_glob, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(acc_glob, op=dist.ReduceOp.SUM, group=group)
+    return hyft_finalize(acc_glob, l_glob, cfg).reshape(B, Hq, 1, D)
 
 
 # --------------------------------------------------------------------------

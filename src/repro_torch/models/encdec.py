@@ -33,7 +33,7 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.layers import NORMS, embed_lookup, make_norm
-from repro_torch.models.transformer import (_block_init, _layers, _normal,
+from repro_torch.models.transformer import (_block_init, _layers,
                                             _prefill_chunk_scan, _remat, _stack_leaves,
                                             _stacked, attn_init, logits_fn)
 
@@ -55,11 +55,12 @@ def init(generator: torch.Generator, cfg, device=None) -> dict[str, Any]:
     """Fresh weights with the JAX package's keys, shapes and scales; the
     values are torch's (``repro_torch.convert`` bridges JAX's)."""
     dm, pd = cfg.d_model, cfg.pdtype
+    rnd, _ = _stacked(generator, cfg, None, device)
     p: dict[str, Any] = {
-        "frontend_proj": {"w": _normal(generator, (cfg.frontend_dim, dm),
-                                       cfg.frontend_dim ** -0.5, pd, device)},
+        "frontend_proj": {"w": rnd((cfg.frontend_dim, dm), cfg.frontend_dim ** -0.5,
+                                   (None, "embed"))},
         "enc_blocks": _block_init(generator, cfg, device, cfg.enc_layers),
-        "embed": {"table": _normal(generator, (cfg.vocab, dm), 1.0, pd, device)},
+        "embed": {"table": rnd((cfg.vocab, dm), 1.0, ("vocab", "embed"))},
         "dec_blocks": _dec_block_init(generator, cfg, device),
     }
     p["enc_norm"], _ = make_norm(cfg.norm, dm, pd, device)

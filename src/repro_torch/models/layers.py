@@ -1,9 +1,15 @@
-"""Model building blocks: norms, rotary, activations, embedding.
+"""Model building blocks: logical axes, norms, rotary, activations,
+embedding.
 
 The PyTorch counterpart of ``repro.models.layers``.  Parameters are plain
 tensors in nested dicts with the JAX package's keys and shapes (its
 ``unbox(model.init(key))`` tree), so the weights bridge is a key-for-key
-copy.  Norms compute in fp32, as in the JAX package.
+copy.  Where JAX boxes a leaf as ``Param(value, axes)``, the port's init
+sites pass the fresh tensor through ``param(t, axes)``, which tags it with
+the same logical axes (without the stacked layer axis, as in JAX);
+``param_axes`` reads them back as JAX's ``boxed_axes`` tree, the input of
+``distributed.sharding.param_shardings``.  Norms compute in fp32, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -12,7 +18,28 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor
+
 F32 = torch.float32
+
+
+# --------------------------------------------------------------------------
+# logical axes
+# --------------------------------------------------------------------------
+
+
+def param(t: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """``t``, tagged with its logical axes (JAX's ``Param`` box)."""
+    t.logical_axes = tuple(axes)
+    return t
+
+
+def param_axes(tree):
+    """The logical-axes tree of a tree fresh from an init (JAX's
+    ``boxed_axes``)."""
+    if isinstance(tree, dict):
+        return {k: param_axes(v) for k, v in tree.items()}
+    return tree.logical_axes
 
 
 # --------------------------------------------------------------------------
@@ -59,9 +86,9 @@ def make_norm(kind: str, dm: int, dtype, device=None):
         raise ValueError(kind)
     p = {}
     if kind in ("rms", "ln"):
-        p["scale"] = torch.ones(dm, dtype=dtype, device=device)
+        p["scale"] = param(torch.ones(dm, dtype=dtype, device=device), ("embed",))
     if kind == "ln":
-        p["bias"] = torch.zeros(dm, dtype=dtype, device=device)
+        p["bias"] = param(torch.zeros(dm, dtype=dtype, device=device), ("embed",))
     return p, NORMS[kind]
 
 
@@ -111,7 +138,29 @@ ACTIVATIONS: dict[str, Callable] = {
 
 
 def embed_lookup(p, tokens):
+    if is_dtensor(p["table"]):
+        return _sharded_lookup(p["table"], tokens)
     return p["table"][tokens]
+
+
+def _sharded_lookup(table, tokens):
+    """``table[tokens]`` on DTensors, through ``local_map``: the table made
+    whole, each rank looks up its own tokens (the output takes the tokens'
+    placements), and the table's gradient is a partial sum over the ranks
+    that split the tokens.  DTensor's own strategies for the index and its
+    backward are not relied on."""
+    from torch.distributed.tensor import Partial, Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    whole = (Replicate(),) * mesh.ndim
+    if not is_dtensor(tokens):
+        tokens = distribute_tensor(tokens, mesh, whole, src_data_rank=None)
+    tp = tuple(p if p == Shard(0) else Replicate() for p in tokens.placements)
+    grad = tuple(Partial() if p == Shard(0) else Replicate() for p in tp)
+    run = local_map(lambda t, ids: (t[ids],), out_placements=(tp,),
+                    in_placements=(whole, tp), in_grad_placements=(grad, tp),
+                    device_mesh=mesh)
+    return run(table.redistribute(mesh, whole), tokens.redistribute(mesh, tp))[0]
 
 
 def unembed(p, x):

@@ -1,7 +1,10 @@
 """Model zoo: one uniform interface over the ported architecture families.
 
 ``build_model(cfg)`` returns a ``Model`` with:
-  init(seed=0, device=None)             -> param tree (the JAX layout)
+  init(seed=0, device=None)             -> param tree (the JAX layout);
+                                           device="meta" allocates nothing
+  axes()                                -> its logical-axes tree (JAX's
+                                           boxed_axes of model.init)
   loss(params, batch, **opts)           -> (scalar, metrics)  [train step body]
   prefill(params, cache, batch)         -> (logits (B, 1, V), cache, len)
   prefill_chunk(params, cache, tokens, start, lengths=, write_mask=)
@@ -24,6 +27,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, transformer
+from repro_torch.models.layers import param_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +43,8 @@ class Model:
     # the paged serving cache (page pools; the caller adds block tables);
     # None where the layout does not apply (the recurrent families, encdec)
     init_paged_cache: Optional[Callable]
+    # () -> the logical-axes tree of init's params, read off a meta init
+    axes: Callable
     # encdec only: (params, frames) -> encoder memory, which the slot pool's
     # admission installs into the slot's cache before any prefill_chunk
     encode: Optional[Callable] = None
@@ -59,8 +65,11 @@ def build_model(cfg: ModelConfig) -> Model:
 
     def init(seed: int = 0, device=None):
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        return mod.init(gen, cfg, dev)
+        gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+        return mod.init(gen.manual_seed(seed), cfg, dev)
+
+    def axes():
+        return param_axes(init(device="meta"))
 
     if cfg.family == "encdec":
         return Model(
@@ -75,6 +84,7 @@ def build_model(cfg: ModelConfig) -> Model:
             init_cache=lambda p, batch, max_len, dtype, device=None:
                 encdec.init_cache(p, cfg, batch, max_len, dtype, resolve_device(device)),
             init_paged_cache=None,
+            axes=axes,
             encode=lambda p, frames: encdec.encode(p, frames, cfg, remat="none"),
         )
     return Model(
@@ -95,4 +105,5 @@ def build_model(cfg: ModelConfig) -> Model:
              transformer.init_paged_cache(p, cfg, n_pages, page_size, dtype,
                                           resolve_device(device)))
             if cfg.family in transformer.ATTENTION_FAMILIES else None),
+        axes=axes,
     )

@@ -23,7 +23,10 @@ keep the reference's semantics where torch differs from JAX:
 The products keep the reference's contraction structure, so
 ``remat="dots"`` saves the router's product (``torch.matmul`` of 3-D by
 2-D, an ``aten.mm``) and recomputes the experts' batched ones (``bmm``),
-as JAX's ``checkpoint_dots_with_no_batch_dims`` does.
+as JAX's ``checkpoint_dots_with_no_batch_dims`` does.  On DTensors (a
+sharded training step) the router's softmax runs on each rank's rows
+(``local_rows``): its expert dim is whole there, the experts axis of the
+weights being what ``default_rules`` shards.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.registry import get_softmax
-from repro_torch.models.layers import ACTIVATIONS
+from repro_torch.distributed.sharding import is_dtensor, local_rows
+from repro_torch.models.layers import ACTIVATIONS, param
 
 F32 = torch.float32
 
@@ -55,11 +59,11 @@ def moe_init(generator: torch.Generator, cfg, dtype, device=None, n_layers=None)
             layer.copy_(torch.randn(shape, generator=generator, dtype=F32,
                                     device=device).mul_(scale))
         return out
-    p = {"router": rnd((dm, E), dm ** -0.5, F32),
-         "w_up": rnd((E, dm, dff), E ** -0.5, dtype),
-         "w_down": rnd((E, dff, dm), dff ** -0.5, dtype)}
+    p = {"router": param(rnd((dm, E), dm ** -0.5, F32), ("embed", "experts_dim")),
+         "w_up": param(rnd((E, dm, dff), E ** -0.5, dtype), ("experts", "embed", "mlp")),
+         "w_down": param(rnd((E, dff, dm), dff ** -0.5, dtype), ("experts", "mlp", "embed"))}
     if cfg.mlp_gated:
-        p["w_gate"] = rnd((E, dm, dff), E ** -0.5, dtype)
+        p["w_gate"] = param(rnd((E, dm, dff), E ** -0.5, dtype), ("experts", "embed", "mlp"))
     return p
 
 
@@ -85,7 +89,7 @@ def _route(p, x, cfg):
     E, k = cfg.n_experts, cfg.moe_top_k
     cap = capacity(cfg, G)
     logits = torch.matmul(x.to(F32), p["router"])
-    probs = get_softmax(cfg.softmax_impl)(logits).to(F32)      # the Hyft router
+    probs = local_rows(get_softmax(cfg.softmax_impl), logits).to(F32)  # the Hyft router
     gate_vals, gate_idx = top_k(probs, k)
     gate_vals = gate_vals / (torch.sum(gate_vals, -1, keepdim=True) + 1e-9)
     hot = F.one_hot(gate_idx, E)                               # (ng, G, k, E) int64
@@ -96,6 +100,57 @@ def _route(p, x, cfg):
     idx = torch.where(keep, pos, -1)
     slot = (idx[..., None] == torch.arange(cap, device=x.device)).to(F32)
     return probs, gate_vals, hot.to(F32), keep, slot
+
+
+def _experts(p, xe, act):
+    """Every expert's FFN on its dispatched tokens: (ng, E, cap, dm) ->
+    (ng, E, cap, dm)."""
+    up = torch.einsum("becd,edf->becf", xe, p["w_up"].to(xe.dtype))
+    if "w_gate" in p:
+        gate = torch.einsum("becd,edf->becf", xe, p["w_gate"].to(xe.dtype))
+        h = act(gate) * up
+    else:
+        h = act(up)
+    return torch.einsum("becf,efd->becd", h, p["w_down"].to(xe.dtype))
+
+
+def _experts_sharded(p, xe, act):
+    """``_experts`` on DTensors, run on each rank's blocks (``local_map``).
+    Over a mesh dim that shards the experts (expert parallelism) a rank
+    runs its own experts on their tokens; over one that shards each
+    expert's hidden dim (tensor parallelism) it runs its slice and the
+    output is a partial sum; over a dim that shards the token groups
+    (data parallelism) the weights are whole and their gradient a partial
+    sum."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    R = Replicate()
+    xp, yp, xg, wup, wdown = [], [], [], [], []
+    for i, wp in enumerate(p["w_up"].placements):
+        bp = Shard(0) if xe.placements[i] == Shard(0) else R
+        if bp == R and wp == Shard(0):     # experts over this dim
+            cols = (Shard(1), Shard(1), Shard(1), Shard(0), Shard(0))
+        elif bp == R and wp == Shard(2):   # each expert's hidden dim
+            cols = (R, Partial(), Partial(), Shard(2), Shard(1))
+        else:                              # tokens over this dim, or nothing
+            cols = (bp, bp, bp, R, R)
+        for col, v in zip((xp, yp, xg, wup, wdown), cols):
+            col.append(v)
+    names = [k for k in ("w_up", "w_gate", "w_down") if k in p]
+    w_pl = {"w_up": tuple(wup), "w_gate": tuple(wup), "w_down": tuple(wdown)}
+    # a weight's gradient sums over the ranks that split the tokens
+    w_grad = {k: tuple(Partial() if b == Shard(0) else w for b, w in zip(xp, pl))
+              for k, pl in w_pl.items()}
+    ws = [p[k].redistribute(xe.device_mesh, w_pl[k]) for k in names]
+
+    def body(xl, *wl):
+        return (_experts(dict(zip(names, wl)), xl, act),)
+    run = local_map(body, out_placements=(tuple(yp),),
+                    in_placements=(tuple(xp),) + tuple(w_pl[k] for k in names),
+                    in_grad_placements=(tuple(xg),) + tuple(w_grad[k] for k in names),
+                    device_mesh=xe.device_mesh)
+    return run(xe.redistribute(xe.device_mesh, tuple(xp)), *ws)[0]
 
 
 def moe_apply(p, x, cfg):
@@ -117,13 +172,7 @@ def moe_apply(p, x, cfg):
     comb = torch.einsum("bsk,bske,bskec->bsec", gate_vals, kept, slot)
 
     xe = torch.einsum("bsec,bsd->becd", disp.to(x.dtype), x)  # (ng, E, cap, dm)
-    up = torch.einsum("becd,edf->becf", xe, p["w_up"].to(x.dtype))
-    if "w_gate" in p:
-        gate = torch.einsum("becd,edf->becf", xe, p["w_gate"].to(x.dtype))
-        h = act(gate) * up
-    else:
-        h = act(up)
-    ye = torch.einsum("becf,efd->becd", h, p["w_down"].to(x.dtype))
+    ye = (_experts_sharded if is_dtensor(xe) else _experts)(p, xe, act)
     y = torch.einsum("bsec,becd->bsd", comb.to(x.dtype), ye)
 
     density = (torch.mean(onehot[..., 0, :], dim=(0, 1)) if k == 1 else

@@ -27,6 +27,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import param
+
 F32 = torch.float32
 
 
@@ -61,14 +63,14 @@ def ssm_init(generator: torch.Generator, cfg, dtype, device=None, n_layers=None)
     def const(v, dt):
         return v.to(dtype=dt, device=device).expand(lead + v.shape).clone()
     return {
-        "in_proj": rnd((dm, 2 * d_inner + 2 * N + H), dm ** -0.5),
-        "conv_w": rnd((K, conv_dim), K ** -0.5),
-        "conv_b": const(torch.zeros(conv_dim), dtype),
-        "A_log": const(torch.log(torch.linspace(1.0, 16.0, H)), F32),
-        "D": const(torch.ones(H), F32),
-        "dt_bias": const(torch.zeros(H), F32),
-        "norm_scale": const(torch.ones(d_inner), dtype),
-        "out_proj": rnd((d_inner, dm), d_inner ** -0.5),
+        "in_proj": param(rnd((dm, 2 * d_inner + 2 * N + H), dm ** -0.5), ("embed", "mlp")),
+        "conv_w": param(rnd((K, conv_dim), K ** -0.5), (None, "mlp")),
+        "conv_b": param(const(torch.zeros(conv_dim), dtype), ("mlp",)),
+        "A_log": param(const(torch.log(torch.linspace(1.0, 16.0, H)), F32), ("heads",)),
+        "D": param(const(torch.ones(H), F32), ("heads",)),
+        "dt_bias": param(const(torch.zeros(H), F32), ("heads",)),
+        "norm_scale": param(const(torch.ones(d_inner), dtype), ("mlp",)),
+        "out_proj": param(rnd((d_inner, dm), d_inner ** -0.5), ("mlp", "embed")),
     }
 
 

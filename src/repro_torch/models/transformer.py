@@ -42,11 +42,12 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.sharding import constrain_acts, local_rows
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import NORMS, embed_lookup, make_norm, unembed
+from repro_torch.models.layers import NORMS, embed_lookup, make_norm, param, unembed
 
 F32 = torch.float32
 I32 = torch.int32
@@ -84,16 +85,18 @@ def _normal(generator, shape, scale, dtype, device):
 
 
 def _stacked(generator, cfg, n_layers, device):
-    """``rnd(shape, scale)`` and ``norm()`` for leaves stacked on a leading
-    axis of ``n_layers`` (None: no layer axis)."""
+    """``rnd(shape, scale, axes)`` and ``norm()`` for leaves stacked on a
+    leading axis of ``n_layers`` (None: no layer axis), tagged with their
+    logical axes (the layer axis stays implicit, as in JAX)."""
     lead = () if n_layers is None else (n_layers,)
 
-    def rnd(shape, scale):
-        return _normal(generator, lead + shape, scale, cfg.pdtype, device)
+    def rnd(shape, scale, axes):
+        return param(_normal(generator, lead + shape, scale, cfg.pdtype, device), axes)
 
     def norm():
         p, _ = make_norm(cfg.norm, cfg.d_model, cfg.pdtype, device)
-        return {k: v.expand(lead + v.shape).clone() for k, v in p.items()}
+        return {k: param(v.expand(lead + v.shape).clone(), v.logical_axes)
+                for k, v in p.items()}
     return rnd, norm
 
 
@@ -104,14 +107,16 @@ def attn_init(generator, cfg, device, n_layers=None):
     pd = cfg.pdtype
     lead = () if n_layers is None else (n_layers,)
     rnd, _ = _stacked(generator, cfg, n_layers, device)
-    a = {"wq": rnd((dm, hq, dh), dm ** -0.5),
-         "wk": rnd((dm, hkv, dh), dm ** -0.5),
-         "wv": rnd((dm, hkv, dh), dm ** -0.5),
-         "wo": rnd((hq, dh, dm), (hq * dh) ** -0.5)}
+    a = {"wq": rnd((dm, hq, dh), dm ** -0.5, ("embed", "heads", "head_dim")),
+         "wk": rnd((dm, hkv, dh), dm ** -0.5, ("embed", "kv_heads", "head_dim")),
+         "wv": rnd((dm, hkv, dh), dm ** -0.5, ("embed", "kv_heads", "head_dim")),
+         "wo": rnd((hq, dh, dm), (hq * dh) ** -0.5, ("heads", "head_dim", "embed"))}
     if cfg.qkv_bias:
-        a["bq"] = torch.zeros(lead + (hq, dh), dtype=pd, device=device)
-        a["bk"] = torch.zeros(lead + (hkv, dh), dtype=pd, device=device)
-        a["bv"] = torch.zeros(lead + (hkv, dh), dtype=pd, device=device)
+        def zeros(h, axes):
+            return param(torch.zeros(lead + (h, dh), dtype=pd, device=device), axes)
+        a["bq"] = zeros(hq, ("heads", "head_dim"))
+        a["bk"] = zeros(hkv, ("kv_heads", "head_dim"))
+        a["bv"] = zeros(hkv, ("kv_heads", "head_dim"))
     return a
 
 
@@ -127,10 +132,10 @@ def _block_init(generator, cfg, device, n_layers=None):
     if cfg.family == "moe":
         blocks["moe"] = moe_mod.moe_init(generator, cfg, pd, device, n_layers=n_layers)
     else:
-        m = {"w_up": rnd((dm, dff), dm ** -0.5),
-             "w_down": rnd((dff, dm), dff ** -0.5)}
+        m = {"w_up": rnd((dm, dff), dm ** -0.5, ("embed", "mlp")),
+             "w_down": rnd((dff, dm), dff ** -0.5, ("mlp", "embed"))}
         if cfg.mlp_gated:
-            m["w_gate"] = rnd((dm, dff), dm ** -0.5)
+            m["w_gate"] = rnd((dm, dff), dm ** -0.5, ("embed", "mlp"))
         blocks["mlp"] = m
     return blocks
 
@@ -144,7 +149,7 @@ def init(generator: torch.Generator, cfg, device=None) -> dict[str, Any]:
     _check_family(cfg)
     L, dm = cfg.n_layers, cfg.d_model
     pd = cfg.pdtype
-    rnd = lambda shape, scale: _normal(generator, shape, scale, pd, device)  # noqa: E731
+    rnd, _ = _stacked(generator, cfg, None, device)
     # the blocks are drawn first, then the embeddings (the attention
     # families' draws, as they were before the recurrent families came)
     if cfg.family in ATTENTION_FAMILIES:
@@ -153,15 +158,16 @@ def init(generator: torch.Generator, cfg, device=None) -> dict[str, Any]:
         _, norm = _stacked(generator, cfg, L, device)
         blocks = {"norm": norm(),
                   "ssm": ssm_mod.ssm_init(generator, cfg, pd, device, n_layers=L)}
-    p: dict[str, Any] = {"embed": {"table": rnd((cfg.vocab, dm), 1.0)}}
+    p: dict[str, Any] = {"embed": {"table": rnd((cfg.vocab, dm), 1.0, ("vocab", "embed"))}}
     p["final_norm"], _ = make_norm(cfg.norm, dm, pd, device)
     if not cfg.tie_embeddings:
-        p["unembed"] = {"table": rnd((cfg.vocab, dm), 1.0)}
+        p["unembed"] = {"table": rnd((cfg.vocab, dm), 1.0, ("vocab", "embed"))}
     p["blocks"] = blocks
     if cfg.family == "hybrid":
         p["shared_attn"] = _block_init(generator, cfg, device)
     if cfg.family == "vlm":
-        p["frontend_proj"] = {"w": rnd((cfg.frontend_dim, dm), cfg.frontend_dim ** -0.5)}
+        p["frontend_proj"] = {"w": rnd((cfg.frontend_dim, dm), cfg.frontend_dim ** -0.5,
+                                       (None, "embed"))}
     return p
 
 
@@ -347,6 +353,7 @@ def forward(params, tokens, cfg, *, embeds_prefix=None, remat="full", causal=Tru
     if cfg.family in ATTENTION_FAMILIES:
         for lp in layers:
             x, aux = block(x, lp)
+            x = constrain_acts(x)
             if aux is not None:
                 auxs.append(aux)
     else:
@@ -357,10 +364,17 @@ def forward(params, tokens, cfg, *, embeds_prefix=None, remat="full", causal=Tru
             x = mamba(x, lp)
             if flag:
                 x = shared(x, params["shared_attn"])
+            x = constrain_acts(x)
     x = NORMS[cfg.norm](params["final_norm"], x)
     if not auxs:
         return x, torch.zeros((), dtype=F32, device=x.device)
     return x, torch.sum(torch.stack(auxs))
+
+
+def _lse_gold(logits, targets):
+    """Each row's log-sum-exp and its target's logit."""
+    return (torch.logsumexp(logits, dim=-1),
+            torch.gather(logits, -1, targets[..., None].long())[..., 0])
 
 
 def lm_loss(params, batch, cfg, *, remat="full", z_loss=1e-4,
@@ -378,8 +392,8 @@ def lm_loss(params, batch, cfg, *, remat="full", z_loss=1e-4,
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(targets.shape, dtype=F32, device=logits.device)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    # on whole rows (a vocab-sharded DTensor's made whole, local_rows)
+    lse, gold = local_rows(_lse_gold, logits, targets, n_out=2)
     nll = (lse - gold) * mask
     zl = z_loss * torch.sum((lse * mask) ** 2)
     denom = torch.clamp(torch.sum(mask), min=1.0)

@@ -37,10 +37,9 @@ or write of it, each byte once.  A view moves nothing; a dense view counts
 its run of the storage, an indexed or strided access its elements.  So a
 cache updated in place counts the rows written, and a weight read by every
 row of a batch counts once.  Intermediates count nothing, the kernels'
-small q and output aside, and a storage freed during the call and reused
-for an output can add at most that output's size; so the bound
-understates the least time, and a roofline fraction above 1 means a count
-is wrong.
+small q and output aside (a storage born at the address of one freed
+during the call starts its count afresh); so the bound understates the
+least time, and a roofline fraction above 1 means a count is wrong.
 
 ``xla_profile`` is the ``--xla-profile`` capture window, on
 ``torch.profiler``.  Not ported: ``repro.obs.trace``'s ``compile_watch``
@@ -106,6 +105,13 @@ class _CountingMode(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        # a storage born in this op (an output at an address that no input
+        # holds) starts its count afresh: the allocator may have given it
+        # the block of an intermediate freed earlier in the call
+        held = {_key(t) for t in _tensors((args, kwargs))}
+        for t in _tensors(out):
+            if _key(t) not in held:
+                self.touched.pop(_key(t), None)
         c = self.counter
         if c.paused or func.is_view:
             return out

@@ -13,7 +13,8 @@ cores: the Hyft kernels' fp32 FMAs and any fp32 product.  Counting those at
 the bf16 tensor-core peak would loosen their bound 15x; with
 ``flops_fp32 = 0`` the compute term is the JAX module's.  The JAX module
 reads its collective bytes from the post-SPMD HLO text; eager PyTorch has
-none, and one card moves no collective bytes, so the term is 0 here.
+none, so the term is 0 here until the dry-run counts a sharded step's
+collectives (ROADMAP queue 1: the dry-run and the collective term).
 
 MODEL_FLOPS = 6*N*D (train) or 2*N*D (inference), with N the (active)
 parameter count, as in the JAX module.
@@ -68,7 +69,7 @@ def analyze(cost: dict, chips: int = 1) -> Roofline:
     flops_dev = float(cost.get("flops", 0.0))
     fp32_dev = float(cost.get("flops_fp32", 0.0))
     bytes_dev = float(cost.get("bytes accessed", 0.0))
-    coll_dev = 0.0                       # one card: no collective bytes
+    coll_dev = 0.0                       # no count of collective bytes yet
     return Roofline(
         compute_s=((flops_dev - fp32_dev) / hw.PEAK_FLOPS_BF16
                    + fp32_dev / hw.PEAK_FLOPS_FP32),

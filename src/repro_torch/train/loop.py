@@ -13,7 +13,7 @@ from repro_torch.distributed.fault_tolerance import (  # noqa: F401 (re-exported
 
 def run_train(state, train_step, batch_fn: Callable[[int], dict],
               tcfg: TrainConfig, ckpt_dir: Optional[str] = None,
-              log_every: int = 10,
+              state_sh=None, log_every: int = 10,
               fail_at: Optional[Callable[[int], None]] = None,
               log_fn=print) -> tuple[dict, list]:
     """Run ``tcfg.total_steps`` steps; ``fail_at`` injects faults (tests).
@@ -22,8 +22,9 @@ def run_train(state, train_step, batch_fn: Callable[[int], dict],
     sync) only on logged steps.  With ``ckpt_dir`` the loop runs under
     ``RestartManager``: it saves every ``tcfg.checkpoint_every`` steps
     (keeping ``tcfg.keep_checkpoints``), and on start and after any
-    exception it restores the latest checkpoint into the state's structure
-    and resumes at its step (the data stream is keyed by step).
+    exception it restores the latest checkpoint into the state's structure,
+    placed by ``state_sh`` where given (a resized mesh), and resumes at its
+    step (the data stream is keyed by step).
     """
     history: list = []
     monitor = StragglerMonitor()
@@ -32,7 +33,8 @@ def run_train(state, train_step, batch_fn: Callable[[int], dict],
     def body(start_step: int) -> int:
         latest = checkpointer.latest_step(ckpt_dir) if ckpt_dir else None
         if latest is not None:
-            box["state"], start_step = checkpointer.restore(ckpt_dir, latest, box["state"])
+            box["state"], start_step = checkpointer.restore(
+                ckpt_dir, latest, box["state"], shardings=state_sh)
         for step in range(start_step, tcfg.total_steps):
             if fail_at is not None:
                 fail_at(step)  # may raise (fault injection)

@@ -5,6 +5,12 @@ Own copy of ``repro.train.step``.  ``make_step_fn`` returns a (state, batch)
 over the leading batch split (sum of the gradients, then ``/ n``).  The
 metrics stay 0-d tensors on the device: reading them is the caller's
 choice, so a step waits for nothing on the host.
+
+``build_train_step`` with a mesh is the sharded step (JAX's ``jit`` with
+in/out shardings): the state and the batch are DTensors, the functional
+model's ops propagate their placements, each gradient is reduced to its
+parameter's placement (a data-parallel gradient is a partial sum until
+then), and the in-place optimizer keeps the state's placements.
 """
 from __future__ import annotations
 
@@ -12,6 +18,7 @@ import torch
 
 from repro_torch import optim
 from repro_torch.configs.base import TrainConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import resolve_attn_mode
 from repro_torch.optim.schedules import SCHEDULES
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -33,12 +40,15 @@ def make_loss_fn(model, tcfg: TrainConfig):
 
 def grads_of(loss_fn, params, batch):
     """(loss, metrics, grads): the gradient of ``loss_fn`` with respect to
-    every parameter leaf (zero for a leaf the loss does not use)."""
+    every parameter leaf (zero for a leaf the loss does not use), a DTensor
+    leaf's in the leaf's placements."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     loss, metrics = loss_fn(live, batch)
     leaves = tree_leaves(live)
     gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-    gs = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, gs)]
+    gs = [torch.zeros_like(p) if g is None else
+          g.redistribute(p.device_mesh, p.placements) if shd.is_dtensor(g) else g
+          for p, g in zip(leaves, gs)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_unflatten(params, gs))
 
@@ -80,7 +90,28 @@ def make_step_fn(model, tcfg: TrainConfig, opt_cfg: optim.OptConfig):
     return step_fn
 
 
-def build_train_step(model, tcfg: TrainConfig, opt_cfg: optim.OptConfig):
-    """The step for one device (the JAX version adds shardings and state
-    donation; the port's optimizer updates in place instead)."""
-    return make_step_fn(model, tcfg, opt_cfg)
+def build_train_step(model, tcfg: TrainConfig, opt_cfg: optim.OptConfig,
+                     mesh=None, state_sh=None, batch_sh=None):
+    """The step.  Without a mesh: one device, unchanged (the port's
+    optimizer updates in place where JAX donates the state).  With one:
+    ``state_sh`` and ``batch_sh`` (NamedSharding trees) place a state or
+    batch that is not yet a DTensor (each rank passes the same global
+    tensors), and the step runs under ``sharding.mesh_compute``.  The metrics
+    come back whole, plain tensors equal on every rank."""
+    step_fn = make_step_fn(model, tcfg, opt_cfg)
+    if mesh is None:
+        return step_fn
+
+    def placed(tree, shardings):
+        if shardings is None:
+            return tree
+        return tree_map(lambda x, s: x if shd.is_dtensor(x) else shd.place(x, s),
+                        tree, shardings)
+
+    def sharded_step(state, batch):
+        state, batch = placed(state, state_sh), placed(batch, batch_sh)
+        with shd.mesh_compute(mesh, model.cfg):
+            state, metrics = step_fn(state, batch)
+        return state, {k: v.full_tensor() if shd.is_dtensor(v) else v
+                       for k, v in metrics.items()}
+    return sharded_step

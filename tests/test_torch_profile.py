@@ -145,6 +145,23 @@ def test_exec_cost_of_each_wrapper_is_its_kernel_count(name):
     assert got["transcendentals"] == 0
 
 
+def test_exec_cost_does_not_depend_on_the_allocator():
+    """A count keyed by storage address must not inherit the touches of an
+    intermediate whose freed block the allocator hands to a later output:
+    flash_bwd's bytes stay its kernels' count whatever the heap held before
+    (blocks of seeded random sizes allocated and freed between calls; before
+    the fix about 1 call in 30 counted 8-16 KB more)."""
+    entry = {e.name: e for e in tprofile.default_registry("cpu")}["flash_bwd"]
+    fn, args, want = entry.make()
+    rng = np.random.default_rng(0)
+    kept = []
+    for _ in range(60):
+        junk = [torch.empty(int(n)) for n in rng.integers(1, 1 << 16, rng.integers(0, 30))]
+        kept += junk[: int(rng.integers(0, len(junk) + 1))]
+        del junk
+        assert tprofile.exec_cost(fn, *args)["bytes"] == want["bytes"]
+
+
 def test_bytes_are_what_the_call_moves_not_whole_storages(setup):
     """An indexed read of a large table counts its rows; a gated decode step
     over a paged pool counts the pages its mask admits and the rows it

@@ -407,5 +407,6 @@ def test_launcher_defaults_to_the_card():
         pytest.skip("checks the behaviour without a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--arch", "qwen2-1.5b", "--smoke", "--steps", "1"])
-    with pytest.raises(SystemExit):      # one device: no mesh flags above 1
-        launch_train.parse_args(["--arch", "qwen2-1.5b", "--data-mesh", "2"])
+    with pytest.raises(ValueError, match="needs that many processes"):
+        launch_train.build(launch_train.parse_args(   # one process: a mesh of 1
+            ["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu", "--data-mesh", "2"]))
