@@ -344,6 +344,16 @@ script exits non-zero without its last line:
               the probe passed the functional collectives it needs (it did
               not on torch 2.11: the all-gather crashes).  No time of this
               phase is a scaling number: the ranks divide one card;
+ 28. dryrun   (after 27) ``repro_torch/launch/dryrun.py`` traced on fake
+              tensors and held to the card (``dryrun_phase``): the train
+              cell of phase 7 (kernel calls = its launches, FLOPs and bytes
+              = ``count_cost`` of one real step, peak within 10% of its
+              ``max_memory_allocated``), the data-parallel step of phase 27
+              on a fake group of 2 (collectives by kind, count and bytes =
+              the real warm-up step's, peak within 10% of rank 0's), and
+              qwen2-1.5b x decode_32k on the 16 x 16 mesh under the "cuda"
+              and "cpu" labels (ok, equal reports); the card's memory and
+              the launch counts unchanged across it;
 
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -1743,9 +1753,13 @@ def _train_profile(torch, fn):
 def train_phase(torch):
     """qwen2-1.5b at full width through the launcher's functions: one
     warm-up step, then TIMED_STEPS timed steps, each with its launch counts;
-    then one step under the profiler.  Returns the launches of one step."""
+    then one step counted by ``obs/profile.py::count_cost`` (FLOPs, bytes),
+    one step under the profiler.  Returns {"launches": one step's,
+    "max_memory_allocated": the peak over the warm-up and timed steps,
+    "cost": the counted step's} (the dryrun phase holds its trace to them)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train as launch
+    from repro_torch.obs.profile import count_cost
 
     args = launch.parse_args([
         "--arch", "qwen2-1.5b", "--softmax", "hyft16", "--attn-mode", "kernel",
@@ -1775,14 +1789,17 @@ def train_phase(torch):
         if i:
             timed.append(rec)
     step_ms = sum(r["ms"] for r in timed) / len(timed)
+    peak = torch.cuda.max_memory_allocated()
     emit({"phase": "train", "arch": run["model"].cfg.name, "timed_steps": len(timed),
           "mean_step_ms": step_ms, "tokens_per_s": B * SEQ / step_ms * 1e3,
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches_per_step": want})
+          "max_memory_allocated": peak, "launches_per_step": want})
     batch = run["batch_fn"](1 + TIMED_STEPS)
+    (state, _), cost = count_cost(run["step"], state, batch)
+    emit({"phase": "train", "part": "counted_step", **cost})
+    batch = run["batch_fn"](2 + TIMED_STEPS)
     emit(_train_profile(torch, lambda: run["step"](state, batch)))
     state = remat_dots_part(torch, run, state, want)
-    return want
+    return {"launches": want, "max_memory_allocated": peak, "cost": cost}
 
 
 def remat_dots_part(torch, run, state, want):
@@ -4527,10 +4544,13 @@ ENC_FLASH = [("encoder", ENC_FRAMES, ENC_FRAMES, B, True, "the encoder (and its 
              ("cross_train", ENC_TRAIN_S, ENC_FRAMES, ENC_TRAIN_B, True,
               "the training step's cross-attention")]
 # whisper's continuous cell over a dense pool: prompts fed in chunks of 64
-# (one gated decode step a lane), 12 requests with frames at once (more
-# than the slots: slots are reused)
-ENC_POOL_SLOTS, ENC_POOL_REQ, ENC_POOL_CHUNK = 8, 12, 64
-ENC_POOL_PROMPT, ENC_POOL_NEW = (16, 64), (16, 32)   # each drawn uniformly, inclusive
+# (one gated decode step a lane), 10 requests with frames at once (more
+# than the slots: the last 2 are admitted and encoded into freed slots
+# while the others decode).  The prompts stay under 33 tokens, so each
+# admitted group's prefill is one chunk of 32 lanes: 104 decode_step calls
+# in all, where 12 requests of up to 64 tokens took 248.
+ENC_POOL_SLOTS, ENC_POOL_REQ, ENC_POOL_CHUNK = 8, 10, 64
+ENC_POOL_PROMPT, ENC_POOL_NEW = (16, 32), (16, 32)   # each drawn uniformly, inclusive
 # internvl2-1b's training step: patches then text tokens a sequence
 VLM_PATCHES, VLM_TEXT = 256, 768
 VLM_POOL_REQ = 16                     # of _chat_requests' requests
@@ -4874,7 +4894,9 @@ def encdec_pool_part(torch, cfg, params):
           "launches": got, "expected": want,
           "max_memory_allocated": torch.cuda.max_memory_allocated(), "stats": st})
     assert got == want, f"whisper continuous launches {got} != {want}"
-    assert 1 <= calls["encode"] <= ENC_POOL_REQ
+    # the first group fills every slot; a later one is admitted into freed slots
+    assert 2 <= calls["encode"] <= ENC_POOL_REQ, \
+        f"whisper's pool encoded {calls['encode']} groups: no slot was reused"
     assert sorted(done) == [r.rid for r in reqs], "a request has no outcome"
     for r in reqs:
         c = done[r.rid]
@@ -5549,15 +5571,18 @@ def _mesh_parity(torch, mesh_shape):
 def _mesh_dp(torch, rank):
     """The data-parallel step at full width on mesh (2, 1) over ranks 0
     and 1 (MESH_LAYERS layers), with the launches of kernels 3-5 each step:
-    a warm-up step whose collectives ``CommDebugMode`` counts by kind,
-    MESH_STEPS timed steps, and one step in a device-only profiler window
+    a warm-up step whose collectives ``CommDebugMode`` counts by kind (and
+    the collective meter by bytes) and whose FLOPs and bytes ``count_cost``
+    reads, MESH_STEPS timed steps, and one step in a device-only profiler window
     (``_window``: this rank's device busy time, idle share, launches, top
     kernels); the other ranks only take part in making the mesh."""
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.dryrun_meter import CollectiveMeter
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.obs.profile import count_cost
     from repro_torch.tree import tree_leaves
 
     mesh = make_host_mesh((2, 1))
@@ -5575,9 +5600,10 @@ def _mesh_dp(torch, rank):
         batch = batch_fn(i)
         _zero(fa.LAUNCHES)                             # the main path's run
         if kind == "warmup":
-            cdm = CommDebugMode()
-            with cdm:
-                (state, metrics), dt = _timed(torch, lambda: step(state, batch))
+            cdm, meter = CommDebugMode(), CollectiveMeter()
+            with cdm, meter:
+                ((state, metrics), cost), dt = _timed(torch,
+                                                      lambda: count_cost(step, state, batch))
             comms = {str(k): n for k, n in cdm.get_comm_counts().items()}
         elif kind == "profiled":
             out = []
@@ -5597,7 +5623,8 @@ def _mesh_dp(torch, rank):
     params = tree_leaves(state["params"])
     res = {"rank": rank, "steps": steps, "peak_memory": torch.cuda.max_memory_allocated(),
            "placements": sorted({str(p) for p in state["params"]["embed"]["table"].placements}),
-           "collectives_per_step": comms, "param_leaves": len(params),
+           "collectives_per_step": comms, "collective_meter": meter.counts,
+           "warmup_cost": cost, "param_leaves": len(params),
            "grad_bytes": sum(p.to_local().numel() * p.to_local().element_size()
                              for p in params),
            "profiled_step": window}
@@ -5714,7 +5741,7 @@ def mesh_phase(torch):
               "device_idle_share": prof["device_idle_share"],
               "device_launches": prof["launches"], "top_kernels": prof["top_kernels"],
               "collectives_per_step": r["collectives_per_step"],
-              "param_leaves": r["param_leaves"], "grad_bytes": r["grad_bytes"],
+              "collective_meter": r["collective_meter"], "param_leaves": r["param_leaves"], "grad_bytes": r["grad_bytes"],
               "peak_memory": r["peak_memory"], "embed_placements": r["placements"]})
     emit({"phase": "mesh", "part": "mesh_probe", "backend": "gloo", "tensors": "cuda",
           "ranks": SP_RANKS, "torch": torch.__version__, "collectives": probe})
@@ -5728,7 +5755,122 @@ def mesh_phase(torch):
     assert len(parity) == 1 + tp, parity
     emit({"phase": "mesh", "seconds": time.monotonic() - t0, "rank0_seconds": seconds,
           "tensor_parallel_on_card": tp})
-    return tp
+    return {"tensor_parallel": tp, "dp": dp}
+
+
+# the dryrun phase: each traced cell's predicted peak against the card's
+# measured one, relative (the meter sees storages only: not the caching
+# allocator's rounding, a library's workspace, or an op's own scratch)
+DRYRUN_PEAK_GATE = 0.10
+DRYRUN_FLOPS_RTOL, DRYRUN_BYTES_RTOL = 1e-9, 1e-6
+# production cells, kernel mode: qwen2's decode, and olmo's, whose shards
+# move between dims by all-to-all (which a CPU mesh would replace)
+DRYRUN_CELLS = (("qwen2-1.5b", "decode_32k", "single"), ("olmo-1b", "decode_32k", "single"))
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b) if b else abs(a)
+
+
+def dryrun_phase(torch, train, dp):
+    """The dry-run (``repro_torch/launch/dryrun.py``) held against the card:
+    the train phase's cell traced on fake tensors (one card, qwen2-1.5b at
+    full width, B x SEQ, AdamW, remat "full", kernel mode): kernel calls
+    equal to the step's launches, FLOPs and bytes equal to ``count_cost``
+    of one real step, the peak within DRYRUN_PEAK_GATE of
+    ``max_memory_allocated``; the mesh phase's data-parallel step (a fake
+    group of 2, mesh (2, 1), MESH_LAYERS layers): its collectives by kind,
+    count and bytes equal to the real warm-up step's (``CommDebugMode``
+    and the collective meter), and its FLOPs and bytes to ``count_cost`` of
+    rank 0's warm-up step, the peak a rank within the gate of rank 0's;
+    the production cells (DRYRUN_CELLS on the 16 x 16 mesh) under both
+    device labels, ok and equal.  The dry-run allocates nothing on the card and
+    launches nothing.  Its numbers are predictions from shapes."""
+    from repro_torch.configs import MeshConfig, ShapeSpec, TrainConfig, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hyft_softmax as hs
+    from repro_torch.launch import dryrun
+
+    import gc
+    t0 = time.monotonic()
+    gc.collect()                # what earlier phases left to the collector
+    before = torch.cuda.memory_allocated(), {**fa.LAUNCHES, **hs.LAUNCHES}
+    qwen = get_config("qwen2-1.5b").with_(softmax_impl="hyft16")
+    opts = dryrun.CellOpts(attn_mode="kernel", optimizer="adamw")
+    tcfg = TrainConfig(global_batch=B, seq_len=SEQ, lr=1e-3, total_steps=TIMED_STEPS + 2,
+                       remat="full", optimizer="adamw", attn_mode="kernel")
+    one = dryrun.trace_cell(qwen, ShapeSpec("chip_train", "train", SEQ, B), None, opts,
+                            tcfg=tcfg)
+    want = {k: v for k, v in train["launches"].items() if v}
+    measured = train["max_memory_allocated"]
+    cell = {"phase": "dryrun", "part": "train_one_card", "arch": qwen.name,
+            "trace_s": one["host_s"], "kernel_calls": one["kernel_calls"],
+            "launches": want, "flops": one["cost"]["flops"],
+            "flops_measured": train["cost"]["flops"], "bytes": one["cost"]["bytes"],
+            "bytes_measured": train["cost"]["bytes"],
+            "peak_predicted": one["memory"]["peak_device_bytes"],
+            "peak_by_category": one["memory"]["peak_by_category"],
+            "peak_measured": measured,
+            "peak_gap": _rel(one["memory"]["peak_device_bytes"], measured),
+            "roofline": {k: one["roofline"][k] for k in ("compute_s", "memory_s",
+                                                         "collective_s", "dominant")}}
+    emit(cell)
+    assert one["kernel_calls"] == want, (one["kernel_calls"], want)
+    assert _rel(one["cost"]["flops"], train["cost"]["flops"]) <= DRYRUN_FLOPS_RTOL, cell
+    assert _rel(one["cost"]["flops_fp32"], train["cost"]["flops_fp32"]) <= DRYRUN_FLOPS_RTOL
+    assert _rel(one["cost"]["bytes"], train["cost"]["bytes"]) <= DRYRUN_BYTES_RTOL, cell
+    assert cell["peak_gap"] <= DRYRUN_PEAK_GATE, cell
+
+    cfg = qwen.with_(n_layers=MESH_LAYERS)
+    two = dryrun.trace_cell(cfg, ShapeSpec("chip_mesh", "train", SEQ, B),
+                            MeshConfig(shape=(2, 1)), opts,
+                            tcfg=dataclasses.replace(tcfg, total_steps=MESH_STEPS + 2))
+    real = {k.split(".")[-1]: n for k, n in dp["collectives_per_step"].items()}
+    cell = {"phase": "dryrun", "part": "mesh_2x1", "arch": qwen.name, "n_layers": MESH_LAYERS,
+            "trace_s": two["host_s"], "collectives": two["collectives"],
+            "collectives_measured": dp["collective_meter"], "comm_debug_counts": real,
+            "flops": two["cost"]["flops"], "flops_measured": dp["warmup_cost"]["flops"],
+            "bytes": two["cost"]["bytes"], "bytes_measured": dp["warmup_cost"]["bytes"],
+            "kernel_calls": two["kernel_calls"],
+            "peak_predicted": two["memory"]["peak_device_bytes"],
+            "peak_by_category": two["memory"]["peak_by_category"],
+            "peak_measured": dp["peak_memory"],
+            "peak_gap": _rel(two["memory"]["peak_device_bytes"], dp["peak_memory"]),
+            "collective_s": two["roofline"]["collective_s"]}
+    emit(cell)
+    assert {k: v["count"] for k, v in two["collectives"].items()} == real, cell
+    assert two["collectives"] == dp["collective_meter"], cell
+    assert _rel(two["cost"]["flops"], dp["warmup_cost"]["flops"]) <= DRYRUN_FLOPS_RTOL, cell
+    assert _rel(two["cost"]["flops_fp32"],
+                dp["warmup_cost"]["flops_fp32"]) <= DRYRUN_FLOPS_RTOL, cell
+    assert _rel(two["cost"]["bytes"], dp["warmup_cost"]["bytes"]) <= DRYRUN_BYTES_RTOL, cell
+    assert cell["peak_gap"] <= DRYRUN_PEAK_GATE, cell
+
+    for arch, shape, mesh_kind in DRYRUN_CELLS:
+        reports = {}
+        for label in ("cuda", "cpu"):
+            r = dryrun.trace_cell(arch, shape, mesh_kind, dryrun.CellOpts(attn_mode="kernel"),
+                                  device=label)
+            reports[label] = r
+            emit({"phase": "dryrun", "part": "production", "arch": arch, "shape": shape,
+                  "mesh": r["mesh"], "device": label, "status": r["status"],
+                  "error": r.get("error"), "trace_s": r["host_s"], "memory": r.get("memory"),
+                  "cost": r.get("cost"), "collectives": r.get("collectives"),
+                  "kernel_calls": r.get("kernel_calls"), "roofline": r.get("roofline"),
+                  "model_flops": r.get("model_flops"),
+                  "useful_flops_ratio": r.get("useful_flops_ratio")})
+        same = {k: v for k, v in reports["cuda"].items() if k not in ("host_s", "device")}
+        assert all(r["status"] == "ok" for r in reports.values()), arch
+        assert same == {k: v for k, v in reports["cpu"].items()
+                        if k not in ("host_s", "device")}, f"{arch}: the labels differ"
+    gc.collect()
+    after = torch.cuda.memory_allocated(), {**fa.LAUNCHES, **hs.LAUNCHES}
+    emit({"phase": "dryrun", "memory_allocated": [before[0], after[0]],
+          "launches_unchanged": after[1] == before[1],
+          "fits_limit": one["memory"]["hbm_bytes"],
+          "card_total_memory": torch.cuda.get_device_properties(0).total_memory,
+          "seconds": time.monotonic() - t0})
+    assert after == before, (before, after)
 
 
 def _parity_gaps(ranks, mesh):
@@ -5781,7 +5923,8 @@ def main():
     profile_phase(torch, params, cfg, softmax="hyft16_kernel", attn_mode="unfused")
     del params                                        # free the serving weights
     torch.cuda.empty_cache()
-    train_launches = train_phase(torch)
+    train = train_phase(torch)
+    train_launches = train["launches"]
     torch.cuda.empty_cache()
     train_parity_phase(torch)
     torch.cuda.empty_cache()
@@ -5799,7 +5942,8 @@ def main():
     torch.cuda.empty_cache()
     restart_phase(torch)
     torch.cuda.empty_cache()
-    mesh_phase(torch)
+    mesh = mesh_phase(torch)
+    dryrun_phase(torch, train, mesh["dp"][0])
     hybrid_errs, hybrid_launches = hybrid_phase(torch)
     torch.cuda.empty_cache()
     ssm_phase(torch)

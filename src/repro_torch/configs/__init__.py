@@ -3,7 +3,9 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, ServeConfig, TrainConfig  # noqa: F401
+from repro_torch.configs.base import MeshConfig, ModelConfig, ServeConfig, TrainConfig  # noqa: F401
+from repro_torch.configs.shapes import (SHAPES, ShapeSpec, cell_supported,  # noqa: F401
+                                        input_specs)
 
 # every architecture of the JAX package: the dense, MoE, SSM, hybrid,
 # encoder-decoder and VLM families
@@ -20,6 +22,12 @@ ARCHS = {
     "whisper-medium": "whisper_medium",
     "internvl2-1b": "internvl2_1b",
 }
+
+# the dry-run's architectures, in the JAX package's order: every one but
+# bert-base, the paper's own classifier
+ASSIGNED = ["mistral-nemo-12b", "nemotron-4-340b", "olmo-1b", "qwen2-1.5b",
+            "internvl2-1b", "mamba2-370m", "zamba2-7b", "grok-1-314b",
+            "phi3.5-moe-42b-a6.6b", "whisper-medium"]
 
 
 def get_config(name: str) -> ModelConfig:

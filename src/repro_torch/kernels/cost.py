@@ -47,6 +47,17 @@ SOFTMAX_OPS = {"hyft_softmax_fwd": {"int": 4, "other": 1},
                "hyft_softmax_bwd": {"int": 4, "other": 2}}
 
 
+def shape_only(x) -> bool:
+    """Whether ``x`` (a tensor or a device) holds shapes and dtypes but no
+    data: a fake tensor (``FakeTensorMode``, the dry-run's trace) or one on
+    the meta device.  No kernel runs on it (its ``data_ptr`` is null), and
+    no count can read its values."""
+    if isinstance(x, torch.device):
+        return x.type == "meta"
+    from torch._subclasses.fake_tensor import is_fake
+    return x.device.type == "meta" or is_fake(x)
+
+
 def _count(flops, nbytes, **extra) -> dict:
     return {"flops": float(flops), "flops_fp32": float(flops), "bytes": float(nbytes),
             "transcendentals": 0.0, **extra}
@@ -62,18 +73,28 @@ def attend_cost(q3, k, mask, *, hkv: int, block_tables=None) -> dict:
     Bytes: q3 in and the fp32 output, each (BH, rows, D); K and V (and the
     scales) of the keys some row admits; the mask; the block table.  FLOPs:
     2 D each for QK^T and PV over the admitted (row, key) pairs.  Reads the
-    mask from the device."""
+    mask from the device; a mask without values (``shape_only``) counts
+    every key it covers as admitted, which is exact for a decode step
+    against a full cache (the dry-run's cells), and the count says
+    ``"mask": "from shapes"``."""
     BH, rows, D = q3.shape
-    admit = mask > 0
-    if admit.ndim == 2:                       # decode: one lane
-        admit = admit[:, None]
-    group = rows // admit.shape[1]            # query heads a KV head
-    pairs = int(admit.sum()) * hkv * group
-    keys = int(admit.any(1).sum()) * hkv      # live (head, key) rows
+    lanes = 1 if mask.ndim == 2 else mask.shape[1]
+    group = rows // lanes                     # query heads a KV head
+    extra = {}
+    if shape_only(mask):
+        B, Sk = mask.shape[0], mask.shape[-1]
+        pairs, keys = B * lanes * Sk * hkv * group, B * Sk * hkv
+        extra["mask"] = "from shapes"
+    else:
+        admit = mask > 0
+        if admit.ndim == 2:                   # decode: one lane
+            admit = admit[:, None]
+        pairs = int(admit.sum()) * hkv * group
+        keys = int(admit.any(1).sum()) * hkv  # live (head, key) rows
     per_key = 2 * D * k.element_size() + (2 * F32_BYTES if k.dtype == torch.int8 else 0)
     nbytes = (2 * BH * rows * D * F32_BYTES + keys * per_key + mask.numel() * F32_BYTES
               + (0 if block_tables is None else block_tables.numel() * F32_BYTES))
-    return _count(4 * D * pairs, nbytes)
+    return _count(4 * D * pairs, nbytes, **extra)
 
 
 # the flash kernels' FLOPs a (row, key) pair, per D: QK^T and PV (forward);
@@ -85,10 +106,12 @@ def _flash_pairs(q_shape, k_shape, *, causal: bool, q_offset: int = 0,
                 kv_len_mask=None) -> int:
     """The (row, key) pairs that the causal frontier and the mask admit, over
     every query head: row i sees key j when ``j <= i + q_offset`` (causal)
-    and the mask admits j.  Reads the mask from the device."""
+    and the mask admits j.  Reads the mask from the device; a mask without
+    values (``shape_only``) admits every key it covers (the dry-run's
+    full-length batches)."""
     B, Hq, Sq, _ = q_shape
     Sk = k_shape[2]
-    if kv_len_mask is None:
+    if kv_len_mask is None or shape_only(kv_len_mask):
         if not causal:
             return B * Hq * Sq * Sk
         return B * Hq * sum(min(max(i + q_offset + 1, 0), Sk) for i in range(Sq))
@@ -118,13 +141,15 @@ def flash_cost(kernel: str, q_shape, k_shape, itemsize: int, *, causal: bool,
     BH, BHkv = B * Hq, B * Hkv
     pairs = _flash_pairs(q_shape, k_shape, causal=causal, q_offset=q_offset,
                         kv_len_mask=kv_len_mask)
+    extra = ({"mask": "from shapes"} if kv_len_mask is not None and shape_only(kv_len_mask)
+             else {})
     qkv = (BH * Sq + 2 * BHkv * Sk) * D * itemsize + (B * Sk * F32_BYTES if masked else 0)
     rows = BH * Sq * F32_BYTES                             # one fp32 / int32 a row
     out = {"hyft_flash_fwd": BH * Sq * D * F32_BYTES + 2 * rows,
            "hyft_flash_bwd_dq": 2 * BH * Sq * D * F32_BYTES + 3 * rows,
            "hyft_flash_bwd_dkv": BH * Sq * D * F32_BYTES + 3 * rows
            + 2 * BHkv * Sk * D * F32_BYTES}[kernel]
-    return _count(_FLASH_PER_PAIR[kernel] * D * pairs, qkv + out)
+    return _count(_FLASH_PER_PAIR[kernel] * D * pairs, qkv + out, **extra)
 
 
 def ops_as_flops(ops: float, int_ops: float) -> float:

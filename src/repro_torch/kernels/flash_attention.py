@@ -36,8 +36,11 @@ On the CPU the plain versions are exactly those two levels:
 ``_splitk_combine``) and ``paged_attention_plain`` (``paged_tiles_plain``:
 a gather, then ``splitk_tiles_plain`` at ``bk = page_size``; then
 ``_splitk_combine``).  The wrappers pick by ``q.device.type`` and nothing
-else.  To hold a kernel to its plain version, call both by name on the same
-folded inputs and measure with ``out_errors``.
+else, but for a fake or meta ``q`` (``shape_only``: the dry-run traces a
+step on tensors without data), which takes a route that makes the kernel's
+outputs with ``torch.empty`` and counts the call in ``SHAPE_CALLS``, not
+in ``LAUNCHES``.  To hold a kernel to its plain version, call both by name
+on the same folded inputs and measure with ``out_errors``.
 
 The paged entries are the same machine with one page as one split: the
 pool ``(n_pages + 1, Hkv, page_size, D)`` (page 0 the null page) is read
@@ -60,6 +63,7 @@ import torch.nn.functional as F
 from repro_torch.core import numerics as nm
 from repro_torch.core.hyft import HyftConfig
 from repro_torch.kernels import cost
+from repro_torch.kernels.cost import shape_only
 
 F32 = torch.float32
 I32 = torch.int32
@@ -70,6 +74,9 @@ NEG_BIG = -3.0e38  # pre-quantization mask value; FP2FX saturates it to fx lo
 LAUNCHES = {"hyft_splitk_decode": 0, "hyft_splitk_verify": 0,
             "hyft_paged_decode": 0, "hyft_paged_verify": 0,
             "hyft_flash_fwd": 0, "hyft_flash_bwd_dq": 0, "hyft_flash_bwd_dkv": 0}
+# calls of each kernel that only made its outputs' shapes (a fake or meta
+# tensor: the dry-run's trace), counted apart from the launches
+SHAPE_CALLS = dict.fromkeys(LAUNCHES, 0)
 
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _IN_TYPES = {torch.float32: 0, torch.bfloat16: 1}   # the flash kernels' q/k/v
@@ -286,9 +293,36 @@ def _launch(name: str, device, *args, counts: dict | None = None):
     (LAUNCHES if counts is None else counts)[name] += 1
 
 
-def _splitk_attention_for(device: torch.device):
-    """The contiguous wrappers' one choice: both levels in plain PyTorch for
-    a CPU tensor, the one-launch kernel for a CUDA tensor."""
+def _shaped(name: str, *outputs):
+    """A kernel's call on shape-only operands: its outputs, made with
+    ``torch.empty``, and one count in ``SHAPE_CALLS``; no arithmetic."""
+    SHAPE_CALLS[name] += 1
+    return outputs[0] if len(outputs) == 1 else outputs
+
+
+def _splitk_attention_shapes(q3, k3, v3, k_scale, v_scale, mask, *, cfg: HyftConfig,
+                             sm_scale: float, bk: int, hkv: int, sq: int | None):
+    """``_splitk_attention_cuda``'s output on shape-only operands."""
+    return _shaped("hyft_splitk_decode" if sq is None else "hyft_splitk_verify",
+                   torch.empty(q3.shape, dtype=F32, device=q3.device))
+
+
+def _paged_attention_shapes(q3, k_pages, v_pages, k_scale, v_scale, block_tables,
+                            mask, *, cfg: HyftConfig, sm_scale: float, hkv: int,
+                            sq: int | None):
+    """``_paged_attention_cuda``'s output on shape-only operands."""
+    return _shaped("hyft_paged_decode" if sq is None else "hyft_paged_verify",
+                   torch.empty(q3.shape, dtype=F32, device=q3.device))
+
+
+def _splitk_attention_for(x):
+    """The contiguous wrappers' one choice, by ``x`` (the operand, or its
+    device): both levels in plain PyTorch for a CPU tensor, the one-launch
+    kernel for a CUDA tensor, the output's shape alone for a fake or meta
+    one."""
+    device = x if isinstance(x, torch.device) else x.device
+    if shape_only(x):
+        return _splitk_attention_shapes
     if device.type == "cpu":
         return splitk_attention_plain
     if device.type == "cuda":
@@ -296,9 +330,13 @@ def _splitk_attention_for(device: torch.device):
     raise ValueError(f"no split-K attention for device {device}")
 
 
-def _paged_attention_for(device: torch.device):
+def _paged_attention_for(x):
     """The paged wrappers' one choice, likewise: both levels in plain
-    PyTorch for a CPU tensor, the one-launch kernel for a CUDA tensor."""
+    PyTorch for a CPU tensor, the one-launch kernel for a CUDA tensor, the
+    output's shape alone for a fake or meta one."""
+    device = x if isinstance(x, torch.device) else x.device
+    if shape_only(x):
+        return _paged_attention_shapes
     if device.type == "cpu":
         return paged_attention_plain
     if device.type == "cuda":
@@ -439,7 +477,7 @@ def flash_hyft_decode(q, k, v, cfg: HyftConfig, sm_scale: float | None = None,
              else torch.ones((B, Sk), dtype=F32, device=q.device))
     q3 = q.reshape(B * Hkv, g, D).to(F32).contiguous()
     with cost.scope(cost.attend_cost, q3, k, maskf, hkv=Hkv):
-        out = _splitk_attention_for(q.device)(
+        out = _splitk_attention_for(q)(
             q3, k.reshape(B * Hkv, Sk, D), v.reshape(B * Hkv, Sk, D),
             None if k_scale is None else k_scale.reshape(B * Hkv, Sk),
             None if v_scale is None else v_scale.reshape(B * Hkv, Sk),
@@ -477,7 +515,7 @@ def flash_hyft_decode_paged(q, k_pages, v_pages, block_tables, cfg: HyftConfig,
     bt = block_tables.to(I32).contiguous()
     with cost.scope(cost.attend_cost, q3, k_pages, maskf, hkv=Hkv,
                     block_tables=bt):
-        out = _paged_attention_for(q.device)(
+        out = _paged_attention_for(q)(
             q3, k_pages, v_pages, k_scale, v_scale, bt, maskf, cfg=cfg,
             sm_scale=scale, hkv=Hkv, sq=None)
     return out.reshape(B, Hq, 1, D)
@@ -509,13 +547,13 @@ def flash_hyft_verify(q, k, v, kv_pos_mask, cfg: HyftConfig,
         bt = block_tables.to(I32).contiguous()
         with cost.scope(cost.attend_cost, q3, k, maskf, hkv=Hkv,
                         block_tables=bt):
-            out = _paged_attention_for(q.device)(
+            out = _paged_attention_for(q)(
                 q3, k, v, k_scale, v_scale, bt, maskf, cfg=cfg, sm_scale=scale,
                 hkv=Hkv, sq=Sq)
         return out.reshape(B, Hq, Sq, D)
     Sk = k.shape[2]
     with cost.scope(cost.attend_cost, q3, k, maskf, hkv=Hkv):
-        out = _splitk_attention_for(q.device)(
+        out = _splitk_attention_for(q)(
             q3, k.reshape(B * Hkv, Sk, D), v.reshape(B * Hkv, Sk, D),
             None if k_scale is None else k_scale.reshape(B * Hkv, Sk),
             None if v_scale is None else v_scale.reshape(B * Hkv, Sk),
@@ -784,9 +822,32 @@ def _flash_bwd_dkv_cuda(q3, k3, v3, maskf, do3, delta, m2, l2, *, cfg: HyftConfi
     return dk, dv
 
 
-def _flash_impls(device: torch.device):
-    """The wrapper's one choice: the plain versions for a CPU tensor, the
-    kernels for a CUDA tensor.  Returns (forward, dq, dk/dv)."""
+def _flash_fwd_shapes(q3, k3, v3, maskf, **_):
+    """``_flash_fwd_cuda``'s outputs (o, m, l) on shape-only operands."""
+    BH, Sq, D = q3.shape
+    return _shaped("hyft_flash_fwd", torch.empty((BH, Sq, D), dtype=F32, device=q3.device),
+                   torch.empty((BH, Sq), dtype=I32, device=q3.device),
+                   torch.empty((BH, Sq), dtype=F32, device=q3.device))
+
+
+def _flash_bwd_dq_shapes(q3, k3, v3, maskf, do3, delta, m2, l2, **_):
+    """``_flash_bwd_dq_cuda``'s output on shape-only operands."""
+    return _shaped("hyft_flash_bwd_dq", torch.empty(q3.shape, dtype=F32, device=q3.device))
+
+
+def _flash_bwd_dkv_shapes(q3, k3, v3, maskf, do3, delta, m2, l2, **_):
+    """``_flash_bwd_dkv_cuda``'s outputs (dk, dv) on shape-only operands."""
+    return _shaped("hyft_flash_bwd_dkv", torch.empty(k3.shape, dtype=F32, device=q3.device),
+                   torch.empty(k3.shape, dtype=F32, device=q3.device))
+
+
+def _flash_impls(x):
+    """The wrapper's one choice, by ``x`` (q, or its device): the plain
+    versions for a CPU tensor, the kernels for a CUDA tensor, the outputs'
+    shapes alone for a fake or meta one.  Returns (forward, dq, dk/dv)."""
+    device = x if isinstance(x, torch.device) else x.device
+    if shape_only(x):
+        return _flash_fwd_shapes, _flash_bwd_dq_shapes, _flash_bwd_dkv_shapes
     if device.type == "cpu":
         return _flash_fwd_plain, _flash_bwd_dq_plain, _flash_bwd_dkv_plain
     if device.type == "cuda":
@@ -908,7 +969,7 @@ class _FlashHyftAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, maskf, cfg, sm_scale, causal, bk, q_offset, count):
-        fwd, _, _ = _flash_impls(q.device)
+        fwd, _, _ = _flash_impls(q)
         ctx.opts = dict(cfg=cfg, sm_scale=sm_scale, causal=causal, bk=bk,
                         group=q.shape[1] // k.shape[1], q_offset=q_offset)
         ctx.count = count
@@ -920,7 +981,7 @@ class _FlashHyftAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, maskf, o3, m2, l2 = ctx.saved_tensors
-        _, bwd_dq, bwd_dkv = _flash_impls(q.device)
+        _, bwd_dq, bwd_dkv = _flash_impls(q)
         q3, k3, v3, do3 = _h3(q), _h3(k), _h3(v), _h3(do.to(F32))
         args = (q3, k3, v3, maskf, do3, _flash_delta(do3, o3).contiguous(), m2, l2)
         with cost.scope(ctx.count, "hyft_flash_bwd_dq"):
@@ -964,7 +1025,7 @@ def flash_hyft_attention(q, k, v, cfg: HyftConfig, sm_scale: float | None = None
                                masked=maskf is not None)
 
     if return_stats:  # forward only
-        fwd, _, _ = _flash_impls(q.device)
+        fwd, _, _ = _flash_impls(q)
         with torch.no_grad(), cost.scope(count, "hyft_flash_fwd"):
             o, m2, l2 = fwd(_h3(q), _h3(k), _h3(v), maskf, cfg=cfg, sm_scale=scale,
                             causal=causal, bk=bk, group=Hq // Hkv, q_offset=q_offset)

@@ -10,8 +10,10 @@ The PyTorch counterpart of ``repro.kernels.hyft_softmax``:
 Each wrapper picks by the tensor's device and nothing else: a CPU tensor
 runs the plain version, which is the core's ``hyft_softmax_fwd`` /
 ``hyft_softmax_bwd`` (the oracles that JAX's ``ref.py`` names for these
-kernels); a CUDA tensor launches ``csrc/hyft_softmax.cu`` or raises; any
-other device raises.  The output is in ``cfg.dtype``; the backward's may be
+kernels); a CUDA tensor launches ``csrc/hyft_softmax.cu`` or raises; a
+fake or meta tensor (the dry-run's trace) gets the kernel's output made
+with ``torch.empty``, counted in ``SHAPE_CALLS``; any other device raises.
+The output is in ``cfg.dtype``; the backward's may be
 stored as fp32 instead (``out_dtype``: the ``cfg.dtype`` values, widened
 exactly, which the kernel writes in one launch).  ``block_rows``, the TPU
 kernel's tile of rows in VMEM, is checked and then ignored: the kernels
@@ -45,6 +47,7 @@ from repro_torch.core import numerics as nm
 from repro_torch.core.hyft import (HyftConfig, hyft_exp_fields, hyft_softmax_bwd,
                                    hyft_softmax_fwd)
 from repro_torch.kernels import cost
+from repro_torch.kernels.cost import shape_only
 from repro_torch.kernels.flash_attention import _hyft_args, _launch, _ptr
 
 F32 = torch.float32
@@ -54,6 +57,8 @@ EXACT_UNITS = 2 ** 24
 # launches of each CUDA entry point; a plain count that callers reset and
 # read to show which kernels a run went through
 LAUNCHES = {"hyft_softmax_fwd": 0, "hyft_softmax_bwd": 0}
+# calls that only made the output's shape (a fake or meta tensor)
+SHAPE_CALLS = dict.fromkeys(LAUNCHES, 0)
 
 _TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # per output type: its mantissa bits, and the magnitude below which an
@@ -80,11 +85,10 @@ def hyft_softmax_fwd_kernel(z: torch.Tensor, cfg: HyftConfig,
     """Hyft softmax over the last axis of ``z`` (..., cols), in ``cfg.dtype``."""
     _check_rows(z, "z")
     _check_block_rows(block_rows)
-    if z.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no Hyft softmax kernel for device {z.device}")
+    fwd = _fwd_for(z)
     with cost.scope(cost.softmax_cost, "hyft_softmax_fwd", z.shape,
                     z.element_size(), cfg.dtype.itemsize):
-        return hyft_softmax_fwd(z, cfg) if z.device.type == "cpu" else _fwd_cuda(z, cfg)
+        return fwd(z, cfg)
 
 
 def hyft_softmax_bwd_kernel(s: torch.Tensor, dy: torch.Tensor, cfg: HyftConfig,
@@ -105,13 +109,54 @@ def hyft_softmax_bwd_kernel(s: torch.Tensor, dy: torch.Tensor, cfg: HyftConfig,
     if s.device != dy.device:
         raise ValueError(f"s on {s.device} and dy on {dy.device}")
     _check_block_rows(block_rows)
-    if s.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no Hyft softmax kernel for device {s.device}")
+    bwd = _bwd_for(s)
     with cost.scope(cost.softmax_cost, "hyft_softmax_bwd", s.shape,
                     s.element_size() + dy.element_size(), out_dtype.itemsize):
-        if s.device.type == "cpu":
-            return hyft_softmax_bwd(s, dy, cfg).to(out_dtype)
-        return _bwd_cuda(s, dy, cfg, out_dtype)
+        return bwd(s, dy, cfg, out_dtype)
+
+
+def _fwd_for(x):
+    """The forward wrapper's one choice, by ``x`` (z, or its device): the
+    plain version for a CPU tensor, the kernel for a CUDA tensor, the
+    output's shape alone for a fake or meta one."""
+    device = x if isinstance(x, torch.device) else x.device
+    if shape_only(x):
+        return _fwd_shapes
+    if device.type == "cpu":
+        return hyft_softmax_fwd
+    if device.type == "cuda":
+        return _fwd_cuda
+    raise ValueError(f"no Hyft softmax kernel for device {device}")
+
+
+def _bwd_for(x):
+    """The backward wrapper's one choice, likewise."""
+    device = x if isinstance(x, torch.device) else x.device
+    if shape_only(x):
+        return _bwd_shapes
+    if device.type == "cpu":
+        return lambda s, dy, cfg, out_dtype: hyft_softmax_bwd(s, dy, cfg).to(out_dtype)
+    if device.type == "cuda":
+        return _bwd_cuda
+    raise ValueError(f"no Hyft softmax kernel for device {device}")
+
+
+def _fwd_shapes(z, cfg: HyftConfig):
+    """``_fwd_cuda``'s output on a shape-only ``z`` (and the copy it makes
+    of a strided one): no arithmetic, no launch."""
+    SHAPE_CALLS["hyft_softmax_fwd"] += 1
+    z = z.contiguous()
+    return torch.empty(z.shape, dtype=cfg.dtype, device=z.device)
+
+
+def _bwd_shapes(s, dy, cfg: HyftConfig, out_dtype: torch.dtype):
+    """``_bwd_cuda``'s output on shape-only operands (and the casts and
+    copies it makes of its inputs)."""
+    SHAPE_CALLS["hyft_softmax_bwd"] += 1
+    if s.dtype != dy.dtype:
+        s, dy = s.to(F32), dy.to(F32)
+    s, dy = s.contiguous(), dy.contiguous()
+    return torch.empty(s.shape, dtype=out_dtype, device=s.device)
 
 
 def _fwd_cuda(z, cfg: HyftConfig):

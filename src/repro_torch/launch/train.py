@@ -81,7 +81,8 @@ def build(args: argparse.Namespace) -> dict:
     a mesh (a world above 1, whose process group this initializes) it is
     sharded."""
     from repro_torch import optim
-    from repro_torch.configs import TrainConfig, get_config, smoke_config
+    from repro_torch.configs import (ShapeSpec, TrainConfig, get_config, input_specs,
+                                     smoke_config)
     from repro_torch.data.synthetic import DataConfig, lm_batch
     from repro_torch.device import resolve_device
     from repro_torch.distributed import sharding as shd
@@ -115,9 +116,8 @@ def build(args: argparse.Namespace) -> dict:
         mesh = make_host_mesh((args.data_mesh, args.model_mesh), device=dev)
         rules = shd.default_rules(mesh, cfg)
         state_sh = state_shardings(mesh, model, ocfg, rules)
-        shape = (args.global_batch, args.seq)
-        batch_sh = shd.batch_shardings(
-            mesh, {"tokens": shape, "targets": shape, "mask": shape}, rules)
+        specs = input_specs(cfg, ShapeSpec("cli", "train", args.seq, args.global_batch))
+        batch_sh = shd.batch_shardings(mesh, {k: s for k, (s, _) in specs.items()}, rules)
     return {"model": model,
             "state": init_state(model, ocfg, args.seed, device=dev, shardings=state_sh),
             "step": build_train_step(model, tcfg, ocfg, mesh, state_sh, batch_sh),

@@ -13,10 +13,12 @@ The PyTorch counterpart of ``repro.models.attention``.  Modes
              flash forward and backward for whole sequences, split-K for
              decode and prompt chunks.
 
-On DTensors (a sharded training step) ``attention_fwd`` runs its mode on
-each rank's local (batch, head) blocks through ``local_map``: attention is
-independent per (batch, head), so it needs no collective, and the kernels
-(raw pointers) and the Hyft bit arithmetic see plain local tensors.
+On DTensors (a sharded step) ``attention_fwd`` and the kernel mode's
+``decode_attention`` run on each rank's local (batch, head) blocks through
+``local_map``: attention is independent per (batch, head), so it needs no
+collective but the gather of a sequence-sharded cache's keys, and the
+kernels (raw pointers) and the Hyft bit arithmetic see plain local
+tensors; ``cache_update`` writes each rank's block of a sharded cache.
 ``sp_decode_attention`` is the paper's two-level tree across ranks: an
 all-reduce of the fixed-point max, then of the fixed sums and PV
 accumulators.
@@ -52,8 +54,11 @@ def qkv_proj(p, x, kv_x, cfg, positions, kv_positions):
     """x: (B,S,dm) -> q (B,Hq,S,D); kv_x -> k,v (B,Hkv,Sk,D), rope'd."""
     def proj(w, inp):  # (B,S,dm) @ (dm,H,D) -> (B,S,H,D)
         dm, h, d = w.shape
-        return torch.matmul(inp, w.to(x.dtype).reshape(dm, h * d)).reshape(
-            *inp.shape[:-1], h, d)
+        wf = w.to(x.dtype).reshape(dm, h * d)
+        if is_dtensor(wf) and wf.requires_grad:   # its gradient unflattens to heads
+            wf.register_hook(lambda g: _whole_heads(g, h))
+        y = torch.matmul(inp, wf)
+        return _whole_heads(y, h).reshape(*inp.shape[:-1], h, d)
     q, k, v = proj(p["wq"], x), proj(p["wk"], kv_x), proj(p["wv"], kv_x)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -61,6 +66,23 @@ def qkv_proj(p, x, kv_x, cfg, positions, kv_positions):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _whole_heads(y, h: int):
+    """``y`` (..., h * D) as is, or a DTensor with each shard of its last
+    dim that does not fall on whole heads made whole (DTensor may shard a
+    product's output where the heads do not divide the mesh axis)."""
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Replicate, Shard
+    pl, n = list(y.placements), 1
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim % y.ndim == y.ndim - 1:
+            if h % (n * y.device_mesh.size(i)):
+                pl[i] = Replicate()
+            else:
+                n *= y.device_mesh.size(i)
+    return y if pl == list(y.placements) else y.redistribute(y.device_mesh, pl)
 
 
 def out_proj(p, o):
@@ -260,18 +282,32 @@ def attention_fwd(q, k, v, cfg, *, causal=True, q_offset=0, kv_len_mask=None):
 
 
 def _sharded_attention(q, k, v, cfg, causal, q_offset, mask):
-    """``attention_fwd`` on DTensors q (B, Hq, S, D), k/v (B, Hkv, Sk, D):
-    the batch may be sharded (``Shard(0)``) and the heads (``Shard(1)``);
-    any other placement is made whole first.  k/v follow q's batch
-    placement, and q's head placement where Hkv divides it.  Where q's heads
-    are sharded and the kv heads are not (qwen2's 2 kv heads at ``model``
-    4), each rank takes the kv heads its q heads read, and their gradient
-    is a partial sum over those ranks."""
+    """``attention_fwd`` on DTensors q (B, Hq, S, D), k/v (B, Hkv, Sk, D),
+    on each rank's blocks (``_on_local_blocks``)."""
+    def body(ql, kv, ml):
+        kl, vl = kv
+        return attention_fwd(ql, kl.contiguous(), vl.contiguous(), cfg, causal=causal,
+                             q_offset=q_offset, kv_len_mask=ml)
+    return _on_local_blocks(q, [k, v], mask, body)
+
+
+def _on_local_blocks(q, kvs, mask, body):
+    """``body(q block, [kv blocks], mask block)`` on each rank's blocks of
+    DTensors q (B, Hq, Sq, D) and ``kvs``, leaves laid out (B, Hkv, Sk,
+    ...) (K, V and their fp2fx8 scales): the batch may be sharded
+    (``Shard(0)``) and the heads (``Shard(1)``); any other placement is made
+    whole first, the keys' sequence too (a kernel reads a row's keys
+    whole).  The kv leaves follow q's batch placement, and q's head
+    placement where Hkv divides it.  Where q's heads are sharded and the kv
+    heads are not (qwen2's 2 kv heads at ``model`` 4), each rank takes the
+    kv heads its q heads read, and their gradient is a partial sum over
+    those ranks.  ``mask`` is None, a (B, Sk) or a (B, Sq, Sk) tensor (or
+    DTensor).  Returns ``body``'s output (q's shape) in q's placements."""
     from torch.distributed.tensor import Partial, Replicate, Shard, distribute_tensor
     from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
-    Hq, Hkv = q.shape[1], k.shape[1]
+    Hq, Hkv = q.shape[1], kvs[0].shape[1]
     head_dims = [i for i, p in enumerate(q.placements) if p == Shard(1)]
     n_head_shards = 1
     for i in head_dims:
@@ -288,7 +324,8 @@ def _sharded_attention(q, k, v, cfg, causal, q_offset, mask):
         else:
             qp.append(Replicate()), kp.append(Replicate()), gp.append(Replicate())
     q = q.redistribute(mesh, qp)
-    k, v = k.redistribute(mesh, kp), v.redistribute(mesh, kp)
+    kvs = [t.redistribute(mesh, kp) if is_dtensor(t) else
+           distribute_tensor(t, mesh, kp, src_data_rank=None) for t in kvs]
     mp = None
     if mask is not None:
         mp = tuple(p if p == Shard(0) else Replicate() for p in qp)
@@ -301,22 +338,36 @@ def _sharded_attention(q, k, v, cfg, causal, q_offset, mask):
         chunk //= mesh.size(i)
         off += coord[i] * chunk
 
-    def body(ql, kl, vl, ml):
+    def run_body(ql, ml, *kl):
         if head_dims and not kv_split:
             g, hl = Hq // Hkv, ql.shape[1]
             first, last = off // g, (off + hl - 1) // g
             if hl % g == 0 or first == last:   # whole groups, or one group's part
-                kl, vl = kl[:, first:last + 1], vl[:, first:last + 1]
+                kl = [t[:, first:last + 1] for t in kl]
             else:                              # one kv head a q head
                 idx = [(off + i) // g for i in range(hl)]
-                kl, vl = kl[:, idx], vl[:, idx]
-        return (attention_fwd(ql, kl.contiguous(), vl.contiguous(), cfg, causal=causal,
-                              q_offset=q_offset, kv_len_mask=ml),)
-    run = local_map(body, out_placements=(tuple(qp),),
-                    in_placements=(tuple(qp), tuple(kp), tuple(kp), mp),
-                    in_grad_placements=(tuple(qp), tuple(gp), tuple(gp), mp),
+                kl = [t[:, idx] for t in kl]
+        return (body(ql, list(kl), ml),)
+    n = len(kvs)
+    run = local_map(run_body, out_placements=(tuple(qp),),
+                    in_placements=(tuple(qp), mp) + (tuple(kp),) * n,
+                    in_grad_placements=(tuple(qp), mp) + (tuple(gp),) * n,
                     device_mesh=mesh)
-    return run(q, k, v, mask)[0]
+    return run(q, mask, *kvs)[0]
+
+
+def _local_span(size: int, mesh, placements, dim: int) -> tuple:
+    """(start, length) of this rank's block of a tensor dim of ``size``
+    under ``placements`` (nested ``Shard(dim)``s split in mesh-dim order,
+    as DTensor lays them out)."""
+    from torch.distributed.tensor import Shard
+    coord, start, cur = mesh.get_coordinate(), 0, size
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim % 4 == dim:
+            chunk = -(-cur // mesh.size(i))
+            lo = min(coord[i] * chunk, cur)
+            start, cur = start + lo, min(chunk, cur - lo)
+    return start, cur
 
 
 # --------------------------------------------------------------------------
@@ -434,12 +485,35 @@ def _quantized_entries(cache, k_new, v_new):
 
 def cache_update(cache, k_new, v_new, pos: int):
     """k_new/v_new: (B,Hkv,S_new,D) written at the scalar offset ``pos``
-    (clamped so the write fits, as ``dynamic_update_slice`` clamps)."""
+    (clamped so the write fits, as ``dynamic_update_slice`` clamps).  A
+    DTensor cache (its sequence sharded, ``sharding.cache_shardings``)
+    takes the write on each rank's block of it."""
     S, L = k_new.shape[2], cache["k"].shape[2]
     pos = min(max(int(pos), 0), L - S)
     for name, new in _quantized_entries(cache, k_new, v_new).items():
-        cache[name][:, :, pos:pos + S] = new.to(cache[name].dtype)
+        if is_dtensor(cache[name]):
+            _write_local(cache[name], new, pos)
+        else:
+            cache[name][:, :, pos:pos + S] = new.to(cache[name].dtype)
     return cache
+
+
+def _write_local(buf, new, pos: int):
+    """``buf[:, :, pos:pos + S] = new`` on a DTensor ``buf`` (B, Hkv, L,
+    ...): ``new`` takes ``buf``'s placements with its sequence whole, and
+    each rank writes the part of it that falls in its block of ``buf``."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    mesh, pl = buf.device_mesh, buf.placements
+    keep = tuple(Replicate() if isinstance(p, Shard) and p.dim % buf.ndim == 2 else p
+                 for p in pl)
+    new = (new.redistribute(mesh, keep) if is_dtensor(new) else
+           distribute_tensor(new, mesh, keep, src_data_rank=None))
+    S = new.shape[2]
+    lo, n = _local_span(buf.shape[2], mesh, pl, 2)
+    a, b = max(pos, lo), min(pos + S, lo + n)
+    if a < b:
+        buf.to_local()[:, :, a - lo:b - lo] = (
+            new.to_local()[:, :, a - pos:b - pos].to(buf.dtype))
 
 
 def cache_update_ragged(cache, k_new, v_new, pos_b, write_mask=None):
@@ -614,10 +688,18 @@ def decode_attention(q, cache, cfg, *, kv_len_mask=None):
 
     With a Hyft softmax and ``attn_mode="kernel"`` this is the split-K
     decode kernel, reading fp2fx8 raws directly.  Every other combination
-    dequantizes and falls through to the mode dispatch.
+    dequantizes and falls through to the mode dispatch.  On DTensors (a
+    sharded cache) the kernel runs on each rank's blocks, the keys'
+    sequence made whole first (``_on_local_blocks``).
     """
     hcfg = hyft_config_for(cfg.softmax_impl)
     mode = getattr(cfg, "attn_mode", "unfused")
+    if hcfg is not None and mode == "kernel" and q.shape[2] == 1 and is_dtensor(q):
+        names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
+        return _on_local_blocks(
+            q, [cache[n] for n in names], kv_len_mask,
+            lambda ql, kl, ml: decode_attention(ql, dict(zip(names, kl)), cfg,
+                                                kv_len_mask=ml))
     if hcfg is not None and mode == "kernel" and q.shape[2] == 1:
         return ops.hyft_decode_attention(
             q, cache["k"], cache["v"], hcfg,

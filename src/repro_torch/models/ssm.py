@@ -9,6 +9,11 @@ block is softmax-free: the Hyft technique does not apply to it (DESIGN.md
 and ``einsum``, as the JAX package computes them outside any Pallas
 kernel.
 
+On DTensors (a sharded step) ``ssm_train`` runs on each rank's batch rows
+through ``local_map``, its weights made whole: the scan is independent per
+sequence, and the chunk reshapes of a sharded tensor are left out of
+DTensor's strategies.
+
 Decode is O(1) per token: one state update carried in the cache,
 ``{"ssm": (B, H, P, N) fp32, "conv": (B, K - 1, conv_dim)}``.
 
@@ -27,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.layers import param
 
 F32 = torch.float32
@@ -102,6 +108,8 @@ def ssm_train(p, x, cfg, return_state=False):
     ``return_state=True`` also returns the decode cache after the prompt,
     the final SSD state (B, H, P, N) and the last K - 1 pre-conv columns:
     this is what makes the parallel prefill possible."""
+    if is_dtensor(x):
+        return _ssm_train_sharded(p, x, cfg, return_state)
     Bsz, S, _ = x.shape
     d_inner, H, conv_dim = ssm_dims(cfg)
     N, P, Q = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_chunk
@@ -159,6 +167,32 @@ def ssm_train(p, x, cfg, return_state=False):
     if return_state:
         return out, {"ssm": h, "conv": conv_tail}
     return out
+
+
+def _ssm_train_sharded(p, x, cfg, return_state):
+    """``ssm_train`` on DTensors: each rank runs its batch rows of ``x``
+    (``Shard(0)`` kept, any other placement made whole) with the weights
+    whole; a weight's gradient is a partial sum over the ranks that split
+    the batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    xp = tuple(pl if pl == Shard(0) else Replicate() for pl in x.placements)
+    whole = (Replicate(),) * mesh.ndim
+    grad = tuple(Partial() if pl == Shard(0) else Replicate() for pl in xp)
+    names = sorted(p)
+    weights = [p[n].redistribute(mesh, whole) if is_dtensor(p[n]) else
+               distribute_tensor(p[n], mesh, whole, src_data_rank=None) for n in names]
+
+    def body(xl, *wl):
+        out = ssm_train(dict(zip(names, wl)), xl, cfg, return_state)
+        return (out[0], out[1]["ssm"], out[1]["conv"]) if return_state else (out,)
+    n_out = 3 if return_state else 1
+    run = local_map(body, out_placements=(xp,) * n_out,
+                    in_placements=(xp,) + (whole,) * len(names),
+                    in_grad_placements=(xp,) + (grad,) * len(names), device_mesh=mesh)
+    out = run(x.redistribute(mesh, xp), *weights)
+    return (out[0], {"ssm": out[1], "conv": out[2]}) if return_state else out[0]
 
 
 def ssm_cache_init(cfg, batch, dtype, device=None):

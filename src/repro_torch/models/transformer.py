@@ -270,6 +270,8 @@ def _block_apply(p, x, cfg, positions, *, causal=True, decode_cache=None,
             cache = attn.cache_update(decode_cache, k, v, pos_offset)
         o = attn.decode_attention(q, cache, cfg, kv_len_mask=kv_len_mask)
     x = x + attn.out_proj(p["attn"], o.to(x.dtype))
+    if decode_cache is not None:        # serving: the heads' partial sum reduced here
+        x = constrain_acts(x)
     h = norm_fn(p["norms"]["pre_mlp"], x)
     y, aux = _ffn(p, h, cfg)
     return x + y.to(x.dtype), aux, cache
@@ -436,7 +438,8 @@ def decode_step(params, cache, tokens1, pos, cfg, write_mask=None):
                  _layers(cache["blocks"], cfg.n_layers))
     if cfg.family == "ssm":
         for lp, lc in layers:
-            x = _mamba_block_apply(lp, x, cfg, decode_cache=lc, write_mask=write_mask)
+            x = constrain_acts(_mamba_block_apply(lp, x, cfg, decode_cache=lc,
+                                                  write_mask=write_mask))
     else:
         bt = cache.get("block_tables")
         kv_mask = torch.arange(_kv_length(cache), device=dev)[None, :] <= positions
@@ -450,10 +453,11 @@ def decode_step(params, cache, tokens1, pos, cfg, write_mask=None):
                 if flag:
                     x = _block_apply(params["shared_attn"], x, cfg, positions,
                                      decode_cache=shared[inv], **kw)[0]
+                x = constrain_acts(x)
         else:
             for lp, lc in layers:
-                x = _block_apply(lp, x, cfg, positions, decode_cache=lc,
-                                 paged_bt=bt, **kw)[0]
+                x = constrain_acts(_block_apply(lp, x, cfg, positions, decode_cache=lc,
+                                                paged_bt=bt, **kw)[0])
     norm_fn = NORMS[cfg.norm]
     x = norm_fn(params["final_norm"], x)
     return logits_fn(params, x, cfg), cache
@@ -533,7 +537,7 @@ def _prefill_block(lp, lc, x, cfg, positions, kv_mask=None):
     q, k, v = attn.qkv_proj(lp["attn"], h, h, cfg, positions, positions)
     attn.cache_update(lc, k, v, 0)
     o = attn.attention_fwd(q, k, v, cfg, causal=True, kv_len_mask=kv_mask)
-    y = x + attn.out_proj(lp["attn"], o.to(x.dtype))
+    y = constrain_acts(x + attn.out_proj(lp["attn"], o.to(x.dtype)))
     h2 = norm_fn(lp["norms"]["pre_mlp"], y)
     return y + _ffn(lp, h2, cfg)[0].to(y.dtype)
 
@@ -568,7 +572,7 @@ def prefill(params, cache, tokens, cfg, lengths=None):
                    else torch.arange(S, device=dev)[None, :] < lengths[:, None])
         for lp, lc in zip(_layers(params["blocks"], cfg.n_layers),
                           _layers(cache["blocks"], cfg.n_layers)):
-            x = _prefill_block(lp, lc, x, cfg, positions, kv_mask)
+            x = constrain_acts(_prefill_block(lp, lc, x, cfg, positions, kv_mask))
         if lengths is not None:
             x = torch.gather(x, 1, (lengths - 1)[:, None, None].expand(B, 1, x.shape[-1]))
         else:
@@ -613,6 +617,7 @@ def _prefill_ssm_parallel(params, cache, tokens, cfg):
             lc[name].copy_(leaf)
         if flag:
             x = _prefill_block(params["shared_attn"], shared[inv], x, cfg, positions)
+        x = constrain_acts(x)
     x = norm_fn(params["final_norm"], x[:, -1:])
     return logits_fn(params, x, cfg), cache, S
 

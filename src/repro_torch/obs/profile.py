@@ -54,6 +54,8 @@ import time
 from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
@@ -73,6 +75,18 @@ _TRANSCENDENTAL = {_aten.exp, _aten.exp2, _aten.expm1, _aten.log, _aten.log2,
 _FP32 = (torch.float32, torch.float64)
 
 
+# what a tensor's metadata queries dispatch as on a subclass (a fake
+# tensor's device, sizes and strides): they touch no data, and a dense
+# tensor answers them without dispatching
+_METADATA = {"sym_size", "sym_stride", "sym_numel", "sym_storage_offset", "is_contiguous",
+             "is_strides_like_format", "is_non_overlapping_and_dense", "dim", "size",
+             "stride", "storage_offset", "numel"}
+
+
+def _is_metadata(func) -> bool:
+    return func.namespace == "prim" or func._overloadpacket.__name__ in _METADATA
+
+
 # the indexing that reaches the params and the caches (the embedding rows,
 # the K/V writes): ops that touch only the elements they index of their
 # first argument, as many as the output (a read) or the values (a write)
@@ -80,20 +94,27 @@ _INDEXED = {_aten.index: None, _aten.index_put_: 2}
 
 
 def _tensors(tree) -> Iterator[torch.Tensor]:
+    """The tensors of ``tree``; a DTensor's local block in its place."""
     for leaf in tree_leaves(tree):
-        if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, DTensor):
+            yield leaf._local_tensor
+        elif isinstance(leaf, torch.Tensor):
             yield leaf
 
 
 def _key(t: torch.Tensor):
-    return t.device, t.untyped_storage().data_ptr()
+    """A storage's identity while it lives: its ``StorageImpl``, which a
+    real and a fake or meta storage (whose ``data_ptr`` is 0) both have."""
+    return t.untyped_storage()._cdata
 
 
 class _CountingMode(TorchDispatchMode):
     """Counts the products and transcendentals of the ops it sees into a
     ``kernels.cost.Counter``, and keeps the bytes each op reads or writes of
     each storage (``touched``), except while a kernel scope has paused it.
-    A view moves nothing and counts nothing."""
+    A view moves nothing and counts nothing.  An op on DTensors is left to
+    DTensor, whose per-rank ops on the local blocks it then counts: a
+    sharded call's count is one rank's."""
 
     def __init__(self, counter: kcost.Counter):
         super().__init__()
@@ -103,6 +124,8 @@ class _CountingMode(TorchDispatchMode):
         self.touched: Dict[tuple, list] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented      # count the per-rank ops DTensor runs
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         # a storage born in this op (an output at an address that no input
@@ -113,7 +136,7 @@ class _CountingMode(TorchDispatchMode):
             if _key(t) not in held:
                 self.touched.pop(_key(t), None)
         c = self.counter
-        if c.paused or func.is_view:
+        if c.paused or func.is_view or _is_metadata(func):
             return out
         packet = func._overloadpacket
         if packet in flop_registry:
@@ -179,6 +202,58 @@ def _storages(tree, seen: dict) -> None:
             seen[_key(t)] = st.nbytes()
 
 
+# the methods of DTensor's ``ShardingPropagator`` that run an op on fake
+# tensors of the global shapes on a cache miss, newest torch first
+_PROPAGATORS = ("propagate_op_sharding_non_cached", "_propagate_tensor_meta_non_cached")
+
+
+@contextlib.contextmanager
+def unseen_sharding_propagation():
+    """While inside, DTensor works out an op's sharding with the dispatch
+    modes off.  On a cache miss it runs the op once on fake tensors of the
+    global shapes to learn the output's (``ShardingPropagator``), which a
+    counting or metering mode would take for the rank's own work, and its
+    strategies may read values that a fake tensor does not have.  Raises
+    on a torch whose propagator has none of ``_PROPAGATORS``: its counts of
+    a sharded step would hold the global ops."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    from torch.utils._python_dispatch import _disable_current_modes
+    name = next((n for n in _PROPAGATORS if n in ShardingPropagator.__dict__), None)
+    if name is None:
+        raise RuntimeError(f"torch {torch.__version__}: ShardingPropagator has none of "
+                           f"{_PROPAGATORS}; a sharded step's count cannot leave out "
+                           "DTensor's sharding propagation")
+    orig = ShardingPropagator.__dict__[name]
+
+    def quiet(self, *args, **kwargs):
+        with _disable_current_modes():
+            return orig(self, *args, **kwargs)
+    setattr(ShardingPropagator, name, quiet)
+    try:
+        yield
+    finally:
+        setattr(ShardingPropagator, name, orig)
+
+
+def count_cost(fn, *args) -> tuple:
+    """``(fn(*args), its cost)``: the call runs once under the counting
+    dispatch mode (see ``exec_cost``); a fault of the call raises.  While a
+    process group exists (the only time DTensors can), DTensor's sharding
+    propagation is kept out of the count (``unseen_sharding_propagation``)."""
+    counter = kcost.Counter()
+    mode = _CountingMode(counter)
+    sharded = dist.is_available() and dist.is_initialized()
+    with (unseen_sharding_propagation() if sharded else contextlib.nullcontext()), \
+            kcost.counting(counter), mode:
+        out = fn(*args)
+    sizes: dict = {}
+    _storages(args, sizes)
+    _storages(out, sizes)
+    nbytes = counter.bytes + sum(mode.bytes_of(k, n) for k, n in sizes.items())
+    return out, {"flops": float(counter.flops), "flops_fp32": float(counter.flops_fp32),
+                 "bytes": float(nbytes), "transcendentals": float(counter.transcendentals)}
+
+
 def exec_cost(fn, *args) -> Optional[dict]:
     """FLOPs, bytes and transcendentals of ``fn(*args)``, from one call of it
     under a counting dispatch mode.  Returns None when the call raises
@@ -189,20 +264,11 @@ def exec_cost(fn, *args) -> Optional[dict]:
     among the arguments (through dicts, lists and tuples) and the outputs,
     what the other ops read or wrote of it, each byte once.  The call runs
     for real: pass arguments whose call writes nothing the caller needs
-    (gates off, slots inactive)."""
-    counter = kcost.Counter()
-    mode = _CountingMode(counter)
+    (gates off, slots inactive).  On DTensors the counts are one rank's."""
     try:
-        with kcost.counting(counter), mode:
-            out = fn(*args)
+        return count_cost(fn, *args)[1]
     except Exception:  # noqa: BLE001  (best-effort, as the JAX module's)
         return None
-    sizes: dict = {}
-    _storages(args, sizes)
-    _storages(out, sizes)
-    nbytes = counter.bytes + sum(mode.bytes_of(k, n) for k, n in sizes.items())
-    return {"flops": float(counter.flops), "flops_fp32": float(counter.flops_fp32),
-            "bytes": float(nbytes), "transcendentals": float(counter.transcendentals)}
 
 
 def join_cost(cost: dict, wall_s: float) -> dict:

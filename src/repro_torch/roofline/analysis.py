@@ -13,8 +13,10 @@ cores: the Hyft kernels' fp32 FMAs and any fp32 product.  Counting those at
 the bf16 tensor-core peak would loosen their bound 15x; with
 ``flops_fp32 = 0`` the compute term is the JAX module's.  The JAX module
 reads its collective bytes from the post-SPMD HLO text; eager PyTorch has
-none, so the term is 0 here until the dry-run counts a sharded step's
-collectives (ROADMAP queue 1: the dry-run and the collective term).
+none, so the caller passes them: the dry-run counts the per-device operand
+bytes of each collective a sharded step issues, by kind
+(``launch/dryrun_meter.py``), the JAX module's convention.  Without them
+(one card) the term is 0.
 
 MODEL_FLOPS = 6*N*D (train) or 2*N*D (inference), with N the (active)
 parameter count, as in the JAX module.
@@ -61,15 +63,20 @@ class Roofline:
                 "roofline_fraction": self.roofline_fraction}
 
 
-def analyze(cost: dict, chips: int = 1) -> Roofline:
+def analyze(cost: dict, chips: int = 1, collectives: dict | None = None) -> Roofline:
     """The bound of ``cost`` (``flops``, ``bytes accessed``, optional
     ``flops_fp32``; the JAX cost analysis' keys) on ``chips`` cards, each
-    running the counted program.  The JAX module's ``trip_factor`` (a scan
-    body's trips) has no counterpart: eager execution counts every layer."""
+    running the counted program.  ``collectives`` is {kind: per-device
+    bytes}: the operand bytes of each all-reduce, all-gather,
+    reduce-scatter, all-to-all or permute a card issues, summed by kind;
+    their total over the NVLink rate is the collective term.  The JAX
+    module's ``trip_factor`` (a scan body's trips) has no counterpart:
+    eager execution counts every layer."""
     flops_dev = float(cost.get("flops", 0.0))
     fp32_dev = float(cost.get("flops_fp32", 0.0))
     bytes_dev = float(cost.get("bytes accessed", 0.0))
-    coll_dev = 0.0                       # no count of collective bytes yet
+    coll = {k: float(v) for k, v in (collectives or {}).items()}
+    coll_dev = float(sum(coll.values()))
     return Roofline(
         compute_s=((flops_dev - fp32_dev) / hw.PEAK_FLOPS_BF16
                    + fp32_dev / hw.PEAK_FLOPS_FP32),
@@ -78,7 +85,7 @@ def analyze(cost: dict, chips: int = 1) -> Roofline:
         hlo_flops_global=flops_dev * chips,
         hlo_bytes_global=bytes_dev * chips,
         coll_bytes_device=coll_dev,
-        coll_breakdown={},
+        coll_breakdown=coll,
         chips=chips,
     )
 

@@ -9,6 +9,8 @@ name and power limit.
 
 # HBM3 bandwidth of one card, bytes/s (80 GB at 3.35 TB/s)
 HBM_BW = 3.35e12
+# HBM3 capacity of one card, bytes: the dry-run's fits check
+HBM_BYTES = 80e9
 # tensor cores, bf16 and fp16 operands with fp32 accumulation, FLOP/s
 PEAK_FLOPS_BF16 = 989e12
 # fp32 outside the tensor cores (the CUDA cores' FMAs, two FLOPs each),

@@ -26,10 +26,13 @@ def tree_leaves(tree) -> list:
 
 def tree_unflatten(like, leaves):
     """A tree shaped like ``like`` holding ``leaves`` (sorted-key order)."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-    return build(like)
+
+def _build(like, it):
+    # a module-level function: a nested one that recursed through its own
+    # closure would be a reference cycle holding ``leaves`` (a step's whole
+    # gradient) until the garbage collector happened to run
+    if isinstance(like, dict):
+        return {k: _build(like[k], it) for k in sorted(like)}
+    return next(it)

@@ -249,13 +249,16 @@ def test_unfused_attention_passes_dq_and_dk():
 
 def test_flash_dispatches_on_device_only():
     """The plain versions for a CPU tensor and nothing else: a CUDA tensor
-    launches the kernels, any other device raises."""
+    launches the kernels, a meta one gets the outputs' shapes alone, any
+    other device raises."""
     assert tfa._flash_impls(torch.device("cpu")) == (
         tfa._flash_fwd_plain, tfa._flash_bwd_dq_plain, tfa._flash_bwd_dkv_plain)
     assert tfa._flash_impls(torch.device("cuda")) == (
         tfa._flash_fwd_cuda, tfa._flash_bwd_dq_cuda, tfa._flash_bwd_dkv_cuda)
+    assert tfa._flash_impls(torch.device("meta")) == (
+        tfa._flash_fwd_shapes, tfa._flash_bwd_dq_shapes, tfa._flash_bwd_dkv_shapes)
     with pytest.raises(ValueError):
-        tfa._flash_impls(torch.device("meta"))
+        tfa._flash_impls(torch.device("xpu"))
 
 
 def _plain_kw(cfg):

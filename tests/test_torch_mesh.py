@@ -30,6 +30,7 @@ spawn per world size serving several checks.
   arrays and manifest byte-equal.
 * The launcher under ``torch.distributed.run`` at (2, 2).
 """
+import contextlib
 import importlib.util
 import os
 import pathlib
@@ -60,7 +61,7 @@ from repro.models.layers import unbox
 from repro.train.step import make_step_fn as jax_make_step_fn
 from repro_torch import optim
 from repro_torch.checkpoint import checkpointer
-from repro_torch.configs import TrainConfig, get_config, smoke_config
+from repro_torch.configs import ShapeSpec, TrainConfig, get_config, smoke_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import attention, build_model
 from repro_torch.models import moe as tmoe
@@ -277,7 +278,7 @@ def ranks(weights, tmp_path_factory):
                  "v": torch.from_numpy(v), "valid": torch.from_numpy(valid)}
           for name in ("hyft32", "hyft16")}
     sp["chip"] = _chip_smoke().sp_inputs(torch, device="cpu")
-    run2 = worker.Spawned(2, {"train": _train_inputs(two, weights)})
+    run2 = worker.Spawned(2, {"train": _train_inputs(two, weights), "ssm": _ssm_inputs()})
     run4 = worker.Spawned(4, {
         "train": _train_inputs(four, weights), "sp_decode": sp, "gqa": _gqa_inputs(),
         "collectives": {"trees": _psum_trees(), "ckpt": {
@@ -285,6 +286,18 @@ def ranks(weights, tmp_path_factory):
     yield run2, run4, (state, tmp, src)
     run2.close()
     run4.close()
+
+
+SSM_KW = dict(compute_dtype="float32", vocab=64)
+
+
+def _ssm_inputs():
+    """mamba2 smoke's weights (seed 0) and one 4 x 32 batch."""
+    cfg = smoke_config(get_config("mamba2-370m")).with_(**SSM_KW)
+    toks = torch.from_numpy(_batches(64, B, 2)[0]["tokens"])
+    return {"cfg": SSM_KW, "params": build_model(cfg).init(0, device="cpu"),
+            "batch": {"tokens": toks, "targets": toks.roll(-1, 1),
+                      "mask": torch.ones(B, S)}}
 
 
 def _psum_trees():
@@ -352,6 +365,51 @@ def test_sharded_step_matches_jax_four_ranks(four, dense, name):
     _, mode, opt = DENSE_CASES[name]
     jax_ref, port_ref = dense[1][(mode, opt)]
     _hold_run(four[0]["train"][name], jax_ref, port_ref, opt, dense[0])
+
+
+@pytest.mark.parametrize("name", [n for n, c in DENSE_CASES.items() if c[0] != (2, 2)])
+def test_dryrun_collectives_match_the_gloo_step(two, name, monkeypatch):
+    """The dry-run's fake trace of a two-rank case (a fake group of 2, the
+    case's config, mesh and train step, rank 0's view) issues the
+    collectives of the real gloo step: by kind, count and operand bytes;
+    and its FLOPs and bytes are those that ``count_cost`` reads of rank 0's
+    second real step (whose state is placed, as the trace's is).  The trace
+    keeps gloo's all-gather and chunk for an all-to-all here, as the real
+    ranks do (the dry-run's own trace issues the card's all-to-all:
+    ``tests/test_torch_dryrun.py``)."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(dryrun, "_alltoall_as_on_the_card", contextlib.nullcontext)
+    mesh, mode, opt = DENSE_CASES[name]
+    case = _case("qwen2-1.5b", DENSE_KW, mesh, mode, opt, "dense")
+    cfg = smoke_config(get_config("qwen2-1.5b")).with_(**case["cfg"])
+    spec = ShapeSpec("mesh_case", "train", S, B)
+    got = dryrun.trace_cell(cfg, spec, MeshConfig(shape=mesh),
+                            dryrun.CellOpts(attn_mode=mode, optimizer=opt), device="cpu",
+                            tcfg=TrainConfig(**case["train"]))
+    want = two["train"][name]["collectives"]
+    assert got["collectives"] == want and want
+    assert got["roofline"]["coll_bytes_device"] == sum(c["bytes"] for c in want.values())
+    real = two["train"][name]["cost"]
+    assert real["flops"] > 0
+    assert {k: got["cost"][k] for k in real} == real
+
+
+def test_sharded_ssm_matches_one_process(two):
+    """mamba2 smoke on (2, 1): the chunked SSD on each rank's batch rows,
+    the weights whole, their gradients reduced over the data axis: the loss
+    and every gradient of the one-process run, but for the order of the
+    sums over the ranks."""
+    from repro_torch.train.step import grads_of, make_loss_fn
+    x = _ssm_inputs()
+    cfg = smoke_config(get_config("mamba2-370m")).with_(**SSM_KW)
+    model = build_model(cfg)
+    loss, _, grads = grads_of(make_loss_fn(model, TrainConfig(remat="full")), x["params"],
+                              x["batch"])
+    got = two["ssm"]
+    assert abs(got["loss"] - float(loss)) <= MESH_RTOL * abs(float(loss))
+    for g, w in zip(tree_leaves(got["grads"]), tree_leaves(grads)):
+        assert float((g - w).abs().max()) <= MESH_RTOL * float(w.abs().max()) + 1e-7
 
 
 @ONE_HOT

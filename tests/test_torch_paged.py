@@ -314,11 +314,13 @@ def test_paged_model_step_matches_dense_and_placement(attn_mode):
 
 def test_paged_wrapper_dispatches_on_device_only():
     """The plain version for a CPU tensor and nothing else: a CUDA tensor
-    launches the one-launch paged kernel, any other device raises."""
+    launches the one-launch paged kernel, a meta one gets the output's
+    shape alone, any other device raises."""
     assert tfa._paged_attention_for(torch.device("cpu")) is tfa.paged_attention_plain
     assert tfa._paged_attention_for(torch.device("cuda")) is tfa._paged_attention_cuda
+    assert tfa._paged_attention_for(torch.device("meta")) is tfa._paged_attention_shapes
     with pytest.raises(ValueError):
-        tfa._paged_attention_for(torch.device("meta"))
+        tfa._paged_attention_for(torch.device("xpu"))
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

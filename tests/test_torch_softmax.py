@@ -341,8 +341,9 @@ def test_attention_ref_oracles_match_jax(causal):
 
 
 def test_wrappers_dispatch_on_device_and_check_inputs():
-    """A CPU tensor runs the plain version and launches nothing; other
-    devices and bad inputs raise."""
+    """A CPU tensor runs the plain version and launches nothing; a meta
+    tensor gets the output's shape alone (``SHAPE_CALLS``); other devices
+    and bad inputs raise."""
     ct = thyft.HYFT16
     z = torch.from_numpy(_scores(9, (4, 8)))
     before = dict(ths.LAUNCHES)
@@ -350,10 +351,16 @@ def test_wrappers_dispatch_on_device_and_check_inputs():
     _same(thyft.hyft_softmax_fwd(z, ct), s)
     _same(thyft.hyft_softmax_bwd(s, z, ct), ths.hyft_softmax_bwd_kernel(s, z, ct))
     assert ths.LAUNCHES == before
-    with pytest.raises(ValueError, match="device"):
-        ths.hyft_softmax_fwd_kernel(z.to("meta"), ct)
-    with pytest.raises(ValueError, match="device"):
-        ths.hyft_softmax_bwd_kernel(s.to("meta"), z.to("meta"), ct)
+    shaped = dict(ths.SHAPE_CALLS)
+    out = ths.hyft_softmax_fwd_kernel(z.to("meta"), ct)
+    assert (out.device.type, out.shape, out.dtype) == ("meta", z.shape, ct.dtype)
+    out = ths.hyft_softmax_bwd_kernel(s.to("meta"), z.to("meta"), ct, out_dtype=torch.float32)
+    assert (out.device.type, out.shape, out.dtype) == ("meta", z.shape, torch.float32)
+    assert ths.LAUNCHES == before
+    assert {k: ths.SHAPE_CALLS[k] - shaped[k] for k in shaped} == dict.fromkeys(shaped, 1)
+    for pick in (ths._fwd_for, ths._bwd_for):
+        with pytest.raises(ValueError, match="device"):
+            pick(torch.device("xpu"))
     with pytest.raises(ValueError, match="dtype"):
         ths.hyft_softmax_fwd_kernel(z.to(torch.int32), ct)
     with pytest.raises(ValueError, match="dtype"):

@@ -140,12 +140,13 @@ def test_strided_max_counts_from_split_start(step):
 
 def test_wrapper_dispatches_on_device_only():
     """The plain version (both levels) is taken for a CPU tensor and nothing
-    else: a CUDA tensor launches the one-launch kernel, any other device
-    raises."""
+    else: a CUDA tensor launches the one-launch kernel, a meta one gets the
+    output's shape alone, any other device raises."""
     assert tfa._splitk_attention_for(torch.device("cpu")) is tfa.splitk_attention_plain
     assert tfa._splitk_attention_for(torch.device("cuda")) is tfa._splitk_attention_cuda
+    assert tfa._splitk_attention_for(torch.device("meta")) is tfa._splitk_attention_shapes
     with pytest.raises(ValueError):
-        tfa._splitk_attention_for(torch.device("meta"))
+        tfa._splitk_attention_for(torch.device("xpu"))
 
 
 def test_paged_verify_is_not_ported():

@@ -11,6 +11,7 @@ order, which can move a Hyft score by one raw); the optimizers, clipping
 and schedules are elementwise and held within a few fp32 ulps.
 """
 import contextlib
+import gc
 import importlib.util
 import io
 import math
@@ -280,6 +281,37 @@ def test_microbatches_accumulate_to_the_full_batch(setup):
         assert abs(float(ma[key]) - float(mf[key])) <= 1e-5 * abs(float(mf[key]))
     for a, b in zip(tree_leaves(acc["params"]), tree_leaves(full["params"])):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["kernel", "unfused"])
+def test_train_step_leaves_no_tensor_to_the_collector(setup, mode):
+    """Every tensor of a train step is freed when its last reference goes:
+    none waits in a reference cycle for the garbage collector.  The step's
+    peak is then that of its own liveness, whenever the collector runs,
+    and the dry-run's memory meter (which frees a storage at that moment)
+    predicts it.  The second step is held: the first imports torch's lazy
+    modules, whose import-time cycles keep their callers' frames."""
+    *_, tcfg, tparams, tbatch, _ = setup
+    params = tree_map(torch.clone, tparams)
+    ocfg = optim.OptConfig(name="adamw", lr=1e-2)
+    state = {"params": params, "opt": optim.init(ocfg, params),
+             "step": torch.tensor(3, dtype=torch.int32)}
+    step = make_step_fn(build_model(tcfg), TrainConfig(attn_mode=mode, remat="full"), ocfg)
+    state, _ = step(state, tbatch)
+    gc.collect()
+    was_enabled = gc.isenabled()
+    gc.disable()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        state, _ = step(state, tbatch)
+        gc.collect()
+        held = [tuple(o.shape) for o in gc.garbage if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        if was_enabled:
+            gc.enable()
+    assert held == [], f"tensors left to the collector: {held}"
 
 
 @pytest.mark.parametrize("name", ["adamw", "sgd", "adafactor"])

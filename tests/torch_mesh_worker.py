@@ -9,6 +9,7 @@ failing rank fails the run.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pathlib
@@ -27,8 +28,10 @@ from repro_torch.core.hyft import HYFT16, HYFT32
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.fault_tolerance import elastic_remesh
 from repro_torch.kernels.flash_attention import flash_hyft_decode
+from repro_torch.launch.dryrun_meter import CollectiveMeter
 from repro_torch.launch.mesh import make_host_mesh, mesh_over
 from repro_torch.models import attention, build_model
+from repro_torch.obs.profile import count_cost
 from repro_torch.optim.compression import compressed_psum_tree
 from repro_torch.train.state import state_shardings
 from repro_torch.train.step import build_train_step
@@ -43,7 +46,10 @@ def _whole(tree):
 
 def train_case(case, params, batches):
     """Two steps of the sharded step on ``case["mesh"]``: the losses and
-    the parameters after each (whole, on every rank)."""
+    the parameters after each (whole, on every rank), the collectives of
+    the first step (the dry-run's meter: calls and bytes by kind) and the
+    cost of the second (``count_cost``: its state is placed already, as the
+    dry-run's is)."""
     cfg = smoke_config(get_config(case["arch"])).with_(**case["cfg"])
     model = build_model(cfg)
     ocfg = optim.OptConfig(**case["opt"])
@@ -56,13 +62,18 @@ def train_case(case, params, batches):
     state = {"params": params, "opt": optim.init(ocfg, params),
              "step": torch.tensor(case["step0"], dtype=torch.int32)}
     step = build_train_step(model, tcfg, ocfg, mesh, state_sh, batch_sh)
-    out = []
-    for batch in batches:
-        state, metrics = step(state, batch)
+    out, meter, cost = [], CollectiveMeter(), None
+    for i, batch in enumerate(batches):
+        if i == 1:
+            (state, metrics), cost = count_cost(step, state, batch)
+        else:
+            with meter if i == 0 else contextlib.nullcontext():
+                state, metrics = step(state, batch)
         out.append({"metrics": {k: float(v) for k, v in metrics.items()},
                     "params": _whole(state["params"])})
     placements = tree_map(lambda t: tuple(t.placements), state["params"])
-    return {"steps": out, "placements": placements}
+    return {"steps": out, "placements": placements, "collectives": meter.counts,
+            "cost": cost}
 
 
 def _train(rank, world, inputs):
@@ -168,8 +179,25 @@ def _gqa(rank, world, inputs):
     return out
 
 
+def _ssm(rank, world, inputs):
+    """mamba2 smoke's loss and gradients on mesh (2, 1), the SSD on each
+    rank's batch rows (``ssm._ssm_train_sharded``): whole, on every rank."""
+    from repro_torch.train.step import grads_of, make_loss_fn
+    cfg = smoke_config(get_config("mamba2-370m")).with_(**inputs["cfg"])
+    model = build_model(cfg)
+    mesh = make_host_mesh((2, 1), device="cpu")
+    rules = shd.default_rules(mesh, cfg)
+    psh = shd.param_shardings(mesh, inputs["params"], model.axes(), rules)
+    params = tree_map(lambda t, s: shd.place(t.clone(), s), inputs["params"], psh)
+    batch = tree_map(shd.place, inputs["batch"],
+                     shd.batch_shardings(mesh, inputs["batch"], rules))
+    with shd.mesh_compute(mesh, cfg):
+        loss, _, grads = grads_of(make_loss_fn(model, TrainConfig(remat="full")), params, batch)
+    return {"loss": float(loss.full_tensor()), "grads": _whole(grads)}
+
+
 TASKS = {"train": _train, "sp_decode": _sp_decode, "collectives": _collectives,
-         "gqa": _gqa}
+         "gqa": _gqa, "ssm": _ssm}
 
 
 def _rank(rank, world, store, tasks, inputs_path, out_dir):
